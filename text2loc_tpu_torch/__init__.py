@@ -1,0 +1,10 @@
+"""text2loc-tpu on PyTorch and CUDA: the port of the JAX package to one
+NVIDIA H100.
+
+The JAX package ``text2loc_tpu`` stays the reference. This package imports
+``torch`` and never ``jax``; it reads the numpy-only host layer of the JAX
+package (``constants``, ``config``, ``data.arrays``, ``data.synthetic``).
+Every Pallas kernel on the ported path has a hand-written CUDA kernel under
+``csrc/`` and a plain PyTorch version beside its wrapper: a CPU tensor takes
+the plain version, a CUDA tensor the kernel.
+"""

@@ -1,0 +1,77 @@
+"""Object encoder: one embedding per object from its PointNet++ features,
+mean colour, position and point count (port of
+text2loc_tpu/models/object_encoder.py, the published feature set)."""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from text2loc_tpu import constants as C
+from text2loc_tpu_torch.data.batch import ObjectSet
+from text2loc_tpu_torch.models.mlp import get_mlp
+from text2loc_tpu_torch.models.pointnet2 import PointNet2
+from text2loc_tpu_torch.ops.masked import l2_normalize
+
+
+class ObjectEncoder(nn.Module):
+    def __init__(self, embed_dim: int, cfg, dtype=torch.float32,
+                 sa_mode: str = "first"):
+        super().__init__()
+        if cfg.class_embed or cfg.color_embed:
+            raise NotImplementedError(
+                "the port encodes class and colour through PointNet and the "
+                "colour MLP (the published features); embedding tables are "
+                "not ported")
+        self.cfg = cfg
+        self.embed_dim = embed_dim
+        self.dtype = dtype
+        use = cfg.use_features
+        n_feats = 0
+        if "class" in use:
+            self.pointnet = PointNet2(cfg.pointnet, C.NUM_CLASSES, C.NUM_COLORS,
+                                      dtype=dtype, sa_mode=sa_mode)
+            level = cfg.pointnet.features_level
+            pn_dim = (cfg.pointnet.global_mlp[-1],) + tuple(cfg.pointnet.head_dims)
+            self.mlp_pointnet = get_mlp([pn_dim[level], embed_dim], dtype=dtype)
+            n_feats += 1
+        if "color" in use:
+            self.color_encoder = get_mlp([3, 64, embed_dim], dtype=dtype)
+            n_feats += 1
+        if "position" in use:
+            self.pos_encoder = get_mlp([3, 64, embed_dim], dtype=dtype)
+            n_feats += 1
+        if "num" in use:
+            self.num_encoder = get_mlp([1, 64, embed_dim], dtype=dtype)
+            n_feats += 1
+        self.n_feats = n_feats
+        if n_feats > 1:
+            self.mlp_merge = get_mlp([n_feats * embed_dim, embed_dim], dtype=dtype)
+
+    def forward(self, objects: ObjectSet) -> torch.Tensor:
+        """[B, O, embed_dim] object embeddings (not normalized)."""
+        b, o = objects.xyz.shape[:2]
+        use = self.cfg.use_features
+        dt = self.dtype
+        embeddings = []
+        if "class" in use:
+            rgb = objects.rgb if "color" in use else torch.zeros_like(objects.rgb)
+            xyz = objects.xyz.reshape(b * o, *objects.xyz.shape[2:])
+            feats = self.pointnet(xyz, rgb.reshape(b * o, *rgb.shape[2:]))
+            pn_feat = self.pointnet.features_at_level(feats)
+            embeddings.append(l2_normalize(self.mlp_pointnet(pn_feat)))
+        if "color" in use:
+            embeddings.append(l2_normalize(
+                self.color_encoder(objects.color.reshape(b * o, 3).to(dt))))
+        if "position" in use:
+            embeddings.append(l2_normalize(
+                self.pos_encoder(objects.center.reshape(b * o, 3).to(dt))))
+        if "num" in use:
+            num = objects.num_points.reshape(b * o, 1).to(dt)
+            num = (num - C.NUM_POINTS_MEAN) / C.NUM_POINTS_STD
+            embeddings.append(l2_normalize(self.num_encoder(num)))
+        if len(embeddings) > 1:
+            merged = self.mlp_merge(torch.cat(embeddings, dim=-1))
+        else:
+            merged = embeddings[0]
+        return merged.reshape(b, o, self.embed_dim)

@@ -1,0 +1,177 @@
+"""Eval-mode post-LN transformer layers with key-padding masks (port of
+text2loc_tpu/models/transformer.py: TorchEncoderLayer, TorchDecoderLayer).
+
+Where the JAX package runs its fused Pallas blocks, the port runs its fused
+blocks (ops/mha.py, ops/ffn.py: the CUDA kernel on the card, the plain
+version on the CPU), under the same gates:
+
+* attention block: d_model a multiple of 128, query and memory widths equal
+  to d_model, and d_model <= 256, or d_model <= 1024 with bf16 activations;
+* feed-forward block: d_model and the hidden width multiples of 128 and
+  d_model <= 256.
+
+Everything else (the small test widths, the f32 d=1024 stack, the d=1024
+feed-forward) runs as stock tensor ops, what the JAX package leaves to XLA.
+Weights of the blocks are stored [in, out], the layout the kernels read.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from text2loc_tpu_torch.ops.ffn import ffn_addln
+from text2loc_tpu_torch.ops.mha import mha_addln
+
+LN_EPS = 1e-5
+
+
+class Projection(nn.Module):
+    """Dense layer stored [in, out] (flax layout): y = x @ weight + bias."""
+
+    def __init__(self, d_in: int, d_out: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(d_in, d_out))
+        self.bias = nn.Parameter(torch.zeros(d_out))
+        nn.init.normal_(self.weight, std=1.0 / math.sqrt(d_in))
+
+    def forward(self, x, dtype):
+        return x.to(dtype) @ self.weight.to(dtype) + self.bias.to(dtype)
+
+
+class MultiheadAttentionParams(nn.Module):
+    """q/k/v/out projections, [D, H*DH] and [H*DH, D] (the flax DenseGeneral
+    kernels with the head axes flattened)."""
+
+    def __init__(self, d_model: int, num_heads: int):
+        super().__init__()
+        if d_model % num_heads:
+            raise ValueError(f"d_model {d_model} not divisible by {num_heads} heads")
+        self.num_heads = num_heads
+        self.query = Projection(d_model, d_model)
+        self.key = Projection(d_model, d_model)
+        self.value = Projection(d_model, d_model)
+        self.out = Projection(d_model, d_model)
+
+
+def fused_attention_ok(d_model: int, x, kv) -> bool:
+    """The JAX package's gate for its fused attention block
+    (transformer.py:98-119, 304-306), minus its backend and env switches."""
+    if d_model % 128 or not (x.shape[-1] == d_model == kv.shape[-1]):
+        return False
+    return d_model <= 256 or (d_model <= 1024 and x.dtype == torch.bfloat16)
+
+
+def fused_ffn_ok(d_model: int, dim_feedforward: int) -> bool:
+    """The JAX package's gate for its fused feed-forward block
+    (transformer.py:88-95, 155-156)."""
+    return d_model % 128 == 0 and dim_feedforward % 128 == 0 and d_model <= 256
+
+
+def add_layernorm(x, res, norm: nn.LayerNorm, out_dtype):
+    """LayerNorm(x + res): f32 statistics, biased variance."""
+    s = (x + res).float()
+    mu = s.mean(dim=-1, keepdim=True)
+    var = torch.square(s - mu).mean(dim=-1, keepdim=True)
+    y = (s - mu) * torch.rsqrt(var + LN_EPS)
+    return (y * norm.weight + norm.bias).to(out_dtype)
+
+
+def _stock_attention(x, kv, p: MultiheadAttentionParams, key_mask, dtype):
+    """flax's DenseGeneral projections + dot_product_attention in `dtype`."""
+    b, lq, d = x.shape
+    lk = kv.shape[1]
+    h = p.num_heads
+    dh = d // h
+    q = p.query(x, dtype).reshape(b, lq, h, dh)
+    k = p.key(kv, dtype).reshape(b, lk, h, dh)
+    v = p.value(kv, dtype).reshape(b, lk, h, dh)
+    q = q / torch.sqrt(torch.tensor(float(dh), dtype=dtype))
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k)
+    if key_mask is not None:
+        s = torch.where(key_mask.to(torch.bool)[:, None, None, :], s,
+                        torch.full((), torch.finfo(dtype).min, dtype=s.dtype,
+                                   device=s.device))
+    w = torch.softmax(s, dim=-1).to(dtype)
+    o = torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(b, lq, d)
+    return p.out(o, dtype)
+
+
+def attention_block(x, kv, key_mask, attn: MultiheadAttentionParams,
+                    norm: nn.LayerNorm, dtype):
+    """LayerNorm(x + MHA(x, kv)) — pass `kv is x` for self-attention."""
+    d = attn.query.weight.shape[1]
+    if fused_attention_ok(d, x, kv):
+        return mha_addln(
+            x, kv, attn.query.weight, attn.query.bias, attn.key.weight,
+            attn.key.bias, attn.value.weight, attn.value.bias, attn.out.weight,
+            attn.out.bias, norm.weight, norm.bias, key_mask,
+            num_heads=attn.num_heads, eps=LN_EPS)
+    res = _stock_attention(x, kv, attn, key_mask, dtype)
+    return add_layernorm(x, res, norm, dtype)
+
+
+def feed_forward(x, linear1: Projection, linear2: Projection, norm: nn.LayerNorm,
+                 dtype):
+    """LayerNorm(x + linear2(relu(linear1(x))))."""
+    d, f = linear1.weight.shape
+    if fused_ffn_ok(d, f):
+        return ffn_addln(x.contiguous(), linear1.weight, linear1.bias, linear2.weight,
+                         linear2.bias, norm.weight, norm.bias, eps=LN_EPS)
+    h = torch.relu(linear1(x, dtype))
+    return add_layernorm(x, linear2(h, dtype), norm, dtype)
+
+
+class EncoderLayer(nn.Module):
+    """Post-LN self-attention encoder layer (torch defaults, eval)."""
+
+    def __init__(self, d_model: int, num_heads: int, dim_feedforward: int,
+                 dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.self_attn = MultiheadAttentionParams(d_model, num_heads)
+        self.norm1 = nn.LayerNorm(d_model)
+        self.linear1 = Projection(d_model, dim_feedforward)
+        self.linear2 = Projection(dim_feedforward, d_model)
+        self.norm2 = nn.LayerNorm(d_model)
+
+    def forward(self, x, mask=None):
+        x = x.contiguous()
+        x = attention_block(x, x, mask, self.self_attn, self.norm1, self.dtype)
+        return feed_forward(x, self.linear1, self.linear2, self.norm2, self.dtype)
+
+
+class DecoderLayer(nn.Module):
+    """Post-LN decoder layer: self-attn -> cross-attn -> feed-forward.
+
+    `stage` factors the layer at the self/cross boundary (exact): "self"
+    runs the self-attention block only, "rest" takes a tgt that already went
+    through it."""
+
+    def __init__(self, d_model: int, num_heads: int, dim_feedforward: int,
+                 dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.self_attn = MultiheadAttentionParams(d_model, num_heads)
+        self.norm1 = nn.LayerNorm(d_model)
+        self.cross_attn = MultiheadAttentionParams(d_model, num_heads)
+        self.norm2 = nn.LayerNorm(d_model)
+        self.linear1 = Projection(d_model, dim_feedforward)
+        self.linear2 = Projection(dim_feedforward, d_model)
+        self.norm3 = nn.LayerNorm(d_model)
+
+    def forward(self, tgt, memory=None, tgt_mask=None, memory_mask=None,
+                stage: str = "full"):
+        if stage not in ("full", "self", "rest"):
+            raise ValueError(stage)
+        tgt = tgt.contiguous()
+        if stage != "rest":
+            tgt = attention_block(tgt, tgt, tgt_mask, self.self_attn, self.norm1,
+                                  self.dtype)
+            if stage == "self":
+                return tgt
+        tgt = attention_block(tgt, memory.contiguous(), memory_mask, self.cross_attn,
+                              self.norm2, self.dtype)
+        return feed_forward(tgt, self.linear1, self.linear2, self.norm3, self.dtype)
