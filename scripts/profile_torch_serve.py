@@ -47,8 +47,8 @@ BATCHES = (1, 64)
 
 
 def build_map(cfg):
-    from text2loc_tpu.data.arrays import MultiSceneArrays
-    from text2loc_tpu.data.synthetic import make_scene
+    from text2loc_tpu_torch.data.arrays import MultiSceneArrays
+    from text2loc_tpu_torch.data.synthetic import make_scene
 
     m = cfg.model
     return MultiSceneArrays([
@@ -112,7 +112,7 @@ def main() -> int:
         print("profile_torch_serve: no CUDA device", file=sys.stderr)
         return 2
 
-    from text2loc_tpu.config import Config
+    from text2loc_tpu_torch.config import Config
     from text2loc_tpu_torch.convert import build_model, init_weights
     from text2loc_tpu_torch.models.text_embedding import HintTextEmbedder
     from text2loc_tpu_torch.ops import _cuda

@@ -55,7 +55,7 @@ def test_pointnet2_matches_jax(small_cfg, mode, fused):
     want = jmod.apply({"params": variables["params"], "batch_stats": stats},
                       jnp.asarray(xyz), jnp.asarray(rgb), train=False)
 
-    port = PointNet2(pcfg, C.NUM_CLASSES, C.NUM_COLORS, sa_mode=mode)
+    port = PointNet2(pcfg, C.NUM_CLASSES, C.NUM_COLORS, sa_mode=mode).eval()
     port.load_state_dict(convert_tree(variables["params"], stats))
     with torch.no_grad():
         got = port(_t(xyz), _t(rgb))
@@ -69,7 +69,7 @@ def _layer_case(jlayer, port_layer, seed, args_np, **call_kw):
     want = jlayer.apply(variables, *(jnp.asarray(a) for a in args_np), train=False,
                         **call_kw)
     port_layer.load_state_dict(convert_tree(variables["params"], {}))
-    return np.asarray(want), port_layer
+    return np.asarray(want), port_layer.eval()
 
 
 @pytest.mark.parametrize("d", [32, 128])   # stock ops / the fused blocks' path
@@ -100,7 +100,7 @@ def test_decoder_layer_matches_jax(stage):
         jnp.asarray(mm))
     want = jlayer.apply(variables, jnp.asarray(tgt), jnp.asarray(mem),
                         jnp.asarray(tm), jnp.asarray(mm), train=False, stage=stage)
-    layer = DecoderLayer(d, 4, 4 * d)
+    layer = DecoderLayer(d, 4, 4 * d).eval()
     layer.load_state_dict(convert_tree(variables["params"], {}))
     with torch.no_grad():
         got = layer(_t(tgt), _t(mem), _t(tm), _t(mm), stage=stage)

@@ -69,7 +69,8 @@ def both_localizers(small_cfg, small_embedder, small_data):
         models.append(model)
     port_emb = HintTextEmbedder.compositional(cfg.model.text_embed_dim,
                                               cfg.model.max_hint_tokens)
-    port_loc = Localizer(data, models[0], models[1], port_emb, cfg, top_k=3)
+    port_loc = Localizer(data, models[0], models[1], port_emb, cfg, top_k=3,
+                         device="cpu")
     return jax_loc, port_loc
 
 
@@ -114,7 +115,7 @@ def test_first_mode_localizer_buckets(small_cfg, small_data):
     fm = init_weights(build_model(cfg, "fine"), gen)
     emb = HintTextEmbedder.compositional(cfg.model.text_embed_dim,
                                          cfg.model.max_hint_tokens)
-    loc = Localizer(data, cm, fm, emb, cfg, top_k=3)
+    loc = Localizer(data, cm, fm, emb, cfg, top_k=3, device="cpu")
     full = loc.localize(data.hint_dir[:8], data.hint_color[:8], data.hint_label[:8])
     odd = loc.localize(data.hint_dir[:5], data.hint_color[:5], data.hint_label[:5])
     np.testing.assert_array_equal(odd.cell_indices, full.cell_indices[:5])
@@ -150,31 +151,40 @@ def test_compositional_table_is_byte_equal(dims):
 
 
 def test_port_imports_and_serves_without_jax():
-    """In a fresh interpreter (this one has jax loaded by conftest)."""
+    """In a fresh interpreter (this one has jax loaded by conftest): the port
+    alone builds a map, serves and takes a CPU train step, and loads no
+    module of the JAX package and no jax."""
     code = textwrap.dedent("""
-        import sys
+        import dataclasses, sys
         import numpy as np, torch
-        import text2loc_tpu_torch
-        from text2loc_tpu.config import small_test_config
-        from text2loc_tpu.data.arrays import MultiSceneArrays
-        from text2loc_tpu.data.synthetic import make_scene
+        from text2loc_tpu_torch.config import small_test_config
         from text2loc_tpu_torch.convert import build_model, init_weights
+        from text2loc_tpu_torch.data.arrays import MultiSceneArrays
+        from text2loc_tpu_torch.data.synthetic import make_scene
         from text2loc_tpu_torch.models.text_embedding import HintTextEmbedder
         from text2loc_tpu_torch.serving import Localizer
+        from text2loc_tpu_torch.training import steps
         cfg = small_test_config()
         data = MultiSceneArrays([make_scene(
             "0000", num_cells=4, num_poses=4, object_slots=cfg.model.object_size,
             num_points=cfg.model.pointnet.num_points,
             num_mentioned=cfg.model.num_mentioned)])
         gen = torch.Generator().manual_seed(0)
-        loc = Localizer(data, init_weights(build_model(cfg, "coarse"), gen),
-                        init_weights(build_model(cfg, "fine"), gen),
-                        HintTextEmbedder.compositional(cfg.model.text_embed_dim,
-                                                       cfg.model.max_hint_tokens),
-                        cfg, top_k=2)
+        emb = HintTextEmbedder.compositional(cfg.model.text_embed_dim,
+                                             cfg.model.max_hint_tokens)
+        coarse = init_weights(build_model(cfg, "coarse"), gen)
+        loc = Localizer(data, coarse, init_weights(build_model(cfg, "fine"), gen),
+                        emb, cfg, top_k=2, device="cpu")
         res = loc.localize(data.hint_dir, data.hint_color, data.hint_label)
         assert np.isfinite(res.candidates_w).all(), res
-        assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+        opt = steps.make_optimizer(coarse.parameters(), cfg, steps_per_epoch=1)
+        step = steps.make_coarse_train_step(coarse, emb, cfg, opt, gen)
+        loss = float(step(data.gather_coarse(np.arange(4), cfg.model.object_size))["loss"])
+        assert np.isfinite(loss), loss
+        loaded = sorted(m for m in sys.modules
+                        if m in ("jax", "text2loc_tpu")
+                        or m.startswith(("jax.", "text2loc_tpu.")))
+        assert not loaded, loaded
         print("OK")
     """)
     env = dict(os.environ)
@@ -183,3 +193,11 @@ def test_port_imports_and_serves_without_jax():
     proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0 and "OK" in proc.stdout, proc.stderr[-3000:]
+
+
+def test_localizer_defaults_to_the_card():
+    """device=None is not a CPU shortcut: the serve's entry point runs on
+    the card unless the caller asks for the CPU."""
+    import inspect
+
+    assert inspect.signature(Localizer).parameters["device"].default == "cuda"

@@ -116,7 +116,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     eval BN is exercised). The fine offset head starts near the cell centre
     (bias 0.5, small last-layer weights), as a trained regressor predicts
     positions inside the cell. `generator` is a CPU torch.Generator."""
-    from text2loc_tpu_torch.models.mlp import BatchNormEval
+    from text2loc_tpu_torch.models.mlp import MaskedBatchNorm
     from text2loc_tpu_torch.models.transformer import Projection
 
     def normal(t, std, mean=0.0):
@@ -132,7 +132,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
         elif isinstance(mod, nn.LayerNorm):
             normal(mod.weight, 0.1, 1.0)
             normal(mod.bias, 0.1)
-        elif isinstance(mod, BatchNormEval):
+        elif isinstance(mod, MaskedBatchNorm):
             normal(mod.weight, 0.1, 1.0)
             normal(mod.bias, 0.1)
             normal(mod.running_mean, 0.1)

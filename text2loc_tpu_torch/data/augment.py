@@ -1,10 +1,20 @@
-"""Eval-mode point-cloud transform (port of the augment=False branch of
-text2loc_tpu/data/augment.py:point_cloud_transform, and normalize_scale)."""
+"""Point-cloud transforms and training augmentations (port of
+text2loc_tpu/data/augment.py). Random draws come from an explicit
+torch.Generator on the tensors' device: the same distributions as the JAX
+package's, not the same draws.
+
+Batches are dicts of tensors ([B, ...] leading axis), as gathered by
+MultiSceneArrays and moved to the device.
+"""
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
+
+from text2loc_tpu_torch import constants as C
 
 
 def normalize_scale(xyz: torch.Tensor) -> torch.Tensor:
@@ -13,6 +23,28 @@ def normalize_scale(xyz: torch.Tensor) -> torch.Tensor:
     peak = centered.abs().amax(dim=(-2, -1), keepdim=True)
     scale = (1.0 / torch.clamp(peak, min=1e-12)) * 0.999999
     return centered * scale
+
+
+def resample_points(xyz, rgb, generator, num_points: int):
+    """Random point resampling with replacement (FixedPoints semantics):
+    [..., P, 3] -> [..., num_points, 3]."""
+    p = xyz.shape[-2]
+    lead = xyz.shape[:-2]
+    idx = torch.randint(0, p, lead + (num_points,), generator=generator,
+                        device=xyz.device)
+    sel = idx[..., None].expand(lead + (num_points, 3))
+    return torch.gather(xyz, -2, sel), torch.gather(rgb, -2, sel)
+
+
+def random_rotate_z(xyz, generator, max_degrees: float = 120.0):
+    """Per-object random rotation about z (PyG RandomRotate(., axis=2)),
+    angle uniform in [-max_degrees, max_degrees)."""
+    lead = xyz.shape[:-2]
+    u = torch.rand(lead, generator=generator, device=xyz.device)
+    ang = (u * (2 * max_degrees) - max_degrees) * (math.pi / 180.0)
+    cos, sin = torch.cos(ang)[..., None], torch.sin(ang)[..., None]
+    x, y, z = xyz[..., 0], xyz[..., 1], xyz[..., 2]
+    return torch.stack([cos * x - sin * y, sin * x + cos * y, z], dim=-1)
 
 
 def point_cloud_transform_eval(xyz: torch.Tensor, rgb: torch.Tensor,
@@ -27,3 +59,54 @@ def point_cloud_transform_eval(xyz: torch.Tensor, rgb: torch.Tensor,
         xyz = xyz.index_select(-2, idx)
         rgb = rgb.index_select(-2, idx)
     return normalize_scale(xyz), rgb
+
+
+def point_cloud_transform(xyz, rgb, generator, num_points: int, augment: bool):
+    """train: FixedPoints -> RandomRotate(120, z) -> NormalizeScale;
+    eval: point_cloud_transform_eval."""
+    if not augment:
+        return point_cloud_transform_eval(xyz, rgb, num_points)
+    xyz, rgb = resample_points(xyz, rgb, generator, num_points)
+    return normalize_scale(random_rotate_z(xyz, generator)), rgb
+
+
+def flip_coarse(batch: dict, generator) -> dict:
+    """Random horizontal / vertical flip of cell, pose and hint directions,
+    each with p = 0.5 per sample: x -> 1 - x (and/or y -> 1 - y) in
+    normalized cell space, direction words remapped east<->west /
+    north<->south."""
+    b = batch["mask"].shape[0]
+    dev = batch["mask"].device
+    do_h = torch.rand(b, generator=generator, device=dev) < 0.5
+    do_v = torch.rand(b, generator=generator, device=dev) < 0.5
+
+    def flip_axis(coords, do, axis):
+        flipped = coords.clone()
+        flipped[..., axis] = 1.0 - coords[..., axis]
+        cond = do.reshape((b,) + (1,) * (coords.ndim - 1))
+        return torch.where(cond, flipped, coords)
+
+    out = dict(batch)
+    for name in ("xyz", "center", "pose_in_cell", "target"):
+        if name in batch:
+            out[name] = flip_axis(flip_axis(batch[name], do_h, 0), do_v, 1)
+    h_map = torch.as_tensor(C.DIRECTION_H_FLIP, device=dev).long()
+    v_map = torch.as_tensor(C.DIRECTION_V_FLIP, device=dev).long()
+    d = batch["hint_dir"].long()
+    d = torch.where(do_h[:, None], h_map[d], d)
+    d = torch.where(do_v[:, None], v_map[d], d)
+    out["hint_dir"] = d.to(batch["hint_dir"].dtype)
+    return out
+
+
+def shuffle_hints(batch: dict, generator) -> dict:
+    """Per-sample random permutation of the hint axis, the same for every
+    hint field."""
+    b, s = batch["hint_dir"].shape
+    noise = torch.rand((b, s), generator=generator, device=batch["hint_dir"].device)
+    perm = torch.argsort(noise, dim=1)
+    out = dict(batch)
+    for name in ("hint_dir", "hint_color", "hint_label", "sentence_mask"):
+        if name in batch:
+            out[name] = torch.gather(batch[name], 1, perm)
+    return out

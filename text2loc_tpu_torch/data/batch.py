@@ -28,3 +28,13 @@ class TextSet(NamedTuple):
     token_embeds: torch.Tensor   # [B, S, T, E]
     token_mask: torch.Tensor     # [B, S, T] bool
     sentence_mask: torch.Tensor  # [B, S] bool (True = hint present)
+
+
+class FineBatch(NamedTuple):
+    """One training batch of the fine regressor (O = pad_size). `target` is
+    the pose normalized in the candidate cell."""
+
+    objects: ObjectSet
+    text: TextSet
+    target: torch.Tensor        # [B, 2]
+    pose_in_cell: torch.Tensor  # [B, 2] ground-truth normalized pose

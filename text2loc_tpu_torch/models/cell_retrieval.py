@@ -28,16 +28,35 @@ def model_dtypes(cfg):
     return dtype, DTYPES[cfg.body_dtype] if cfg.body_dtype else dtype
 
 
+def default_fused_train(cfg, kind: str):
+    """Which SA levels train through the fused kernel: the JAX package's
+    measured per-stage defaults for an f32 body on the 3-level ladder
+    (coarse all three, fine levels 2-3; training/steps.py), else the last
+    level only."""
+    n = len(cfg.pointnet.sa_num_points)
+    body = cfg.body_dtype or cfg.train_dtype
+    if n == 3 and body == "float32":
+        return (True, True, True) if kind == "coarse" else (False, True, True)
+    return (False,) * (n - 1) + (True,)
+
+
 class CellRetrievalNetwork(nn.Module):
-    def __init__(self, cfg, sa_mode: str = "first"):
+    """`fused_train`: per SA level, whether training runs the fused kernel
+    (default: default_fused_train(cfg, "coarse"))."""
+
+    def __init__(self, cfg, sa_mode: str = "first", fused_train=None):
         super().__init__()
         self.cfg = cfg
         self.dtype, body_dtype = model_dtypes(cfg)
         d = cfg.coarse_embed_dim
         self.embed_dim = d
-        self.object_encoder = ObjectEncoder(d, cfg, dtype=body_dtype, sa_mode=sa_mode)
+        if fused_train is None:
+            fused_train = default_fused_train(cfg, "coarse")
+        self.object_encoder = ObjectEncoder(d, cfg, dtype=body_dtype, sa_mode=sa_mode,
+                                            fused_train=fused_train)
         self.obj_inter = nn.ModuleList(
-            EncoderLayer(d, cfg.object_inter_num_heads, 2 * d, dtype=self.dtype)
+            EncoderLayer(d, cfg.object_inter_num_heads, 2 * d, dtype=self.dtype,
+                         dropout_rate=cfg.dropout_rate)
             for _ in range(cfg.object_inter_num_layers))
         self.language_encoder = LanguageEncoder(
             d, cfg.text_embed_dim, is_fine=False,
@@ -45,7 +64,11 @@ class CellRetrievalNetwork(nn.Module):
             intra_num_heads=cfg.intra_num_heads,
             inter_num_layers=cfg.inter_num_layers,
             inter_num_heads=cfg.inter_num_heads,
-            mask_padded=cfg.mask_padded, dtype=self.dtype)
+            mask_padded=cfg.mask_padded, dtype=self.dtype, dropout_rate=cfg.dropout_rate)
+
+    def forward(self, objects: ObjectSet, text: TextSet):
+        """(cell embeddings [B, D], text embeddings [B, D]), both normalized."""
+        return self.encode_objects(objects), self.encode_text(text)
 
     def encode_text(self, text: TextSet) -> torch.Tensor:
         return l2_normalize(self.language_encoder(text).float())

@@ -1,6 +1,7 @@
 """Fine position regressor: cascaded cross-attention transformer (CCT) over
 a cell's objects and a pose's hints (port of
-text2loc_tpu/models/cross_matcher.py, eval).
+text2loc_tpu/models/cross_matcher.py). forward() is the training forward
+through the full cascade.
 
 cct(obj, hints) == cct_tail(cct_obj_pre(obj), ..., hints, cct_hints_pre(hints))
 exactly: the cascade's first self-attention blocks read one side only, so
@@ -14,7 +15,7 @@ import torch
 from torch import nn
 
 from text2loc_tpu_torch.data.batch import ObjectSet, TextSet
-from text2loc_tpu_torch.models.cell_retrieval import model_dtypes
+from text2loc_tpu_torch.models.cell_retrieval import default_fused_train, model_dtypes
 from text2loc_tpu_torch.models.language_encoder import LanguageEncoder
 from text2loc_tpu_torch.models.mlp import get_mlp_offset
 from text2loc_tpu_torch.models.object_encoder import ObjectEncoder
@@ -23,22 +24,29 @@ from text2loc_tpu_torch.ops.masked import l2_normalize, masked_max
 
 
 class CrossMatch(nn.Module):
-    def __init__(self, cfg, sa_mode: str = "first"):
+    """`fused_train`: per SA level, whether training runs the fused kernel
+    (default: default_fused_train(cfg, "fine"))."""
+
+    def __init__(self, cfg, sa_mode: str = "first", fused_train=None):
         super().__init__()
         self.cfg = cfg
         self.dtype, body_dtype = model_dtypes(cfg)
         d = cfg.fine_embed_dim
         self.embed_dim = d
-        self.object_encoder = ObjectEncoder(d, cfg, dtype=body_dtype, sa_mode=sa_mode)
+        if fused_train is None:
+            fused_train = default_fused_train(cfg, "fine")
+        self.object_encoder = ObjectEncoder(d, cfg, dtype=body_dtype, sa_mode=sa_mode,
+                                            fused_train=fused_train)
         self.language_encoder = LanguageEncoder(
             d, cfg.text_embed_dim, is_fine=True,
             intra_num_layers=cfg.fine_intra_num_layers,
             intra_num_heads=cfg.fine_intra_num_heads,
-            mask_padded=cfg.mask_padded, dtype=self.dtype)
+            mask_padded=cfg.mask_padded, dtype=self.dtype, dropout_rate=cfg.dropout_rate)
         n_layers = max(cfg.fine_num_decoder_layers, 1)
 
         def dec():
-            return DecoderLayer(d, cfg.fine_num_decoder_heads, 4 * d, dtype=self.dtype)
+            return DecoderLayer(d, cfg.fine_num_decoder_heads, 4 * d, dtype=self.dtype,
+                                dropout_rate=cfg.dropout_rate)
 
         self.cross_hints = nn.ModuleList(dec() for _ in range(n_layers))
         self.cross_objects = (nn.ModuleList(dec() for _ in range(n_layers))
@@ -75,6 +83,12 @@ class CrossMatch(nn.Module):
         else:
             hints = self.cross_hints[0](hints, obj, tgt_mask=hm, memory_mask=om)
         return self._offsets(hints, sentence_mask)
+
+    def forward(self, objects: ObjectSet, text: TextSet) -> torch.Tensor:
+        """[B, 2] predicted normalized positions: the objects and hints
+        through the full cascade (the training forward)."""
+        obj = self.encode_objects(objects)
+        return self.cct(obj, objects.mask, self.encode_hints(text), text.sentence_mask)
 
     def cct_obj_pre(self, obj, obj_mask) -> torch.Tensor:
         """Per cell: the layer-0 object self-attention block."""

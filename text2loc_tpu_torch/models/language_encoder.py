@@ -25,7 +25,8 @@ class LanguageEncoder(nn.Module):
     def __init__(self, embed_dim: int, token_dim: int, is_fine: bool = False,
                  intra_num_layers: int = 1, intra_num_heads: int = 4,
                  inter_num_layers: int = 1, inter_num_heads: int = 4,
-                 mask_padded: bool = True, dtype=torch.float32):
+                 mask_padded: bool = True, dtype=torch.float32,
+                 dropout_rate: float = 0.1):
         super().__init__()
         self.embed_dim = embed_dim
         self.token_dim = token_dim
@@ -34,12 +35,14 @@ class LanguageEncoder(nn.Module):
         self.dtype = dtype
         e = token_dim
         self.intra = nn.ModuleList(
-            EncoderLayer(e, intra_num_heads, 4 * e, dtype=dtype)
+            EncoderLayer(e, intra_num_heads, 4 * e, dtype=dtype,
+                         dropout_rate=dropout_rate)
             for _ in range(intra_num_layers))
         self.inter_mlp = get_mlp2((e, embed_dim), dtype=dtype)
         if not is_fine:
             self.inter = nn.ModuleList(
-                EncoderLayer(embed_dim, inter_num_heads, 4 * embed_dim, dtype=dtype)
+                EncoderLayer(embed_dim, inter_num_heads, 4 * embed_dim, dtype=dtype,
+                             dropout_rate=dropout_rate)
                 for _ in range(inter_num_layers))
 
     def encode_sentences(self, text: TextSet) -> torch.Tensor:
@@ -52,7 +55,8 @@ class LanguageEncoder(nn.Module):
         for layer in self.intra:
             x = layer(x, mask=token_mask if self.mask_padded else None)
         x = masked_max(x, token_mask, dim=1) if self.mask_padded else x.amax(dim=1)
-        return self.inter_mlp(x).reshape(b, s, self.embed_dim)
+        sent_mask = text.sentence_mask.reshape(b * s) if self.mask_padded else None
+        return self.inter_mlp(x, sent_mask).reshape(b, s, self.embed_dim)
 
     def finish_coarse(self, x: torch.Tensor, sentence_mask) -> torch.Tensor:
         """Cross-sentence head: [B, S, D] -> [B, D] (coarse path only)."""

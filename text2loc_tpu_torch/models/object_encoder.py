@@ -7,7 +7,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from text2loc_tpu import constants as C
+from text2loc_tpu_torch import constants as C
 from text2loc_tpu_torch.data.batch import ObjectSet
 from text2loc_tpu_torch.models.mlp import get_mlp
 from text2loc_tpu_torch.models.pointnet2 import PointNet2
@@ -15,8 +15,10 @@ from text2loc_tpu_torch.ops.masked import l2_normalize
 
 
 class ObjectEncoder(nn.Module):
+    """`fused_train`: per SA level, whether training runs the fused kernel."""
+
     def __init__(self, embed_dim: int, cfg, dtype=torch.float32,
-                 sa_mode: str = "first"):
+                 sa_mode: str = "first", fused_train=None):
         super().__init__()
         if cfg.class_embed or cfg.color_embed:
             raise NotImplementedError(
@@ -30,7 +32,8 @@ class ObjectEncoder(nn.Module):
         n_feats = 0
         if "class" in use:
             self.pointnet = PointNet2(cfg.pointnet, C.NUM_CLASSES, C.NUM_COLORS,
-                                      dtype=dtype, sa_mode=sa_mode)
+                                      dtype=dtype, sa_mode=sa_mode,
+                                      fused_train=fused_train)
             level = cfg.pointnet.features_level
             pn_dim = (cfg.pointnet.global_mlp[-1],) + tuple(cfg.pointnet.head_dims)
             self.mlp_pointnet = get_mlp([pn_dim[level], embed_dim], dtype=dtype)
@@ -49,29 +52,33 @@ class ObjectEncoder(nn.Module):
             self.mlp_merge = get_mlp([n_feats * embed_dim, embed_dim], dtype=dtype)
 
     def forward(self, objects: ObjectSet) -> torch.Tensor:
-        """[B, O, embed_dim] object embeddings (not normalized)."""
+        """[B, O, embed_dim] object embeddings (not normalized). In training
+        the BatchNorm statistics count the real objects only."""
         b, o = objects.xyz.shape[:2]
         use = self.cfg.use_features
         dt = self.dtype
+        mask = objects.mask.reshape(b * o).to(torch.bool)
         embeddings = []
         if "class" in use:
             rgb = objects.rgb if "color" in use else torch.zeros_like(objects.rgb)
             xyz = objects.xyz.reshape(b * o, *objects.xyz.shape[2:])
-            feats = self.pointnet(xyz, rgb.reshape(b * o, *rgb.shape[2:]))
+            feats = self.pointnet(xyz, rgb.reshape(b * o, *rgb.shape[2:]), mask)
             pn_feat = self.pointnet.features_at_level(feats)
-            embeddings.append(l2_normalize(self.mlp_pointnet(pn_feat)))
+            if self.cfg.pointnet.freeze:
+                pn_feat = pn_feat.detach()
+            embeddings.append(l2_normalize(self.mlp_pointnet(pn_feat, mask)))
         if "color" in use:
             embeddings.append(l2_normalize(
-                self.color_encoder(objects.color.reshape(b * o, 3).to(dt))))
+                self.color_encoder(objects.color.reshape(b * o, 3).to(dt), mask)))
         if "position" in use:
             embeddings.append(l2_normalize(
-                self.pos_encoder(objects.center.reshape(b * o, 3).to(dt))))
+                self.pos_encoder(objects.center.reshape(b * o, 3).to(dt), mask)))
         if "num" in use:
             num = objects.num_points.reshape(b * o, 1).to(dt)
             num = (num - C.NUM_POINTS_MEAN) / C.NUM_POINTS_STD
-            embeddings.append(l2_normalize(self.num_encoder(num)))
+            embeddings.append(l2_normalize(self.num_encoder(num, mask)))
         if len(embeddings) > 1:
-            merged = self.mlp_merge(torch.cat(embeddings, dim=-1))
+            merged = self.mlp_merge(torch.cat(embeddings, dim=-1), mask)
         else:
             merged = embeddings[0]
         return merged.reshape(b, o, self.embed_dim)

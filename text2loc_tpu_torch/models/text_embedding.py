@@ -9,7 +9,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from text2loc_tpu import constants as C
+from text2loc_tpu_torch import constants as C
 from text2loc_tpu_torch.data.batch import TextSet
 
 

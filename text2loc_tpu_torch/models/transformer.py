@@ -1,9 +1,9 @@
-"""Eval-mode post-LN transformer layers with key-padding masks (port of
+"""Post-LN transformer layers with key-padding masks (port of
 text2loc_tpu/models/transformer.py: TorchEncoderLayer, TorchDecoderLayer).
 
-Where the JAX package runs its fused Pallas blocks, the port runs its fused
-blocks (ops/mha.py, ops/ffn.py: the CUDA kernel on the card, the plain
-version on the CPU), under the same gates:
+In eval, where the JAX package runs its fused Pallas blocks, the port runs
+its fused blocks (ops/mha.py, ops/ffn.py: the CUDA kernel on the card, the
+plain version on the CPU), under the same gates:
 
 * attention block: d_model a multiple of 128, query and memory widths equal
   to d_model, and d_model <= 256, or d_model <= 1024 with bf16 activations;
@@ -12,6 +12,10 @@ version on the CPU), under the same gates:
 
 Everything else (the small test widths, the f32 d=1024 stack, the d=1024
 feed-forward) runs as stock tensor ops, what the JAX package leaves to XLA.
+In training (module.train()) every fused gate closes and the stock ops run
+with dropout at the torch positions: the attention weights, the attention
+output, the feed-forward hidden after the ReLU and the feed-forward output.
+Dropout draws from the generator set with set_dropout_generator.
 Weights of the blocks are stored [in, out], the layout the kernels read.
 """
 
@@ -26,6 +30,31 @@ from text2loc_tpu_torch.ops.ffn import ffn_addln
 from text2loc_tpu_torch.ops.mha import mha_addln
 
 LN_EPS = 1e-5
+
+
+class Dropout(nn.Module):
+    """Inverted dropout (keep with 1 - p, scale 1 / (1 - p)) in training,
+    drawing its mask from `generator` (a torch.Generator on the tensors'
+    device; None = the default one). The identity in eval or at p = 0."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+        self.generator = None
+
+    def forward(self, x):
+        if not self.training or self.p == 0.0:
+            return x
+        keep = torch.rand(x.shape, generator=self.generator, device=x.device) >= self.p
+        return x * keep.to(x.dtype) / torch.tensor(1.0 - self.p, dtype=x.dtype,
+                                                    device=x.device)
+
+
+def set_dropout_generator(model: nn.Module, generator) -> None:
+    """Make every Dropout of `model` draw from `generator`."""
+    for mod in model.modules():
+        if isinstance(mod, Dropout):
+            mod.generator = generator
 
 
 class Projection(nn.Module):
@@ -79,8 +108,10 @@ def add_layernorm(x, res, norm: nn.LayerNorm, out_dtype):
     return (y * norm.weight + norm.bias).to(out_dtype)
 
 
-def _stock_attention(x, kv, p: MultiheadAttentionParams, key_mask, dtype):
-    """flax's DenseGeneral projections + dot_product_attention in `dtype`."""
+def _stock_attention(x, kv, p: MultiheadAttentionParams, key_mask, dtype,
+                     dropout: Dropout):
+    """flax's DenseGeneral projections + dot_product_attention in `dtype`
+    (dropout on the attention weights)."""
     b, lq, d = x.shape
     lk = kv.shape[1]
     h = p.num_heads
@@ -94,43 +125,45 @@ def _stock_attention(x, kv, p: MultiheadAttentionParams, key_mask, dtype):
         s = torch.where(key_mask.to(torch.bool)[:, None, None, :], s,
                         torch.full((), torch.finfo(dtype).min, dtype=s.dtype,
                                    device=s.device))
-    w = torch.softmax(s, dim=-1).to(dtype)
+    w = dropout(torch.softmax(s, dim=-1).to(dtype))
     o = torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(b, lq, d)
     return p.out(o, dtype)
 
 
 def attention_block(x, kv, key_mask, attn: MultiheadAttentionParams,
-                    norm: nn.LayerNorm, dtype):
-    """LayerNorm(x + MHA(x, kv)) — pass `kv is x` for self-attention."""
+                    norm: nn.LayerNorm, dtype, dropout: Dropout):
+    """LayerNorm(x + Dropout(MHA(x, kv))) — pass `kv is x` for
+    self-attention."""
     d = attn.query.weight.shape[1]
-    if fused_attention_ok(d, x, kv):
+    if not dropout.training and fused_attention_ok(d, x, kv):
         return mha_addln(
             x, kv, attn.query.weight, attn.query.bias, attn.key.weight,
             attn.key.bias, attn.value.weight, attn.value.bias, attn.out.weight,
             attn.out.bias, norm.weight, norm.bias, key_mask,
             num_heads=attn.num_heads, eps=LN_EPS)
-    res = _stock_attention(x, kv, attn, key_mask, dtype)
+    res = dropout(_stock_attention(x, kv, attn, key_mask, dtype, dropout))
     return add_layernorm(x, res, norm, dtype)
 
 
 def feed_forward(x, linear1: Projection, linear2: Projection, norm: nn.LayerNorm,
-                 dtype):
-    """LayerNorm(x + linear2(relu(linear1(x))))."""
+                 dtype, dropout: Dropout):
+    """LayerNorm(x + Dropout(linear2(Dropout(relu(linear1(x))))))."""
     d, f = linear1.weight.shape
-    if fused_ffn_ok(d, f):
+    if not dropout.training and fused_ffn_ok(d, f):
         return ffn_addln(x.contiguous(), linear1.weight, linear1.bias, linear2.weight,
                          linear2.bias, norm.weight, norm.bias, eps=LN_EPS)
-    h = torch.relu(linear1(x, dtype))
-    return add_layernorm(x, linear2(h, dtype), norm, dtype)
+    h = dropout(torch.relu(linear1(x, dtype)))
+    return add_layernorm(x, dropout(linear2(h, dtype)), norm, dtype)
 
 
 class EncoderLayer(nn.Module):
-    """Post-LN self-attention encoder layer (torch defaults, eval)."""
+    """Post-LN self-attention encoder layer (torch defaults)."""
 
     def __init__(self, d_model: int, num_heads: int, dim_feedforward: int,
-                 dtype=torch.float32):
+                 dtype=torch.float32, dropout_rate: float = 0.1):
         super().__init__()
         self.dtype = dtype
+        self.dropout = Dropout(dropout_rate)
         self.self_attn = MultiheadAttentionParams(d_model, num_heads)
         self.norm1 = nn.LayerNorm(d_model)
         self.linear1 = Projection(d_model, dim_feedforward)
@@ -139,8 +172,10 @@ class EncoderLayer(nn.Module):
 
     def forward(self, x, mask=None):
         x = x.contiguous()
-        x = attention_block(x, x, mask, self.self_attn, self.norm1, self.dtype)
-        return feed_forward(x, self.linear1, self.linear2, self.norm2, self.dtype)
+        x = attention_block(x, x, mask, self.self_attn, self.norm1, self.dtype,
+                            self.dropout)
+        return feed_forward(x, self.linear1, self.linear2, self.norm2, self.dtype,
+                            self.dropout)
 
 
 class DecoderLayer(nn.Module):
@@ -151,9 +186,10 @@ class DecoderLayer(nn.Module):
     through it."""
 
     def __init__(self, d_model: int, num_heads: int, dim_feedforward: int,
-                 dtype=torch.float32):
+                 dtype=torch.float32, dropout_rate: float = 0.1):
         super().__init__()
         self.dtype = dtype
+        self.dropout = Dropout(dropout_rate)
         self.self_attn = MultiheadAttentionParams(d_model, num_heads)
         self.norm1 = nn.LayerNorm(d_model)
         self.cross_attn = MultiheadAttentionParams(d_model, num_heads)
@@ -169,9 +205,10 @@ class DecoderLayer(nn.Module):
         tgt = tgt.contiguous()
         if stage != "rest":
             tgt = attention_block(tgt, tgt, tgt_mask, self.self_attn, self.norm1,
-                                  self.dtype)
+                                  self.dtype, self.dropout)
             if stage == "self":
                 return tgt
         tgt = attention_block(tgt, memory.contiguous(), memory_mask, self.cross_attn,
-                              self.norm2, self.dtype)
-        return feed_forward(tgt, self.linear1, self.linear2, self.norm3, self.dtype)
+                              self.norm2, self.dtype, self.dropout)
+        return feed_forward(tgt, self.linear1, self.linear2, self.norm3, self.dtype,
+                            self.dropout)

@@ -26,8 +26,9 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_ROOT = PACKAGE_DIR.parent / "build" / "text2loc_tpu_torch"
-SOURCES = ("fps.cu", "sa_select.cu", "mha_addln.cu", "ffn_addln.cu")
-HEADERS = ("common.cuh",)
+SOURCES = ("fps.cu", "sa_select.cu", "mha_addln.cu", "ffn_addln.cu",
+           "sa_train_fwd.cu", "sa_train_bwd.cu")
+HEADERS = ("common.cuh", "sa_train_common.cuh")
 _NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-Xcompiler", "-fPIC"]
 # FPS must round every product and sum on its own, like the plain version.
@@ -120,6 +121,10 @@ _SIGNATURES = {
     "t2l_mha_addln": ([_P] * 14 + [_I] * 5 + [_F, _F, _I, _I, _P], _I),
     "t2l_ffn_addln_smem": ([_I] * 3, ctypes.c_size_t),
     "t2l_ffn_addln": ([_P] * 8 + [_I] * 3 + [_F, _I, _P], _I),
+    "t2l_sa_train_smem": ([_I] * 6, ctypes.c_size_t),
+    "t2l_sa_train_fwd": ([_I] + [_P] * 9 + [_I] * 9 + [_P], _I),
+    "t2l_sa_train_bwd": ([_I] + [_P] * 13 + [_I] * 9 + [_P], _I),
+    "t2l_sa_train_reduce": ([_P, _I, _I, _P, _P], _I),
 }
 
 

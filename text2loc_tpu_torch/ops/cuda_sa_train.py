@@ -1,0 +1,157 @@
+"""Wrappers of the training set-abstraction kernels (csrc/sa_train_fwd.cu,
+csrc/sa_train_bwd.cu): one SA level's forward passes and backward passes,
+each returning the raw per-pass sums. The BatchNorm finalization between
+passes is host-side tensor arithmetic in ops/sa_train.py, as in the JAX
+package."""
+
+from __future__ import annotations
+
+import torch
+
+from text2loc_tpu_torch.ops import _cuda
+
+KERNEL_FWD = _cuda.Kernel(
+    name="sa_train_fwd",
+    source="text2loc_tpu_torch/csrc/sa_train_fwd.cu",
+    replaces="text2loc_tpu/ops/pallas_sa_train.py:625",
+)
+KERNEL_BWD = _cuda.Kernel(
+    name="sa_train_bwd",
+    source="text2loc_tpu_torch/csrc/sa_train_bwd.cu",
+    replaces="text2loc_tpu/ops/pallas_sa_train.py:978",
+)
+MAX_WIDTH = 256    # 8 columns per lane of a warp
+MAX_K = 64         # a center's K edges fit one tile of <= 64 rows
+_WARPS = 8
+_BLOCKS_PER_SM = 2
+
+
+class Level:
+    """The validated inputs of one SA level's kernels on the card: u [N, P,
+    H1] f32, sv [N, S, H1] f32, w2 [H1, H2] f32, idx [N, S, K] int32,
+    maskm / maskf [N, S, K] bool, and the compute dtype (f32 or bf16) of the
+    in-kernel products. Holds W2 and W2^T in the compute dtype."""
+
+    def __init__(self, u, sv, w2, idx, maskm, maskf, compute_dtype):
+        if compute_dtype not in _cuda.DTYPE_CODE:
+            raise ValueError(f"compute dtype {compute_dtype}: expected f32 or bf16")
+        if u.ndim != 3 or idx.ndim != 3:
+            raise ValueError(f"u {tuple(u.shape)} / idx {tuple(idx.shape)}: expected 3-D")
+        n, p, h1 = u.shape
+        s, k = idx.shape[1:]
+        h2 = w2.shape[1]
+        _cuda.check(u, "u", dtype=torch.float32)
+        _cuda.check(sv, "sv", dtype=torch.float32, shape=(n, s, h1))
+        _cuda.check(w2, "w2", dtype=torch.float32, shape=(h1, h2))
+        _cuda.check(idx, "idx", dtype=torch.int32, shape=(n, s, k))
+        _cuda.check(maskm, "maskm", dtype=torch.bool, shape=(n, s, k))
+        _cuda.check(maskf, "maskf", dtype=torch.bool, shape=(n, s, k))
+        for name, h in (("H1", h1), ("H2", h2)):
+            if h % 32 or not 32 <= h <= MAX_WIDTH:
+                raise ValueError(f"{name}={h}: must be a multiple of 32 in [32, {MAX_WIDTH}]")
+        if not 1 <= k <= MAX_K:
+            raise ValueError(f"K={k}: the kernels take 1..{MAX_K} neighbours")
+        if n and not bool(((idx >= 0) & (idx < p)).all()):
+            raise ValueError(f"idx: neighbour indices outside [0, {p})")
+        self.u, self.sv, self.idx, self.maskm, self.maskf = u, sv, idx, maskm, maskf
+        self.w2 = w2.to(compute_dtype).contiguous()
+        self.w2t = w2.t().to(compute_dtype).contiguous()
+        self.dtype_code = _cuda.DTYPE_CODE[compute_dtype]
+        self.n, self.p, self.s, self.k, self.h1, self.h2 = n, p, s, k, h1, h2
+        sms = torch.cuda.get_device_properties(u.device).multi_processor_count
+        self.blocks = max(1, min(n, _BLOCKS_PER_SM * sms))
+
+    def rpt(self, with_du: bool) -> int:
+        """Rows per thread of a tile (tile height 8 x rpt): the largest that
+        holds a center's K edges and fits the block's shared memory."""
+        lib = _cuda.library()
+        for rpt in (8, 4, 2, 1):
+            if _WARPS * rpt < self.k:
+                break
+            if lib.t2l_sa_train_smem(int(with_du), self.p, self.k, self.h1, self.h2,
+                                     rpt) <= _cuda.SMEM_LIMIT:
+                return rpt
+        raise ValueError(f"SA level P={self.p} K={self.k} H1={self.h1} H2={self.h2} "
+                         "does not fit a block's shared memory")
+
+    def _dims(self, with_du: bool, blocks: int):
+        return (self.n, self.p, self.s, self.k, self.h1, self.h2, self.rpt(with_du),
+                blocks, self.dtype_code)
+
+    def _empty(self, *shape):
+        return torch.empty(shape, dtype=torch.float32, device=self.u.device)
+
+    def _fwd(self, pass_id, aux1, aux2, out, blocks):
+        _cuda.launch(KERNEL_FWD, "t2l_sa_train_fwd", pass_id,
+                     *(_cuda.ptr(t) for t in (self.u, self.sv, self.idx, self.maskm,
+                                             self.maskf, self.w2, aux1, aux2, out)),
+                     *self._dims(False, blocks))
+
+    def _bwd(self, pass_id, aux1, aux2, dout, outs, blocks):
+        _cuda.launch(KERNEL_BWD, "t2l_sa_train_bwd", pass_id,
+                     *(_cuda.ptr(t) for t in (self.u, self.sv, self.idx, self.maskm,
+                                             self.maskf, self.w2, self.w2t, aux1, aux2,
+                                             dout, *outs)),
+                     *self._dims(pass_id == 3, blocks))
+
+    def _reduce(self, kernel, part):
+        """Sum [blocks, ...] partials over the blocks, in block order."""
+        out = self._empty(*part.shape[1:])
+        _cuda.launch(kernel, "t2l_sa_train_reduce", _cuda.ptr(part), part.shape[0],
+                     out.numel(), _cuda.ptr(out))
+        return out
+
+    def _check_aux(self, aux1, aux2):
+        _cuda.check(aux1, "aux1", dtype=torch.float32, shape=(8, self.h1))
+        _cuda.check(aux2, "aux2", dtype=torch.float32, shape=(8, self.h2))
+
+    # ----------------------------------------------------------- forward
+
+    def stats(self, layer: int, aux1, aux2):
+        """[2, H] (sum, sum of squares) over maskf edges of e (layer 1) or z
+        (layer 2)."""
+        self._check_aux(aux1, aux2)
+        h = self.h1 if layer == 1 else self.h2
+        part = self._empty(self.blocks, 2, h)
+        self._fwd(layer, aux1, aux2, part, self.blocks)
+        return self._reduce(KERNEL_FWD, part)
+
+    def out(self, aux1, aux2):
+        """[N, S, H2] f32: the neighbour max of relu(BN2(z)), 0 on empty rows."""
+        self._check_aux(aux1, aux2)
+        out = self._empty(self.n, self.s, self.h2)
+        self._fwd(3, aux1, aux2, out, self.blocks)
+        return out
+
+    # ---------------------------------------------------------- backward
+
+    def bwd_stats(self, aux1, aux2, dout):
+        """[2, H2]: (sum dy2, sum dy2 * yhat2) over all edges."""
+        self._check_aux(aux1, aux2)
+        _cuda.check(dout, "dout", dtype=torch.float32, shape=(self.n, self.s, self.h2))
+        part = self._empty(self.blocks, 2, self.h2)
+        self._bwd(1, aux1, aux2, dout, (part, part, part), self.blocks)
+        return self._reduce(KERNEL_BWD, part)
+
+    def bwd_mid(self, aux1, aux2, dout):
+        """([2, H1] (sum dy1, sum dy1 * yhat1), dW2 [H1, H2], db2 [H2]);
+        aux2 rows 4-5 hold A2/n and B2/n."""
+        self._check_aux(aux1, aux2)
+        _cuda.check(dout, "dout", dtype=torch.float32, shape=(self.n, self.s, self.h2))
+        part_a = self._empty(self.blocks, 2, self.h1)
+        part_w = self._empty(self.blocks, self.h1, self.h2)
+        part_b = self._empty(self.blocks, self.h2)
+        self._bwd(2, aux1, aux2, dout, (part_a, part_w, part_b), self.blocks)
+        return (self._reduce(KERNEL_BWD, part_a), self._reduce(KERNEL_BWD, part_w),
+                self._reduce(KERNEL_BWD, part_b))
+
+    def bwd_in(self, aux1, aux2, dout):
+        """(du [N, P, H1], dsv [N, S, H1]); aux rows 4-5 hold the correction
+        sums / n of both layers."""
+        self._check_aux(aux1, aux2)
+        _cuda.check(dout, "dout", dtype=torch.float32, shape=(self.n, self.s, self.h2))
+        du = self._empty(self.n, self.p, self.h1)
+        dsv = self._empty(self.n, self.s, self.h1)
+        if self.n:
+            self._bwd(3, aux1, aux2, dout, (du, dsv, du), self.n)
+        return du, dsv

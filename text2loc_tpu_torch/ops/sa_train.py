@@ -1,0 +1,233 @@
+"""One SA level's training forward with batch-statistic BatchNorm and its
+hand-derived backward: the plain PyTorch versions, and the autograd
+function that runs the CUDA kernels on the card (port of
+text2loc_tpu/ops/pallas_sa_train.py: sa_train_reference, sa_train_fused).
+
+    e[n,s,k] = round(u[n, idx[n,s,k]]) - sv[n,s]
+    BN1 over maskf edges (batch statistics) -> a1, c1
+    h1 = relu(e * a1 + c1)
+    z  = round(h1) @ round(W2) + b2
+    BN2 over maskf edges -> a2, c2
+    h2 = relu(z * a2 + c2)
+    out[n,s] = max over maskm k of h2   (a row without valid slots -> 0)
+
+round() goes through the compute dtype (the identity for f32; bf16 rounds
+where the TPU kernel rounds), every sum is f32. The statistics are the TPU
+kernel's: mean = sum/n, biased variance = max(sum_sq/n - mean^2, 0), with
+n = max(#maskf edges, 1). maskf (valid edges of real objects) masks the
+statistics, maskm (valid edges) the neighbour max.
+
+The cached-edge variant of the JAX kernel at cache dtype f32 computes the
+same function as its recompute variant, so both are this one function;
+the bf16 edge cache is a different function and is not ported.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from text2loc_tpu_torch.ops import cuda_sa_train
+from text2loc_tpu_torch.ops.masked import masked_max
+
+NEG = -1.0e30
+_AUX_ROWS = 8     # a, c, mean, inv, A/n, B/n, b2 (aux2 only), unused
+
+
+def _round(x, dtype):
+    """x rounded through `dtype` in value, the identity in the backward."""
+    if dtype == torch.float32:
+        return x
+    return x + (x.to(dtype).float() - x).detach()
+
+
+def _check_cache_dtype(cache_dtype):
+    if cache_dtype not in (None, torch.float32):
+        raise ValueError(f"cache_dtype {cache_dtype}: only None and float32 (the same "
+                         "function) are ported")
+
+
+def _stats(x, mf, n1):
+    """(mean, biased variance) over the maskf edges: the TPU kernel's
+    one-pass formulas."""
+    dims = tuple(range(x.ndim - 1))
+    m = (x * mf).sum(dims) / n1
+    return m, torch.clamp((x * x * mf).sum(dims) / n1 - m * m, min=0.0)
+
+
+def _affine(m, v, gamma, beta, eps):
+    """(a, c, inv) of the BN affine y = x * a + c."""
+    inv = torch.rsqrt(v + eps)
+    a = gamma * inv
+    return a, beta - m * a, inv
+
+
+def _aux(rows, width, device):
+    aux = torch.zeros((_AUX_ROWS, width), dtype=torch.float32, device=device)
+    for i, r in rows.items():
+        aux[i] = r
+    return aux
+
+
+def _edges(u, sv, idx, cdt):
+    n, p, h1 = u.shape
+    s, k = idx.shape[1:]
+    flat = idx.reshape(n, s * k, 1).long().expand(n, s * k, h1)
+    g = torch.gather(_round(u.float(), cdt), 1, flat).reshape(n, s, k, h1)
+    return g - sv.float()[:, :, None, :]
+
+
+def sa_train_plain(u, sv, w2, b2, g1, be1, g2, be2, idx, maskm, maskf,
+                   eps: float = 1e-5, compute_dtype=torch.float32):
+    """(out [N, S, H2] f32, (mean1, var1, mean2, var2, count)) in plain
+    torch, differentiable by autograd (the statistics too)."""
+    cdt = compute_dtype
+    mf = maskf.float()[..., None]
+    n1 = torch.clamp(maskf.float().sum(), min=1.0)
+    e = _edges(u, sv, idx, cdt)
+    m1, v1 = _stats(e, mf, n1)
+    a1, c1, _ = _affine(m1, v1, g1, be1, eps)
+    h1 = torch.relu(e * a1 + c1)
+    z = _round(h1, cdt) @ _round(w2.float(), cdt) + b2
+    m2, v2 = _stats(z, mf, n1)
+    a2, c2, _ = _affine(m2, v2, g2, be2, eps)
+    out = masked_max(torch.relu(z * a2 + c2), maskm, dim=2)
+    return out, (m1, v1, m2, v2, n1)
+
+
+def sa_train_backward_plain(u, sv, w2, idx, maskm, maskf, aux1, aux2, n1, dout,
+                            compute_dtype=torch.float32):
+    """The hand-derived backward in plain torch (the CUDA backward's
+    yardstick): (du, dsv, dW2, db2, dgamma1, dbeta1, dgamma2, dbeta2) given
+    the forward's aux rows (a, c, mean, inv; aux2 row 6 = b2) and count.
+
+        dh2 = dout * eq / cnt,  dy2 = dh2 * [y2 > 0]
+        dz  = a2 * (dy2 - maskf * (A2/n + yhat2 * B2/n))
+        dh1 = round(dz) @ round(W2)^T,  dy1 = dh1 * [y1 > 0]
+        de  = a1 * (dy1 - maskf * (A1/n + yhat1 * B1/n))
+        du  = scatter of round(de) at idx,  dsv = -sum_k de
+        dW2 = round(h1)^T round(dz),  db2 = sum dz
+    with A = sum dy, B = sum dy * yhat over ALL edges (dbeta, dgamma)."""
+    cdt = compute_dtype
+    n, p, h1w = u.shape
+    s, k = idx.shape[1:]
+    dims = (0, 1, 2)
+    mf = maskf.float()[..., None]
+    mm = maskm[..., None]
+    e = _edges(u, sv, idx, cdt)
+    y1 = e * aux1[0] + aux1[1]
+    h1 = torch.relu(y1)
+    w2c = w2.float().to(cdt).float()
+    z = h1.to(cdt).float() @ w2c + aux2[6]
+    y2 = z * aux2[0] + aux2[1]
+    filled = torch.where(mm, torch.relu(y2), torch.full((), NEG, device=u.device))
+    mx = filled.amax(dim=2, keepdim=True)
+    eq = ((filled >= mx) & mm).float()
+    cnt = torch.clamp(eq.sum(dim=2, keepdim=True), min=1.0)
+    dh2 = dout.float()[:, :, None, :] * eq / cnt
+    dy2 = dh2 * (y2 > 0).float()
+    yhat2 = (z - aux2[2]) * aux2[3]
+    dbe2, dg2 = dy2.sum(dims), (dy2 * yhat2).sum(dims)
+    dz = aux2[0] * (dy2 - mf * (dbe2 / n1 + yhat2 * (dg2 / n1)))
+    dzc = dz.to(cdt).float()
+    dh1 = dzc @ w2c.t()
+    dy1 = dh1 * (y1 > 0).float()
+    yhat1 = (e - aux1[2]) * aux1[3]
+    dbe1, dg1 = dy1.sum(dims), (dy1 * yhat1).sum(dims)
+    de = aux1[0] * (dy1 - mf * (dbe1 / n1 + yhat1 * (dg1 / n1)))
+    dw2 = h1.to(cdt).float().reshape(-1, h1w).t() @ dzc.reshape(-1, dzc.shape[-1])
+    db2 = dz.sum(dims)
+    du = torch.zeros((n, p, h1w), dtype=torch.float32, device=u.device)
+    du.scatter_add_(1, idx.reshape(n, s * k, 1).long().expand(n, s * k, h1w),
+                    de.to(cdt).float().reshape(n, s * k, h1w))
+    dsv = -de.sum(dim=2)
+    return du, dsv, dw2, db2, dg1, dbe1, dg2, dbe2
+
+
+def _forward_plain(u, sv, w2, b2, g1, be1, g2, be2, idx, maskm, maskf, eps, cdt):
+    out, (m1, v1, m2, v2, n1) = sa_train_plain(u, sv, w2, b2, g1, be1, g2, be2, idx,
+                                               maskm, maskf, eps, cdt)
+    a1, c1, inv1 = _affine(m1, v1, g1, be1, eps)
+    a2, c2, inv2 = _affine(m2, v2, g2, be2, eps)
+    aux1 = _aux({0: a1, 1: c1, 2: m1, 3: inv1}, u.shape[-1], u.device)
+    aux2 = _aux({0: a2, 1: c2, 2: m2, 3: inv2, 6: b2}, w2.shape[1], u.device)
+    return out, (m1, v1, m2, v2, n1), aux1, aux2
+
+
+def forward_cuda(level: cuda_sa_train.Level, b2, g1, be1, g2, be2, maskf, eps):
+    """The forward on the card: three kernel passes with the BN
+    finalization between them. Returns (out, stats, aux1, aux2)."""
+    n1 = torch.clamp(maskf.float().sum(), min=1.0)
+    aux1 = _aux({}, level.h1, maskf.device)
+    aux2 = _aux({6: b2}, level.h2, maskf.device)
+    acc1 = level.stats(1, aux1, aux2)
+    m1 = acc1[0] / n1
+    v1 = torch.clamp(acc1[1] / n1 - m1 * m1, min=0.0)
+    a1, c1, inv1 = _affine(m1, v1, g1, be1, eps)
+    aux1[0], aux1[1], aux1[2], aux1[3] = a1, c1, m1, inv1
+    acc2 = level.stats(2, aux1, aux2)
+    m2 = acc2[0] / n1
+    v2 = torch.clamp(acc2[1] / n1 - m2 * m2, min=0.0)
+    a2, c2, inv2 = _affine(m2, v2, g2, be2, eps)
+    aux2[0], aux2[1], aux2[2], aux2[3] = a2, c2, m2, inv2
+    return level.out(aux1, aux2), (m1, v1, m2, v2, n1), aux1, aux2
+
+
+def backward_cuda(level: cuda_sa_train.Level, aux1, aux2, n1, dout):
+    """The backward on the card: three kernel passes, the correction sums
+    between them. Returns the grads in sa_train_backward_plain's order."""
+    dout = dout.float().contiguous()
+    acc2 = level.bwd_stats(aux1, aux2, dout)
+    aux2 = aux2.clone()
+    aux2[4], aux2[5] = acc2[0] / n1, acc2[1] / n1
+    acc1, dw2, db2 = level.bwd_mid(aux1, aux2, dout)
+    aux1 = aux1.clone()
+    aux1[4], aux1[5] = acc1[0] / n1, acc1[1] / n1
+    du, dsv = level.bwd_in(aux1, aux2, dout)
+    return du, dsv, dw2, db2, acc1[1], acc1[0], acc2[1], acc2[0]
+
+
+class _SATrain(torch.autograd.Function):
+    """The fused level with the hand-derived backward: CUDA kernels for CUDA
+    tensors, the plain versions for CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, u, sv, w2, b2, g1, be1, g2, be2, idx, maskm, maskf, eps, cdt):
+        if u.is_cuda:
+            level = cuda_sa_train.Level(u.contiguous(), sv.contiguous(),
+                                        w2.contiguous(), idx.to(torch.int32).contiguous(),
+                                        maskm.contiguous(), maskf.contiguous(), cdt)
+            out, stats, aux1, aux2 = forward_cuda(level, b2, g1, be1, g2, be2, maskf, eps)
+            ctx.level = level
+        elif u.device.type == "cpu":
+            out, stats, aux1, aux2 = _forward_plain(u, sv, w2, b2, g1, be1, g2, be2, idx,
+                                                    maskm, maskf, eps, cdt)
+            ctx.level = None
+        else:
+            raise ValueError(f"no SA training level for device {u.device}")
+        ctx.cdt = cdt
+        ctx.save_for_backward(u, sv, w2, idx, maskm, maskf, aux1, aux2, stats[4])
+        ctx.mark_non_differentiable(*stats)
+        return (out,) + tuple(stats)
+
+    @staticmethod
+    def backward(ctx, dout, *_stat_grads):
+        u, sv, w2, idx, maskm, maskf, aux1, aux2, n1 = ctx.saved_tensors
+        if ctx.level is not None:
+            grads = backward_cuda(ctx.level, aux1, aux2, n1, dout)
+        else:
+            grads = sa_train_backward_plain(u, sv, w2, idx, maskm, maskf, aux1, aux2, n1,
+                                            dout, ctx.cdt)
+        return grads + (None,) * 5
+
+
+def sa_train(u, sv, w2, b2, g1, be1, g2, be2, idx, maskm, maskf, eps: float = 1e-5,
+             compute_dtype=torch.float32, cache_dtype=None):
+    """One SA level's training forward (out [N, S, H2] f32, (mean1, var1,
+    mean2, var2, count)); gradients by the hand-derived backward. The CUDA
+    kernels run for CUDA tensors (no fallback), the plain versions for CPU
+    tensors. u [N, P, H1] = concat(x, pos) @ W1 + b1, sv [N, S, H1] =
+    centers @ W1[pos rows], idx [N, S, K], maskm / maskf [N, S, K] bool."""
+    _check_cache_dtype(cache_dtype)
+    out, *stats = _SATrain.apply(u, sv, w2, b2, g1, be1, g2, be2, idx, maskm.bool(),
+                                 maskf.bool(), eps, compute_dtype)
+    return out, tuple(stats)

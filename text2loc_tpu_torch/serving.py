@@ -22,7 +22,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from text2loc_tpu import constants as C
+from text2loc_tpu_torch import constants as C
 from text2loc_tpu_torch.evaluation.retrieval import (
     build_vocab_sentence_table,
     encode_fine_gallery,
@@ -41,11 +41,12 @@ class LocalizationResult(NamedTuple):
 class Localizer:
     """Query path over a fixed cell gallery. The caches are derived from the
     models and the map at construction; build a new Localizer for new
-    weights."""
+    weights. `device` defaults to the CUDA card; pass "cpu" for the plain
+    versions of the kernels."""
 
     def __init__(self, data, coarse_model, fine_model, embedder, cfg,
-                 top_k: int = 10, device=None):
-        self.device = torch.device(device) if device is not None else torch.device("cpu")
+                 top_k: int = 10, device="cuda"):
+        self.device = torch.device(device)
         self.data = data
         self.cfg = cfg
         self.top_k = min(top_k, data.num_cells)
