@@ -7,12 +7,15 @@ toolkit. Phases, each printing one JSON line:
 
 1. device: the card (nvidia-smi name and power limit), torch and CUDA
    versions; TF32 is switched off for f32 matrix products and convolutions;
-2. build: nvcc builds the six kernels from text2loc_tpu_torch/csrc;
+2. build: nvcc builds the kernel sources of text2loc_tpu_torch/csrc (ten
+   kernels: the inference SA level is one source with five selections);
 3. kernels: each serve kernel against its plain PyTorch version on the card
    at the serve's shapes, bf16 and f32, with median times by CUDA events;
-   then the training SA level (sa_train_fwd, sa_train_bwd) against its
-   plain forward and hand-derived plain backward at the coarse train
-   step's three levels (896 clouds, K=32), f32 and bf16;
+   the inference SA level in every selection (first, bisect, gather over
+   the exact and the approximate ball query, exact, all) at the gallery's
+   three levels; then the training SA level (sa_train_fwd, sa_train_bwd)
+   against its plain forward and hand-derived plain backward at the coarse
+   train step's three levels (896 clouds, K=32), f32 and bf16;
 4. serve: the cached serve (Localizer.localize) at the full width of the
    default Config (bf16) over a 64-cell synthetic map with seeded random
    weights; batches of 1, 8 and 64 queries; every serve kernel's launch
@@ -20,23 +23,31 @@ toolkit. Phases, each printing one JSON line:
 5. serve_vs_cpu: the same weights in f32 on the card and on the CPU (plain
    versions) over an 8-cell map: equal top-1 cells where the top-1/top-2
    score margin exceeds 1e-4, positions within 1e-2 m;
-6. train: train_coarse at the full width of the default Config (f32 body)
+6. pipeline: run_pipeline (coarse retrieval, fine refinement, the two
+   tables) at full Config() width (bf16) over the 64-cell map, once per
+   mode of scripts/validate_kernels.py's sweep table: wall seconds,
+   fine_qps, top-1 rows, agreement with the "exact" (off) baseline; each
+   mode must launch its SA kernels and no other SA kernel;
+7. pipeline_vs_cpu: every mode in f32 on the card and on the CPU over an
+   8-cell map: top-1 cells equal where the margin exceeds 1e-4, positions
+   within 1e-2 m, tables equal where every retrieval agrees;
+8. train: train_coarse at the full width of the default Config (f32 body)
    on a 96-pose synthetic map, batch 32, 3 steps, then 2 fine train steps
    at pad_size 16: step times, peak memory, losses; losses finite, every
    parameter with a nonzero gradient changed (all three SA levels among
    them), BN running statistics moved, fps / sa_train_fwd / sa_train_bwd
    launched;
-7. train_vs_cpu: one coarse step (batch 8, dropout 0, no augmentation, f32)
+9. train_vs_cpu: one coarse step (batch 8, dropout 0, no augmentation, f32)
    from the same seeded weights on the card and on the CPU: loss, every
    gradient leaf and the BN running statistics.
 
-Then the kernels line (launches: the counts during phases 4 and 6, each
+Then the kernels line (launches: the counts during phases 4, 6 and 8, each
 path's counts set to 0 just before it; max_abs_err, ms, plain_ms and
-bound_ms: over the serve kernels' bf16 cases of phase 3, FPS's f32 case,
-and the training kernels' f32 cases, the path's dtypes), the card's
-nvidia-smi line and, last, the result line. Any failed check raises: the
-script exits non-zero and prints no result. It imports nothing of JAX and
-nothing of the JAX package.
+bound_ms: over the inference kernels' bf16 cases of phase 3 (sa_gather's
+approximate ball query cases), FPS's f32 case, and the training kernels'
+f32 cases, the path's dtypes), the card's nvidia-smi line and, last, the
+result line. Any failed check raises: the script exits non-zero and prints
+no result. It imports nothing of JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -184,15 +195,94 @@ class KernelRecord:
             self.byte_s += byte_s
 
 
+SA_LEVELS = [(256, 128, 6, 32, 64, 0.2), (128, 64, 67, 128, 128, 0.3),
+             (64, 32, 131, 256, 256, 0.4)]   # P, S, C+3, H1, H2, radius of Config()
+
+
+def phase_sa_kernels(dev, gen, pts, xyz, records) -> None:
+    """The inference SA kernel in each selection against its plain version
+    at the gallery's three levels (1792 clouds, K=32), bf16 and f32: first
+    and bisect (fused_sa_select), gather over the exact and the approximate
+    ball query (fused_sa_gather), exact and all (fused_set_abstraction).
+    The plain all/exact versions run in chunks of clouds. Bound: the
+    products (u = feat @ W1 per point, the center term, the second layer
+    over this data's selected edges) and each input and output once."""
+    from text2loc_tpu_torch.ops import cuda_pointconv as cp
+    from text2loc_tpu_torch.ops import pointconv as pc
+    from text2loc_tpu_torch.ops.ballquery import ball_query_knn, first_k, squared_distances
+
+    n, k = pts.shape[0], 32
+    for dt in (torch.bfloat16, torch.float32):
+        pos = pts
+        for lp, s, cin, h1, h2, radius in SA_LEVELS:
+            ctr = xyz[:, :s].contiguous()
+            x = _rand(gen, (n, lp, cin - 3), 1.0, dev).to(dt).contiguous()
+            feat = torch.cat([x, pos.to(dt)], -1).contiguous()
+            w1 = _rand(gen, (cin, h1), cin ** -0.5, dev).to(dt)
+            w2 = _rand(gen, (h1, h2), h1 ** -0.5, dev).to(dt)
+            wx, wp = w1[:cin - 3].contiguous(), w1[cin - 3:].contiguous()
+            ab1 = torch.stack([_rand(gen, h1, 0.1, dev, 1.0), _rand(gen, h1, 0.1, dev)])
+            ab2 = torch.stack([_rand(gen, h2, 0.1, dev, 1.0), _rand(gen, h2, 0.1, dev)])
+            ab1, ab2 = ab1.contiguous(), ab2.contiguous()
+            es = feat.element_size()
+            d2, r2 = squared_distances(pos, ctr), radius * radius
+            inr = d2 <= r2
+            edges = {"first": ball_query_knn(pos, ctr, radius, k, first=True)[1],
+                     "bisect": first_k(pc.bisect_mask(d2, inr, r2, k, 12), k)[1],
+                     "exact": inr.sum(-1).clamp(max=k), "all": inr}
+            edges = {key: int(v.sum().item()) for key, v in edges.items()}
+            fixed = n * s * (12 + h2 * es) + (cin * h1 + h1 * h2) * es + 8 * (h1 + h2)
+
+            def work(e, nbytes, h1=h1, h2=h2, lp=lp, cin=cin, s=s):
+                return (2.0 * (n * lp * cin * h1 + n * s * 3 * h1 + e * h1 * h2), nbytes, dt)
+
+            tag = f"P={lp} S={s} {cin}->{h1}->{h2}"
+            args = (feat, pos, ctr, w1, wp, ab1, w2, ab2, radius, k)
+            for sel, name in (("first", "sa_select_first"), ("bisect", "sa_select_bisect")):
+                e = edges[sel]
+                records[name].add(
+                    f"{name} {tag} edges={e}", dt,
+                    [(cp.sa_select_cuda(*args, selection=sel),
+                      pc.sa_select_plain(*args, selection=sel))],
+                    lambda a=args, sel=sel: cp.sa_select_cuda(*a, selection=sel),
+                    lambda a=args, sel=sel: pc.sa_select_plain(*a, selection=sel),
+                    work(e, n * lp * (cin * es + 12) + fixed))
+            for approx in (False, True):
+                idx, mask = ball_query_knn(pos, ctr, radius, k, approx=approx)
+                gargs = (feat, ctr, idx.to(torch.int32).contiguous(), mask.contiguous(),
+                         w1, wp, ab1, w2, ab2)
+                e = int(mask.sum().item())
+                # The record sums the approximate case: the gather mode's default.
+                records["sa_gather"].add(
+                    f"sa_gather {'approx' if approx else 'exact'} {tag} edges={e}", dt,
+                    [(cp.sa_gather_cuda(*gargs), pc.sa_gather_plain(*gargs))],
+                    lambda a=gargs: cp.sa_gather_cuda(*a),
+                    lambda a=gargs: pc.sa_gather_plain(*a),
+                    work(e, n * lp * cin * es + n * s * k * 5 + fixed),
+                    counts=approx and dt == torch.bfloat16)
+            sargs = (x, pos, ctr, wx, wp, ab1, w2, ab2, radius, k)
+            for select_k, name in ((True, "sa_exact"), (False, "sa_all")):
+                e = edges["exact" if select_k else "all"]
+                records[name].add(
+                    f"{name} {tag} edges={e}", dt,
+                    [(cp.set_abstraction_cuda(*sargs, select_k=select_k),
+                      pc.set_abstraction_plain(*sargs, select_k=select_k))],
+                    lambda a=sargs, sk=select_k: cp.set_abstraction_cuda(*a, select_k=sk),
+                    lambda a=sargs, sk=select_k: pc.set_abstraction_plain(*a, select_k=sk),
+                    work(e, n * lp * ((cin - 3) * es + 12) + fixed))
+            pos = ctr
+
+
+SA_KERNELS = ("sa_select_first", "sa_select_bisect", "sa_gather", "sa_exact", "sa_all")
+
+
 def phase_kernels(dev) -> dict:
     """Each kernel vs its plain version at the shapes of a 64-cell gallery
     (1792 clouds of 256 points) and a 64-query batch with top-10."""
-    from text2loc_tpu_torch.ops import (cuda_ffn, cuda_fps, cuda_mha,
-                                        cuda_pointconv, ffn, fps, mha, pointconv)
-    from text2loc_tpu_torch.ops.ballquery import ball_query_knn
+    from text2loc_tpu_torch.ops import cuda_ffn, cuda_fps, cuda_mha, ffn, fps, mha
 
     gen = torch.Generator().manual_seed(SEED)
-    records = {k: KernelRecord() for k in ("fps", "sa", "mha", "ffn")}
+    records = {k: KernelRecord() for k in ("fps", *SA_KERNELS, "mha_addln", "ffn_addln")}
 
     n, p = 64 * 28, 256
     pts = _clouds(gen, n, p, dev)
@@ -205,35 +295,7 @@ def phase_kernels(dev) -> dict:
                        lambda: fps.farthest_point_sampling_plain(pts, 128),
                        (8.0 * n * 127 * p, n * p * 12 + n * 128 * 16, torch.float32),
                        exact=True)
-
-    levels = [(256, 128, 6, 32, 64, 0.2), (128, 64, 67, 128, 128, 0.3),
-              (64, 32, 131, 256, 256, 0.4)]
-    for dt in (torch.bfloat16, torch.float32):
-        pos = pts
-        for lp, s, cin, h1, h2, radius in levels:
-            ctr = xyz[:, :s].contiguous()
-            feat = torch.cat([_rand(gen, (n, lp, cin - 3), 1.0, dev), pos], -1)
-            feat = feat.to(dt).contiguous()
-            w1 = _rand(gen, (cin, h1), cin ** -0.5, dev).to(dt)
-            w2 = _rand(gen, (h1, h2), h1 ** -0.5, dev).to(dt)
-            ab1 = torch.stack([_rand(gen, h1, 0.1, dev, 1.0), _rand(gen, h1, 0.1, dev)])
-            ab2 = torch.stack([_rand(gen, h2, 0.1, dev, 1.0), _rand(gen, h2, 0.1, dev)])
-            args = (feat, pos, ctr, w1, w1[cin - 3:].contiguous(), ab1.contiguous(),
-                    w2, ab2.contiguous(), radius, 32)
-            # Products: u = feat @ W1 per point, the center term, the second
-            # layer over the selected edges of this data.
-            edges = ball_query_knn(pos, ctr, radius, 32, first=True)[1].sum().item()
-            es = feat.element_size()
-            work = (2.0 * (n * lp * cin * h1 + n * s * 3 * h1 + edges * h1 * h2),
-                    n * lp * (cin * es + 12) + n * s * (12 + h2 * es)
-                    + (cin * h1 + h1 * h2) * es + 8 * (h1 + h2), dt)
-            records["sa"].add(
-                f"sa_select_first P={lp} S={s} {cin}->{h1}->{h2}", dt,
-                [(cuda_pointconv.sa_select_first_cuda(*args),
-                  pointconv.sa_select_first_plain(*args))],
-                lambda a=args: cuda_pointconv.sa_select_first_cuda(*a),
-                lambda a=args: pointconv.sa_select_first_plain(*a), work)
-            pos = ctr
+    phase_sa_kernels(dev, gen, pts, xyz, records)
 
     # (name, B, Lq, Lk, D, self-attention, one sample with every key masked)
     attn_cases = [("cct obj cross", 640, 16, 6, 128, False, False),
@@ -262,7 +324,7 @@ def phase_kernels(dev) -> dict:
             work = (2.0 * (2 * b * lq * d * d + 2 * b * lk * d * d + 2 * b * lq * lk * d),
                     2 * b * lq * d * es + (0 if self_attn else b * lk * d * es)
                     + 4 * d * d * 4 + 6 * d * 4 + b * lk, dt)
-            records["mha"].add(
+            records["mha_addln"].add(
                 f"mha_addln {name} B={b} Lq={lq} Lk={lk} D={d}", dt,
                 [(cuda_mha.mha_addln_cuda(*args, num_heads=4),
                   mha.mha_addln_plain(*args, num_heads=4))],
@@ -280,7 +342,7 @@ def phase_kernels(dev) -> dict:
             es = args[0].element_size()
             work = (4.0 * rows * d * f, 2 * rows * d * es + 2 * d * f * 4 + (f + 3 * d) * 4,
                     dt)
-            records["ffn"].add(
+            records["ffn_addln"].add(
                 f"ffn_addln {name} R={rows} D={d} F={f}", dt,
                 [(cuda_ffn.ffn_addln_cuda(*args), ffn.ffn_addln_plain(*args))],
                 lambda a=args: cuda_ffn.ffn_addln_cuda(*a),
@@ -479,6 +541,160 @@ def phase_serve_vs_cpu(dev) -> None:
           f"positions differ by {pos_err} m between the card and the CPU")
 
 
+# ----------------------------------------------------------------- pipeline
+
+# The mode table of scripts/validate_kernels.py, as the port's model
+# arguments: "exact" there is the plain nearest-K path ("off"); "1" is
+# the exact mode of fused_set_abstraction.
+PIPELINE_MODES = {
+    "exact": dict(sa_mode="off", approx_neighbors=False),
+    "gather_exact": dict(sa_mode="gather", approx_neighbors=False),
+    "gather_approx": dict(sa_mode="gather", approx_neighbors=True),
+    "fused_full": dict(sa_mode="full"),
+    "fused_mixed": dict(sa_mode="full,full,all"),
+    "fused_all": dict(sa_mode="all"),
+    "fused_first": dict(sa_mode="first"),
+    "fused_first_mixed": dict(sa_mode="first,first,all"),
+    "fused_exact": dict(sa_mode="1"),
+    "approx_knn": dict(sa_mode="off", approx_neighbors=True),
+}
+# The inference SA kernels each mode must launch, and no other.
+_MODE_SA = {"off": (), "first": ("sa_select_first",), "full": ("sa_select_bisect",),
+            "gather": ("sa_gather",), "exact": ("sa_exact",), "all": ("sa_all",)}
+
+
+def _mode_sa_kernels(kw) -> set:
+    from text2loc_tpu_torch.models.pointnet2 import sa_mode_list
+
+    return {name for m in sa_mode_list(kw["sa_mode"], 3) for name in _MODE_SA[m]}
+
+
+def _mode_models(cfg, state, kw, dev):
+    """The two towers in SA mode `kw`, with the weights of `state`."""
+    from text2loc_tpu_torch.convert import build_model
+
+    models = []
+    for kind in ("coarse", "fine"):
+        model = build_model(cfg, kind, **kw)
+        model.load_state_dict(state[kind])
+        models.append(model.to(dev).eval())
+    return models
+
+
+def _agreement(base, r, data) -> dict:
+    """Top-1 retrieval agreement with the baseline and the mean |delta pos|
+    in metres over the (pose, candidate) pairs that retrieved the same cell
+    (scripts/validate_kernels.py's measures)."""
+    agree = base["retrievals"][:, 0] == r["retrievals"][:, 0]
+    same = base["retrievals"] == r["retrievals"]
+    d = np.linalg.norm((base["pos_in_cells"] - r["pos_in_cells"])[same], axis=-1)
+    sizes = data.cell_size[r["retrievals"]][same]
+    return {"top1_agreement": float(agree.mean()),
+            "mean_abs_dpos_m": float((d * sizes).mean()) if same.any() else None}
+
+
+def phase_pipeline(dev, kernels) -> dict:
+    """run_pipeline at full Config() width (bf16) over the serve's 64-cell
+    map with seeded random weights, once per mode of the sweep table: wall
+    seconds, fine_qps, each table's top-1 row, agreement with the "exact"
+    (off) baseline, and the launches of the mode's kernels."""
+    from text2loc_tpu_torch.config import Config
+    from text2loc_tpu_torch.evaluation.pipeline import run_pipeline
+    from text2loc_tpu_torch.models.text_embedding import HintTextEmbedder
+
+    cfg = Config()
+    data = _map(2, 32, cfg)
+    coarse, fine = _models(cfg, torch.Generator().manual_seed(SEED + 6))
+    state = {"coarse": coarse.state_dict(), "fine": fine.state_dict()}
+    emb = HintTextEmbedder.compositional(cfg.model.text_embed_dim,
+                                         cfg.model.max_hint_tokens, device=dev)
+    totals = {k.name: 0 for k in kernels}
+    base = None
+    for mode, kw in PIPELINE_MODES.items():
+        cm, fm = _mode_models(cfg, state, kw, dev)
+        if base is None:      # warm-up of the baseline: allocator, cuBLAS
+            run_pipeline(data, cm, fm, emb, cfg, device=dev, verbose=False)
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        r = run_pipeline(data, cm, fm, emb, cfg, device=dev, verbose=False)
+        wall = time.perf_counter() - t0
+        counts = {k.name: k.launches for k in kernels}
+        base = base or r
+        check(bool(np.isfinite(r["pos_in_cells"]).all()), f"{mode}: non-finite positions")
+        k = min(max(cfg.eval.top_k), data.num_cells)
+        check(r["retrievals"].shape == (data.num_poses, k),
+              f"{mode}: retrievals {r['retrievals'].shape}")
+        emit({"phase": "pipeline", "mode": mode, "sa_mode": kw["sa_mode"],
+              "approx_neighbors": kw.get("approx_neighbors"), "poses": data.num_poses,
+              "cells": data.num_cells, "wall_s": wall, "fine_qps": r["fine_qps"],
+              "coarse_top1": r["coarse"][1], "fine_top1": r["fine"][1],
+              **_agreement(base, r, data), "launches": counts})
+        want = _mode_sa_kernels(kw) | {"fps", "mha_addln", "ffn_addln"}
+        check(all(counts[name] > 0 for name in want),
+              f"{mode}: a kernel of the mode never launched: {counts}")
+        check(all(counts[name] == 0 for name in SA_KERNELS if name not in want),
+              f"{mode}: an SA kernel of another mode launched: {counts}")
+        for name, v in counts.items():
+            totals[name] += v
+    return totals
+
+
+def _retrieval_margin(data, model, emb, cfg) -> np.ndarray:
+    """Top-1 minus top-2 retrieval score per query, on the CPU."""
+    from text2loc_tpu_torch.evaluation.retrieval import (encode_gallery, encode_queries,
+                                                         topk_retrieval)
+
+    with torch.no_grad():
+        scores, _ = topk_retrieval(encode_gallery(data, model, cfg, "cpu"),
+                                   encode_queries(data, model, emb, cfg, "cpu"), 2)
+    return (scores[:, 0] - scores[:, 1]).numpy()
+
+
+def phase_pipeline_vs_cpu(dev) -> None:
+    """The same f32 weights through run_pipeline on the card and on the CPU
+    (plain versions) over an 8-cell map, in every mode: top-1 cells equal
+    where the CPU's top-1/top-2 margin exceeds 1e-4, positions of the pairs
+    that retrieved the same cell within 1e-2 m, and both tables equal
+    where every retrieval agrees."""
+    import dataclasses
+
+    from text2loc_tpu_torch.config import Config
+    from text2loc_tpu_torch.evaluation.pipeline import run_pipeline
+    from text2loc_tpu_torch.models.text_embedding import HintTextEmbedder
+
+    base = Config()
+    cfg = base.replace(model=dataclasses.replace(base.model, dtype="float32"))
+    data = _map(1, 8, cfg)
+    emb = HintTextEmbedder.compositional(cfg.model.text_embed_dim,
+                                         cfg.model.max_hint_tokens)
+    coarse, fine = _models(cfg, torch.Generator().manual_seed(SEED + 7))
+    state = {"coarse": coarse.state_dict(), "fine": fine.state_dict()}
+    rows = {}
+    for mode, kw in PIPELINE_MODES.items():
+        got = run_pipeline(data, *_mode_models(cfg, state, kw, dev), emb, cfg,
+                           device=dev, verbose=False)
+        cm, fm = _mode_models(cfg, state, kw, "cpu")
+        want = run_pipeline(data, cm, fm, emb, cfg, device="cpu", verbose=False)
+        sure = _retrieval_margin(data, cm, emb, cfg) > 1e-4
+        top1_equal = bool((got["retrievals"][sure, 0] == want["retrievals"][sure, 0]).all())
+        same = got["retrievals"] == want["retrievals"]
+        dpos = np.abs(got["pos_in_cells"] - want["pos_in_cells"])[same]
+        dpos = dpos * data.cell_size[want["retrievals"]][same][:, None]
+        pos_err = float(dpos.max()) if dpos.size else float("inf")
+        all_agree = bool(same.all())
+        tables_equal = got["coarse"] == want["coarse"] and got["fine"] == want["fine"]
+        rows[mode] = {"compared": int(sure.sum()), "top1_equal": top1_equal,
+                      "retrievals_equal": all_agree, "max_pos_err_m": pos_err,
+                      "tables_equal": tables_equal}
+        check(top1_equal and int(sure.sum()) > 0,
+              f"{mode}: top-1 cell differs between the card and the CPU")
+        check(pos_err <= 1e-2, f"{mode}: positions differ by {pos_err} m")
+        check(tables_equal or not all_agree, f"{mode}: tables differ: {got}, {want}")
+    emit({"phase": "pipeline_vs_cpu", "cells": data.num_cells, "poses": data.num_poses,
+          "modes": rows})
+
+
 # -------------------------------------------------------------------- train
 
 
@@ -658,21 +874,25 @@ def main() -> int:
     from text2loc_tpu_torch.ops import (cuda_ffn, cuda_fps, cuda_mha, cuda_pointconv,
                                         cuda_sa_train)
 
-    serve_kernels = [cuda_fps.KERNEL, cuda_pointconv.KERNEL, cuda_mha.KERNEL,
+    serve_kernels = [cuda_fps.KERNEL, cuda_pointconv.KERNEL_FIRST, cuda_mha.KERNEL,
                      cuda_ffn.KERNEL]
     train_kernels = [cuda_fps.KERNEL, cuda_sa_train.KERNEL_FWD, cuda_sa_train.KERNEL_BWD]
+    pipeline_kernels = [cuda_fps.KERNEL, *cuda_pointconv.KERNELS, cuda_mha.KERNEL,
+                        cuda_ffn.KERNEL]
     dev = torch.device("cuda", 0)
     smi = phase_device()
     phase_build()
     records = phase_kernels(dev)
-    records = dict(zip((k.name for k in serve_kernels), records.values()))
     records.update(phase_sa_train_kernels(dev))
     serve_counts = phase_serve(dev, serve_kernels)
     phase_serve_vs_cpu(dev)
+    pipeline_counts = phase_pipeline(dev, pipeline_kernels)
+    phase_pipeline_vs_cpu(dev)
     train_counts = phase_train(dev, train_kernels)
     phase_train_vs_cpu(dev)
-    kernels = serve_kernels + train_kernels[1:]
-    launches = {k.name: serve_counts.get(k.name, 0) + train_counts.get(k.name, 0)
+    kernels = serve_kernels + train_kernels[1:] + list(cuda_pointconv.KERNELS[1:])
+    launches = {k.name: sum(c.get(k.name, 0)
+                            for c in (serve_counts, pipeline_counts, train_counts))
                 for k in kernels}
     emit({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,

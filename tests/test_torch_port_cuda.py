@@ -28,7 +28,15 @@ from text2loc_tpu_torch.ops import (cuda_ffn, cuda_fps, cuda_mha, cuda_pointconv
 from text2loc_tpu_torch.ops.ffn import ffn_addln, ffn_addln_plain
 from text2loc_tpu_torch.ops.fps import farthest_point_sampling_plain, fps_gather
 from text2loc_tpu_torch.ops.mha import mha_addln, mha_addln_plain
-from text2loc_tpu_torch.ops.pointconv import sa_select_first, sa_select_first_plain
+from text2loc_tpu_torch.ops.ballquery import ball_query_knn
+from text2loc_tpu_torch.ops.pointconv import (
+    sa_gather,
+    sa_gather_plain,
+    sa_select,
+    sa_select_plain,
+    set_abstraction,
+    set_abstraction_plain,
+)
 from text2loc_tpu_torch.ops.sa_train import sa_train, sa_train_backward_plain, sa_train_plain
 
 pytestmark = pytest.mark.cuda
@@ -84,11 +92,99 @@ def test_sa_select_kernel(dev, dtype):
     ab1 = torch.stack([_randn(rng, h1, dev, 0.1, 1.0), _randn(rng, h1, dev, 0.1)])
     ab2 = torch.stack([_randn(rng, h2, dev, 0.1, 1.0), _randn(rng, h2, dev, 0.1)])
     args = (feat, pos, ctr, w1, w1[c - 3:].contiguous(), ab1, w2, ab2, 0.3, 32)
-    before = cuda_pointconv.KERNEL.launches
-    got = sa_select_first(*args)
-    assert cuda_pointconv.KERNEL.launches == before + 1
-    _close(got, sa_select_first_plain(*args), dtype)
+    before = cuda_pointconv.KERNEL_FIRST.launches
+    got = sa_select(*args)
+    assert cuda_pointconv.KERNEL_FIRST.launches == before + 1
+    _close(got, sa_select_plain(*args), dtype)
     assert (got[0, 5] == 0).all()
+
+
+def _sa_level_inputs(rng, dev, dtype, n, p, s, c, h1, h2, voxel=False):
+    """feat = concat(x, pos) and the weights of one SA level; `voxel`: points
+    on a 1/16 grid, so that many distances tie exactly."""
+    if voxel:
+        pos = rng.integers(-8, 9, (n, p, 3)) / 16.0
+    else:
+        pos = rng.random((n, p, 3)) - 0.5
+    pos = torch.from_numpy(pos.astype(np.float32)).to(dev)
+    ctr = pos[:, :s].contiguous()
+    ctr[0, 5] = 9.0                                   # an empty-radius row
+    x = _randn(rng, (n, p, c - 3), dev).to(dtype).contiguous()
+    feat = torch.cat([x, pos.to(dtype)], -1).contiguous()
+    w1 = _randn(rng, (c, h1), dev, c ** -0.5).to(dtype)
+    w2 = _randn(rng, (h1, h2), dev, h1 ** -0.5).to(dtype)
+    ab1 = torch.stack([_randn(rng, h1, dev, 0.1, 1.0), _randn(rng, h1, dev, 0.1)])
+    ab2 = torch.stack([_randn(rng, h2, dev, 0.1, 1.0), _randn(rng, h2, dev, 0.1)])
+    return dict(x=x, feat=feat, pos=pos, ctr=ctr, w1=w1, wx=w1[:c - 3].contiguous(),
+                wp=w1[c - 3:].contiguous(), ab1=ab1, w2=w2, ab2=ab2)
+
+
+SA_SHAPES = [(12, 256, 128, 6, 32, 64, 0.2), (9, 128, 64, 67, 128, 128, 0.3),
+             (5, 64, 32, 131, 256, 256, 0.4)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", SA_SHAPES)
+@pytest.mark.parametrize("voxel,iters", [(False, 12), (True, 12), (True, 4)])
+def test_sa_select_bisect_kernel(dev, dtype, shape, voxel, iters):
+    rng = np.random.default_rng(7)
+    n, p, s, c, h1, h2, radius = shape
+    a = _sa_level_inputs(rng, dev, dtype, n, p, s, c, h1, h2, voxel)
+    args = (a["feat"], a["pos"], a["ctr"], a["w1"], a["wp"], a["ab1"], a["w2"],
+            a["ab2"], radius, 32)
+    before = cuda_pointconv.KERNEL_BISECT.launches
+    got = sa_select(*args, selection="bisect", bisect_iters=iters)
+    assert cuda_pointconv.KERNEL_BISECT.launches == before + 1
+    _close(got, sa_select_plain(*args, selection="bisect", bisect_iters=iters), dtype)
+    assert (got[0, 5] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", SA_SHAPES)
+@pytest.mark.parametrize("approx", [False, True])
+def test_sa_gather_kernel(dev, dtype, shape, approx):
+    rng = np.random.default_rng(8)
+    n, p, s, c, h1, h2, radius = shape
+    a = _sa_level_inputs(rng, dev, dtype, n, p, s, c, h1, h2, voxel=approx)
+    idx, mask = ball_query_knn(a["pos"], a["ctr"], radius, 32, approx=approx)
+    args = (a["feat"], a["ctr"], idx, mask, a["w1"], a["wp"], a["ab1"], a["w2"], a["ab2"])
+    before = cuda_pointconv.KERNEL_GATHER.launches
+    got = sa_gather(*args)
+    assert cuda_pointconv.KERNEL_GATHER.launches == before + 1
+    _close(got, sa_gather_plain(*args), dtype)
+    assert (got[0, 5] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", SA_SHAPES)
+@pytest.mark.parametrize("select_k", [True, False])
+def test_set_abstraction_kernel(dev, dtype, shape, select_k):
+    rng = np.random.default_rng(9)
+    n, p, s, c, h1, h2, radius = shape
+    a = _sa_level_inputs(rng, dev, dtype, n, p, s, c, h1, h2, voxel=select_k)
+    args = (a["x"], a["pos"], a["ctr"], a["wx"], a["wp"], a["ab1"], a["w2"], a["ab2"],
+            radius, 32)
+    kernel = cuda_pointconv.KERNEL_EXACT if select_k else cuda_pointconv.KERNEL_ALL
+    before = kernel.launches
+    got = set_abstraction(*args, select_k=select_k)
+    assert kernel.launches == before + 1
+    _close(got, set_abstraction_plain(*args, select_k=select_k), dtype)
+    assert (got[0, 5] == 0).all()
+
+
+def test_sa_level_wrappers_reject_what_the_kernel_does_not_take(dev):
+    rng = np.random.default_rng(10)
+    a = _sa_level_inputs(rng, dev, torch.float32, 2, 320, 16, 6, 32, 64)
+    with pytest.raises(ValueError, match="at most 256"):
+        sa_select(a["feat"], a["pos"], a["ctr"], a["w1"], a["wp"], a["ab1"], a["w2"],
+                  a["ab2"], 0.2, 32, selection="bisect")
+    with pytest.raises(ValueError, match="selection"):
+        sa_select(a["feat"], a["pos"], a["ctr"], a["w1"], a["wp"], a["ab1"], a["w2"],
+                  a["ab2"], 0.2, 32, selection="nearest")
+    idx, mask = ball_query_knn(a["pos"], a["ctr"], 0.2, 32)
+    with pytest.raises(ValueError, match="idx"):
+        cuda_pointconv.sa_gather_cuda(a["feat"], a["ctr"], idx, mask, a["w1"], a["wp"],
+                                      a["ab1"], a["w2"], a["ab2"])   # int64 idx
 
 
 @pytest.mark.parametrize("dtype,b,lq,lk,d,self_attn", [

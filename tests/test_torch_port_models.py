@@ -39,10 +39,10 @@ def _random_stats(stats, seed):
     return jax.tree_util.tree_map_with_path(leaf, stats)
 
 
-@pytest.mark.parametrize("mode,fused", [("first", "first"), ("exact", False)])
+@pytest.mark.parametrize("mode,fused", [("first", "first"), ("off", False)])
 def test_pointnet2_matches_jax(small_cfg, mode, fused):
     """"first": the port's plain SA level vs the Pallas kernel in interpret
-    mode; "exact": the port's nearest-K path vs the JAX XLA path."""
+    mode; "off": the port's nearest-K path vs the JAX XLA path."""
     pcfg = small_cfg.model.pointnet
     rng = np.random.default_rng(0)
     xyz = rng.random((6, pcfg.num_points, 3)).astype(np.float32)

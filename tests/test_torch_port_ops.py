@@ -26,11 +26,7 @@ from text2loc_tpu_torch.ops.ballquery import ball_query_knn
 from text2loc_tpu_torch.ops.ffn import ffn_addln, ffn_addln_plain
 from text2loc_tpu_torch.ops.fps import farthest_point_sampling_plain, fps_gather
 from text2loc_tpu_torch.ops.mha import mha_addln, mha_addln_plain
-from text2loc_tpu_torch.ops.pointconv import (
-    fold_bn_affine,
-    sa_select_first,
-    sa_select_first_plain,
-)
+from text2loc_tpu_torch.ops.pointconv import fold_bn_affine, sa_select, sa_select_plain
 
 ATOL = 1e-5
 
@@ -108,12 +104,12 @@ def test_sa_select_first_plain_matches_pallas_kernel():
     radius, k = 0.45, 8      # dense: most centers see more than K in radius
     want = fused_sa_select(*(jnp.asarray(a) for a in args), radius=radius, k=k,
                            interpret=True, selection="first")
-    got = sa_select_first_plain(*(_t(a) for a in args), radius, k)
+    got = sa_select_plain(*(_t(a) for a in args), radius, k, selection="first")
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
     assert np.all(got.numpy()[0, 3] == 0.0)       # empty row pools to 0
     # The CPU dispatch takes the plain version.
     np.testing.assert_array_equal(
-        sa_select_first(*(_t(a) for a in args), radius, k).numpy(), got.numpy())
+        sa_select(*(_t(a) for a in args), radius, k).numpy(), got.numpy())
 
 
 def test_fold_bn_affine_matches_jax():

@@ -1,7 +1,7 @@
 """The port's cached serve against the JAX package's, end to end.
 
 The JAX Localizer runs its CPU path (XLA FPS, nearest-K SA levels, stock
-attention); the port's Localizer runs SA mode "exact" (the same semantics)
+attention); the port's Localizer runs SA mode "off" (the same semantics)
 on the same weights carried over with from_jax_params, with BN running
 statistics randomized with numpy. Tolerances: cell indices equal, scores at
 atol 1e-5, candidate world positions at atol 1e-3 m (f32).
@@ -62,7 +62,7 @@ def both_localizers(small_cfg, small_embedder, small_data):
 
     models = []
     for kind, st in (("coarse", cs), ("fine", fs)):
-        model = build_model(cfg, kind, sa_mode="exact")
+        model = build_model(cfg, kind, sa_mode="off")
         model.load_state_dict(from_jax_params(jax.device_get(st.params),
                                               jax.device_get(st.batch_stats), cfg,
                                               kind))
@@ -152,8 +152,9 @@ def test_compositional_table_is_byte_equal(dims):
 
 def test_port_imports_and_serves_without_jax():
     """In a fresh interpreter (this one has jax loaded by conftest): the port
-    alone builds a map, serves and takes a CPU train step, and loads no
-    module of the JAX package and no jax."""
+    alone builds a map, serves, takes a CPU train step and runs the
+    evaluation CLI with SA modes full,full,all, and loads no module of the
+    JAX package and no jax."""
     code = textwrap.dedent("""
         import dataclasses, sys
         import numpy as np, torch
@@ -181,6 +182,10 @@ def test_port_imports_and_serves_without_jax():
         step = steps.make_coarse_train_step(coarse, emb, cfg, opt, gen)
         loss = float(step(data.gather_coarse(np.arange(4), cfg.model.object_size))["loss"])
         assert np.isfinite(loss), loss
+        from text2loc_tpu_torch.evaluation.cli import main_pipeline
+        out = main_pipeline(["--synthetic", "--device", "cpu", "--fused_sa",
+                             "full,full,all"])
+        assert np.isfinite(out["pos_in_cells"]).all(), out
         loaded = sorted(m for m in sys.modules
                         if m in ("jax", "text2loc_tpu")
                         or m.startswith(("jax.", "text2loc_tpu.")))

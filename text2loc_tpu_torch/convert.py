@@ -96,15 +96,19 @@ def from_jax_params(params, batch_stats, cfg, kind: str) -> dict:
     return state
 
 
-def build_model(cfg, kind: str, sa_mode: str = "first") -> nn.Module:
-    """A port model of `kind` ("coarse" or "fine") for ModelConfig cfg.model."""
+def build_model(cfg, kind: str, sa_mode="first", approx_neighbors=None,
+                bisect_iters: int = 12) -> nn.Module:
+    """A port model of `kind` ("coarse" or "fine") for ModelConfig cfg.model,
+    with PointNet2's inference SA options (models/pointnet2.py)."""
     from text2loc_tpu_torch.models.cell_retrieval import CellRetrievalNetwork
     from text2loc_tpu_torch.models.cross_matcher import CrossMatch
 
+    sa = dict(sa_mode=sa_mode, approx_neighbors=approx_neighbors,
+              bisect_iters=bisect_iters)
     if kind == "coarse":
-        return CellRetrievalNetwork(cfg.model, sa_mode=sa_mode)
+        return CellRetrievalNetwork(cfg.model, **sa)
     if kind == "fine":
-        return CrossMatch(cfg.model, sa_mode=sa_mode)
+        return CrossMatch(cfg.model, **sa)
     raise ValueError(f"kind {kind!r}: expected 'coarse' or 'fine'")
 
 

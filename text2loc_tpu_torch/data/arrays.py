@@ -202,11 +202,14 @@ class MultiSceneArrays:
         )
         return out
 
-    def fine_object_order(self, pose_indices, pad_size: int) -> np.ndarray:
+    def fine_object_order(self, pose_indices, cell_indices, pad_size: int,
+                          hint_obj_idx: Optional[np.ndarray] = None) -> np.ndarray:
         """[B, pad_size] slot order for the fine stage: the matched objects in
         hint order (in range, without repeats) first, then the other slots
-        in storage order."""
-        matched_src = self.hint_obj_idx[np.asarray(pose_indices)]
+        in storage order. `hint_obj_idx` ([B, S]) replaces the poses' own
+        matches; `cell_indices` is unused, as in the JAX package."""
+        matched_src = (self.hint_obj_idx[np.asarray(pose_indices)]
+                       if hint_obj_idx is None else np.asarray(hint_obj_idx))
         o = self.object_slots
         order = np.zeros((len(matched_src), pad_size), dtype=np.int32)
         for i, row in enumerate(matched_src):
@@ -221,13 +224,21 @@ class MultiSceneArrays:
             order[i] = full
         return order
 
-    def gather_fine(self, pose_indices, pad_size: int) -> Dict[str, np.ndarray]:
-        """Per-pose fine sample against its best cell, matched objects first.
-        `target` is the pose normalized in the cell (both axes by the scalar
-        cell size)."""
+    def gather_fine(self, pose_indices, pad_size: int, cell_indices=None,
+                    hint_obj_idx: Optional[np.ndarray] = None,
+                    match_first: bool = True) -> Dict[str, np.ndarray]:
+        """Per-pose fine sample against its best cell (or the given
+        `cell_indices`), matched objects first. `match_first=False` keeps
+        the plain storage order truncated to pad_size: the evaluation order
+        against retrieved cells, which have no matching. `target` is the pose
+        normalized in the cell (both axes by the scalar cell size)."""
         pi = np.asarray(pose_indices)
-        ci = self.pose_cell_idx[pi]
-        order = self.fine_object_order(pi, pad_size)
+        ci = self.pose_cell_idx[pi] if cell_indices is None else np.asarray(cell_indices)
+        if match_first:
+            order = self.fine_object_order(pi, ci, pad_size, hint_obj_idx=hint_obj_idx)
+        else:
+            order = np.broadcast_to(np.arange(pad_size, dtype=np.int32),
+                                    (len(pi), pad_size))
         cc = ci[:, None]
         out = {
             "xyz": self.obj_xyz[cc, order],

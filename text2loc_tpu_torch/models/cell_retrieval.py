@@ -42,9 +42,11 @@ def default_fused_train(cfg, kind: str):
 
 class CellRetrievalNetwork(nn.Module):
     """`fused_train`: per SA level, whether training runs the fused kernel
-    (default: default_fused_train(cfg, "coarse"))."""
+    (default: default_fused_train(cfg, "coarse")). `sa_mode`,
+    `approx_neighbors`, `bisect_iters`: PointNet2's inference SA options."""
 
-    def __init__(self, cfg, sa_mode: str = "first", fused_train=None):
+    def __init__(self, cfg, sa_mode="first", fused_train=None, approx_neighbors=None,
+                 bisect_iters: int = 12):
         super().__init__()
         self.cfg = cfg
         self.dtype, body_dtype = model_dtypes(cfg)
@@ -53,7 +55,9 @@ class CellRetrievalNetwork(nn.Module):
         if fused_train is None:
             fused_train = default_fused_train(cfg, "coarse")
         self.object_encoder = ObjectEncoder(d, cfg, dtype=body_dtype, sa_mode=sa_mode,
-                                            fused_train=fused_train)
+                                            fused_train=fused_train,
+                                            approx_neighbors=approx_neighbors,
+                                            bisect_iters=bisect_iters)
         self.obj_inter = nn.ModuleList(
             EncoderLayer(d, cfg.object_inter_num_heads, 2 * d, dtype=self.dtype,
                          dropout_rate=cfg.dropout_rate)

@@ -25,9 +25,11 @@ from text2loc_tpu_torch.ops.masked import l2_normalize, masked_max
 
 class CrossMatch(nn.Module):
     """`fused_train`: per SA level, whether training runs the fused kernel
-    (default: default_fused_train(cfg, "fine"))."""
+    (default: default_fused_train(cfg, "fine")). `sa_mode`,
+    `approx_neighbors`, `bisect_iters`: PointNet2's inference SA options."""
 
-    def __init__(self, cfg, sa_mode: str = "first", fused_train=None):
+    def __init__(self, cfg, sa_mode="first", fused_train=None, approx_neighbors=None,
+                 bisect_iters: int = 12):
         super().__init__()
         self.cfg = cfg
         self.dtype, body_dtype = model_dtypes(cfg)
@@ -36,7 +38,9 @@ class CrossMatch(nn.Module):
         if fused_train is None:
             fused_train = default_fused_train(cfg, "fine")
         self.object_encoder = ObjectEncoder(d, cfg, dtype=body_dtype, sa_mode=sa_mode,
-                                            fused_train=fused_train)
+                                            fused_train=fused_train,
+                                            approx_neighbors=approx_neighbors,
+                                            bisect_iters=bisect_iters)
         self.language_encoder = LanguageEncoder(
             d, cfg.text_embed_dim, is_fine=True,
             intra_num_layers=cfg.fine_intra_num_layers,

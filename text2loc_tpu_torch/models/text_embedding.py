@@ -1,5 +1,6 @@
 """Frozen text embeddings as a lookup table over the hint vocabulary (port of
-text2loc_tpu/models/text_embedding.py: compositional, from_npz, embed).
+text2loc_tpu/models/text_embedding.py: make_embedder, compositional,
+from_npz, embed).
 
 The compositional stand-in is built by the same numpy recipe as the JAX
 package's, so the two tables are byte-equal."""
@@ -11,6 +12,21 @@ import torch
 
 from text2loc_tpu_torch import constants as C
 from text2loc_tpu_torch.data.batch import TextSet
+
+
+def make_embedder(cfg, table_path=None):
+    """(cfg, embedder) for a CLI: a prebuilt frozen table, whose [V, T, E]
+    shape then sets the model's text dims, or the compositional stand-in at
+    the configured dims (on the CPU; callers move it to their device)."""
+    import dataclasses
+
+    if table_path:
+        emb = HintTextEmbedder.from_npz(table_path)
+        model = dataclasses.replace(cfg.model, text_embed_dim=emb.embed_dim,
+                                    max_hint_tokens=emb.max_tokens)
+        return cfg.replace(model=model), emb
+    return cfg, HintTextEmbedder.compositional(cfg.model.text_embed_dim,
+                                               cfg.model.max_hint_tokens)
 
 
 def compositional_table(embed_dim: int = 1024, max_tokens: int = 16,
@@ -53,8 +69,8 @@ class HintTextEmbedder:
     """Lookup-table embedder: table [V, T, E], token_mask [V, T]."""
 
     def __init__(self, table, token_mask, device=None):
-        table = torch.as_tensor(np.asarray(table), dtype=torch.float32)
-        token_mask = torch.as_tensor(np.asarray(token_mask), dtype=torch.bool)
+        table = torch.as_tensor(table, dtype=torch.float32)
+        token_mask = torch.as_tensor(token_mask, dtype=torch.bool)
         if table.shape[0] != C.hint_vocab_size() or token_mask.shape != table.shape[:2]:
             raise ValueError(f"table {tuple(table.shape)} / mask "
                              f"{tuple(token_mask.shape)} do not fit the vocabulary")

@@ -26,9 +26,10 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_ROOT = PACKAGE_DIR.parent / "build" / "text2loc_tpu_torch"
-SOURCES = ("fps.cu", "sa_select.cu", "mha_addln.cu", "ffn_addln.cu",
+SOURCES = ("fps.cu", "sa_select.cu", "sa_select_bisect.cu", "sa_gather.cu",
+           "sa_exact.cu", "sa_all.cu", "mha_addln.cu", "ffn_addln.cu",
            "sa_train_fwd.cu", "sa_train_bwd.cu")
-HEADERS = ("common.cuh", "sa_train_common.cuh")
+HEADERS = ("common.cuh", "sa_level.cuh", "sa_train_common.cuh")
 _NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-Xcompiler", "-fPIC"]
 # FPS must round every product and sum on its own, like the plain version.
@@ -115,8 +116,9 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "t2l_error_string": ([_I], ctypes.c_char_p),
     "t2l_fps": ([_P, _P, _P, _I, _I, _I, _P], _I),
-    "t2l_sa_select_smem": ([_I, _I, _I], ctypes.c_size_t),
-    "t2l_sa_select_first": ([_P] * 9 + [_I] * 7 + [_F, _I, _I, _P], _I),
+    "t2l_sa_level_smem": ([_I] * 4, ctypes.c_size_t),
+    **{f"t2l_sa_level_{sel}": ([_P] * 11 + [_I] * 7 + [_F] + [_I] * 4 + [_P], _I)
+       for sel in ("first", "bisect", "gather", "exact", "all")},
     "t2l_mha_addln_smem": ([_I] * 6, ctypes.c_size_t),
     "t2l_mha_addln": ([_P] * 14 + [_I] * 5 + [_F, _F, _I, _I, _P], _I),
     "t2l_ffn_addln_smem": ([_I] * 3, ctypes.c_size_t),
