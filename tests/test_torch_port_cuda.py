@@ -14,7 +14,14 @@ discontinuous backwards, and z differs from the plain version's in the last
 bits, so a near-tie can pick another winning edge and move O(1) of gradient
 between edges; norms are floored at 1e-3 x the largest gradient norm of the
 level, since db2 and the BN shift gradients are near zero by BN shift
-invariance (sums of cancelling terms).
+invariance (sums of cancelling terms). The add+LN kernel: f32 within 1e-6
+x max|plain| (the same two-pass formulas, sums in another order), bf16
+within one bf16 ulp per element (an f32 difference in the last bit can
+round the other way; the ulp of max(|plain|, 2^-8): a smaller output is a
+cancellation of terms of order 0.1-1, where the f32 sums differ by more
+than the bf16 spacing at the result). The row gather is bit-equal; the scatter-add within
+1e-6 x max|plain| of the CPU's index-order sum (the kernel sums each
+point's rows in q order too; the CUDA index_add_ does not).
 """
 
 import math
@@ -23,9 +30,12 @@ import numpy as np
 import pytest
 import torch
 
-from text2loc_tpu_torch.ops import (cuda_ffn, cuda_fps, cuda_mha, cuda_pointconv,
-                                    cuda_sa_train)
+from text2loc_tpu_torch.ops import (cuda_ffn, cuda_fps, cuda_gather, cuda_ln, cuda_mha,
+                                    cuda_pointconv, cuda_sa_train)
 from text2loc_tpu_torch.ops.ffn import ffn_addln, ffn_addln_plain
+from text2loc_tpu_torch.ops.gather import (gather_rows, gather_rows_grad, gather_rows_plain,
+                                           scatter_rows, scatter_rows_plain)
+from text2loc_tpu_torch.ops.ln import add_layernorm, add_layernorm_plain
 from text2loc_tpu_torch.ops.fps import farthest_point_sampling_plain, fps_gather
 from text2loc_tpu_torch.ops.mha import mha_addln, mha_addln_plain
 from text2loc_tpu_torch.ops.ballquery import ball_query_knn
@@ -252,22 +262,25 @@ def _sa_train_inputs(rng, dev, n, p, s, k, h1, h2):
     return (u, sv, w2, *vecs, idx, maskm, maskf)
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("n,p,s,k,h1,h2", [(20, 256, 128, 32, 32, 64),
-                                           (9, 128, 64, 32, 128, 128),
-                                           (7, 64, 32, 32, 256, 256),
-                                           (5, 40, 12, 5, 64, 32)])
-def test_sa_train_kernels(dev, dtype, n, p, s, k, h1, h2):
+SA_TRAIN_SHAPES = [(20, 256, 128, 32, 32, 64), (9, 128, 64, 32, 128, 128),
+                   (7, 64, 32, 32, 256, 256), (5, 40, 12, 5, 64, 32)]
+
+
+def _check_sa_train(dev, dtype, n, p, s, k, h1, h2, cache_dtype=None):
+    """The level's forward, statistics and gradients on the card against
+    the plain forward and the hand-derived plain backward."""
     rng = np.random.default_rng(4)
     args = _sa_train_inputs(rng, dev, n, p, s, k, h1, h2)
     dout = _randn(rng, (n, s, h2), dev)
     diff = [a.clone().requires_grad_() for a in args[:8]]
-    before = (cuda_sa_train.KERNEL_FWD.launches, cuda_sa_train.KERNEL_BWD.launches)
-    out, stats = sa_train(*diff, *args[8:], compute_dtype=dtype)
+    fwd, bwd = ((cuda_sa_train.KERNEL_FWD, cuda_sa_train.KERNEL_BWD) if cache_dtype is None
+                else (cuda_sa_train.KERNEL_E_FWD, cuda_sa_train.KERNEL_E_BWD))
+    before = (fwd.launches, bwd.launches)
+    out, stats = sa_train(*diff, *args[8:], compute_dtype=dtype, cache_dtype=cache_dtype)
     (out * dout).sum().backward()
-    assert cuda_sa_train.KERNEL_FWD.launches > before[0]
-    assert cuda_sa_train.KERNEL_BWD.launches > before[1]
-    want_out, want_stats = sa_train_plain(*args, compute_dtype=dtype)
+    assert fwd.launches > before[0]
+    assert bwd.launches > before[1]
+    want_out, want_stats = sa_train_plain(*args, compute_dtype=dtype, cache_dtype=cache_dtype)
     _close(out, want_out, dtype)
     for g, w in zip(stats, want_stats):
         _close(g, w, dtype)
@@ -281,13 +294,26 @@ def test_sa_train_kernels(dev, dtype, n, p, s, k, h1, h2):
         aux[0], aux[1], aux[2], aux[3] = g * inv, be - m * g * inv, m, inv
     aux2[6] = args[3]
     want = sa_train_backward_plain(args[0], args[1], args[2], args[8], args[9], args[10],
-                                   aux1, aux2, n1, dout, dtype)
+                                   aux1, aux2, n1, dout, dtype, cache_dtype)
     floor = 1e-3 * max(w.norm().item() for w in want)
     for d, w in zip(diff, want):
         got, w = d.grad.float().cpu(), w.float().cpu()
         assert torch.isfinite(got).all()
         rel = ((got - w).norm() / max(w.norm().item(), floor)).item()
         assert rel <= REL_L2[dtype], rel
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,p,s,k,h1,h2", SA_TRAIN_SHAPES)
+def test_sa_train_kernels(dev, dtype, n, p, s, k, h1, h2):
+    _check_sa_train(dev, dtype, n, p, s, k, h1, h2)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,p,s,k,h1,h2", SA_TRAIN_SHAPES)
+def test_sa_train_bf16_cache_kernels(dev, dtype, n, p, s, k, h1, h2):
+    """The kernels of the token "e": e rounded to bf16 in every pass."""
+    _check_sa_train(dev, dtype, n, p, s, k, h1, h2, cache_dtype=torch.bfloat16)
 
 
 def test_sa_train_kernels_are_deterministic(dev):
@@ -302,3 +328,106 @@ def test_sa_train_kernels_are_deterministic(dev):
         runs.append([out, *stats] + [d.grad for d in diff])
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+def test_sa_train_bf16_cache_is_deterministic_and_rounds_e(dev):
+    rng = np.random.default_rng(7)
+    args = _sa_train_inputs(rng, dev, 12, 128, 64, 32, 128, 128)
+    runs = []
+    for cache in (torch.bfloat16, torch.bfloat16, None):
+        diff = [a.clone().requires_grad_() for a in args[:8]]
+        out, _ = sa_train(*diff, *args[8:], cache_dtype=cache)
+        out.square().sum().backward()
+        runs.append([out] + [d.grad for d in diff])
+    for a, b in zip(runs[0], runs[1]):
+        assert torch.equal(a, b)
+    assert not torch.equal(runs[0][0], runs[2][0])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d,rows", [(128, 10241), (256, 1795), (1024, 3001), (512, 7)])
+def test_add_ln_kernel(dev, dtype, d, rows):
+    rng = np.random.default_rng(d + rows)
+    x = _randn(rng, (rows, d), dev, 2.0, 0.3).to(dtype)
+    res = _randn(rng, (rows, d), dev).to(dtype)
+    scale, bias = _randn(rng, d, dev, 0.1, 1.0), _randn(rng, d, dev, 0.1)
+    before = cuda_ln.KERNEL.launches
+    got = add_layernorm(x, res, scale, bias)
+    assert cuda_ln.KERNEL.launches == before + 1
+    want = add_layernorm_plain(x, res, scale, bias)
+    assert got.dtype == dtype and got.shape == x.shape
+    got, want = got.float().cpu(), want.float().cpu()
+    err = (got - want).abs()
+    if dtype == torch.float32:
+        assert err.max().item() <= 1e-6 * want.abs().max().item(), err.max().item()
+    else:
+        ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp(min=2.0 ** -8))) - 7)
+        assert (err <= ulp).all(), err.max().item()
+
+
+def test_add_ln_kernel_rejects_what_it_cannot_take(dev):
+    x = torch.rand(4, 96, device=dev)
+    v = torch.rand(96, device=dev)
+    with pytest.raises(ValueError):
+        cuda_ln.add_layernorm_cuda(x, x, v, v)
+    x = torch.rand(4, 128, device=dev)
+    with pytest.raises(ValueError):
+        add_layernorm(x, x.to(torch.bfloat16), x[0], x[0])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,p,q,c", [(50, 256, 4096, 6), (40, 128, 2048, 67),
+                                     (30, 64, 1024, 131), (20, 256, 4096, 32),
+                                     (10, 64, 1024, 256), (3, 5, 7, 1)])
+def test_gather_rows_kernel_is_bit_equal(dev, dtype, n, p, q, c):
+    rng = np.random.default_rng(p + q + c)
+    values = _randn(rng, (n, p, c), dev).to(dtype)
+    idx = torch.from_numpy(rng.integers(0, p, (n, q)).astype(np.int32)).to(dev)
+    before = cuda_gather.KERNEL.launches
+    got = gather_rows(values, idx)
+    assert cuda_gather.KERNEL.launches == before + 1
+    assert torch.equal(got, gather_rows_plain(values, idx))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,p,q,c", [(30, 256, 4096, 32), (20, 128, 2048, 128),
+                                     (10, 64, 1024, 256), (40, 256, 4096, 6),
+                                     (4, 300, 5000, 3)])
+def test_scatter_kernel_matches_the_index_order_sum(dev, dtype, n, p, q, c):
+    """Random indices and voxel-like ties: one point takes half of a
+    cloud's rows, another cloud points all its rows at one point."""
+    rng = np.random.default_rng(q + c)
+    g = _randn(rng, (n, q, c), dev).to(dtype)
+    idx_np = rng.integers(0, p, (n, q)).astype(np.int32)
+    idx_np[0, : q // 2] = 3
+    idx_np[-1] = p - 1
+    idx = torch.from_numpy(idx_np).to(dev)
+    before = cuda_gather.KERNEL_SCATTER.launches
+    got = scatter_rows(g, idx, p)
+    again = scatter_rows(g, idx, p)
+    assert cuda_gather.KERNEL_SCATTER.launches == before + 2
+    assert torch.equal(got, again)
+    want = scatter_rows_plain(g.cpu(), idx.cpu(), p)
+    assert got.dtype == dtype and got.shape == (n, p, c)
+    got, want = got.float().cpu(), want.float()
+    if dtype == torch.float32:
+        assert (got - want).abs().max().item() <= 1e-6 * want.abs().max().item()
+    else:
+        assert torch.equal(got, want) or ((got - want).abs().max().item()
+                                          <= 2 ** -7 * want.abs().max().item())
+
+
+def test_gather_rows_grad_runs_both_kernels(dev):
+    rng = np.random.default_rng(3)
+    values = _randn(rng, (8, 64, 16), dev).requires_grad_()
+    idx = torch.from_numpy(rng.integers(0, 64, (8, 512)).astype(np.int32)).to(dev)
+    before = (cuda_gather.KERNEL.launches, cuda_gather.KERNEL_SCATTER.launches)
+    out = gather_rows_grad(values, idx)
+    out.square().sum().backward()
+    assert cuda_gather.KERNEL.launches == before[0] + 1
+    assert cuda_gather.KERNEL_SCATTER.launches == before[1] + 1
+    plain = values.detach().clone().requires_grad_()
+    gather_rows_plain(plain, idx).square().sum().backward()
+    assert torch.equal(out, gather_rows_plain(values.detach(), idx))
+    err = (values.grad - plain.grad).abs().max().item()
+    assert err <= 1e-6 * plain.grad.abs().max().item(), err

@@ -161,13 +161,72 @@ def test_bf16_compute_matches_interpret_kernel_in_bf16():
 
 
 def test_cache_dtype_f32_is_the_same_function_and_bf16_is_not_ported():
+    """cache_dtype float32 is the recompute function; bfloat16 (the token
+    "e", ported since) is another function that runs; other dtypes raise."""
     args, _ = _case(**CASES["ragged"])
     targs = [_t(a) for a in args]
     a, _ = sa_train(*targs)
     b, _ = sa_train(*targs, cache_dtype=torch.float32)
     assert torch.equal(a, b)
+    c, _ = sa_train(*targs, cache_dtype=torch.bfloat16)
+    assert not torch.equal(a, c)
     with pytest.raises(ValueError):
-        sa_train(*targs, cache_dtype=torch.bfloat16)
+        sa_train(*targs, cache_dtype=torch.float16)
+
+
+def _jax_fused_e(dtype):
+    return functools.partial(sa_train_fused, compute_dtype=dtype, interpret=True,
+                             cache_dtype=jnp.bfloat16)
+
+
+# The bf16 edge cache: both sides round the same f32 e to bf16, so the
+# forward and statistics keep the f32 tolerances of the recompute tests;
+# in bf16 compute, 2e-2 x max|want| as test_bf16_compute_matches_....
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_bf16_cache_matches_interpret_kernel(case, compute):
+    """sa_train(cache_dtype=bf16): forward, statistics and the eight
+    gradients of the autograd function (the hand-derived plain backward on
+    the CPU) and of autograd through the plain forward, against the JAX
+    kernel's _forward_e / _backward_e in interpret mode."""
+    tdt, jdt = getattr(torch, compute), getattr(jnp, compute)
+    args, dout = _case(**CASES[case])
+    want_out, want_stats = _jax_fused_e(jdt)(*(jnp.asarray(a) for a in args))
+    want_grads = _jax_grads(_jax_fused_e(jdt), args, dout)
+
+    def check(got, want, name, grad):
+        want = np.asarray(want, np.float32)
+        if compute == "bfloat16":
+            err = np.abs(np.asarray(got, np.float32) - want).max()
+            assert err <= 2e-2 * max(np.abs(want).max(), 1e-3), (name, err)
+        elif grad:
+            _close(got, want, 5e-4, 2.5e-3, name)
+        else:
+            _close(got, want, 1e-5, 1e-5, name)
+
+    for fn in (sa_train, sa_train_plain):
+        diff = [_t(a, grad=True) for a in args[:8]]
+        out, stats = fn(*diff, *(_t(a) for a in args[8:]), compute_dtype=tdt,
+                        cache_dtype=torch.bfloat16)
+        (out * _t(dout)).sum().backward()
+        check(out.detach().numpy(), want_out, "out", False)
+        for i, (g, w) in enumerate(zip(stats, want_stats)):
+            check(g.detach().numpy(), w, f"stat{i}", False)
+        for name, d, w in zip(DIFF, diff, want_grads):
+            check(d.grad.numpy(), w, name, True)
+
+
+def test_bf16_cache_hand_derived_backward_matches_jax_kernel():
+    """sa_train_backward_plain(cache_dtype=bf16) called directly, against
+    the VJP of the JAX kernel's cached-edge path (f32 compute)."""
+    args, dout = _case(**CASES["multi_tile"])
+    _, stats = sa_train_plain(*(_t(a) for a in args), cache_dtype=torch.bfloat16)
+    aux1, aux2, n1 = _aux_of(args, stats)
+    got = sa_train_backward_plain(_t(args[0]), _t(args[1]), _t(args[2]), _t(args[8]),
+                                  _t(args[9]), _t(args[10]), aux1, aux2, n1, _t(dout),
+                                  cache_dtype=torch.bfloat16)
+    for name, g, w in zip(DIFF, got, _jax_grads(_jax_fused_e(jnp.float32), args, dout)):
+        _close(g.numpy(), w, 5e-4, 2.5e-3, name)
 
 
 def _sa_case():
@@ -212,6 +271,42 @@ def test_set_abstraction_train_matches_jax(port_fused, jax_fused):
     _close(out.detach().numpy(), want_out, 2e-4, 2e-5, "out")
     want_state = convert_tree({}, want_stats)
     for key, val in want_state.items():
+        _close(mod.state_dict()[key].numpy(), val.numpy(), 2e-4, 2e-5, key)
+    want_grads = convert_tree(want_gp, {})
+    for name, prm in mod.named_parameters():
+        _close(prm.grad.numpy(), want_grads[name].numpy(), 5e-4, 1e-3, name)
+    _close(tx.grad.numpy(), want_gx, 5e-4, 1e-3, "x")
+
+
+def test_set_abstraction_train_e_token_matches_jax():
+    """A SetAbstraction train step with the token "e" (the bf16 edge cache)
+    against the JAX module with fused_train="e" and the interpret kernel:
+    output, running statistics, the parameters' and x's gradients."""
+    x, pos, obj_mask, centers = _sa_case()
+    jmod = JaxSetAbstraction(num_samples=16, radius=0.4, mlp_channels=(8, 8, 16),
+                             max_neighbors=8, fused="off", fused_train="e",
+                             fused_interpret=True)
+    jargs = (jnp.asarray(pos), jnp.asarray(obj_mask))
+    variables = jmod.init(jax.random.PRNGKey(0), jnp.asarray(x), *jargs, train=True,
+                          centers=jnp.asarray(centers))
+
+    def run(params, xx):
+        (out, _), upd = jmod.apply({"params": params,
+                                    "batch_stats": variables["batch_stats"]},
+                                   xx, *jargs, train=True, centers=jnp.asarray(centers),
+                                   mutable=["batch_stats"])
+        return jnp.sum(out ** 2), (out, upd["batch_stats"])
+
+    (_, (want_out, want_stats)), (want_gp, want_gx) = jax.value_and_grad(
+        run, argnums=(0, 1), has_aux=True)(variables["params"], jnp.asarray(x))
+
+    mod = SetAbstraction(16, 0.4, (8, 8, 16), 8, fused_train="e").train()
+    mod.load_state_dict(convert_tree(variables["params"], variables["batch_stats"]))
+    tx = _t(x, grad=True)
+    out = mod(tx, _t(pos), _t(centers), _t(obj_mask))
+    (out ** 2).sum().backward()
+    _close(out.detach().numpy(), want_out, 2e-4, 2e-5, "out")
+    for key, val in convert_tree({}, want_stats).items():
         _close(mod.state_dict()[key].numpy(), val.numpy(), 2e-4, 2e-5, key)
     want_grads = convert_tree(want_gp, {})
     for name, prm in mod.named_parameters():

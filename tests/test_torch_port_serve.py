@@ -152,9 +152,11 @@ def test_compositional_table_is_byte_equal(dims):
 
 def test_port_imports_and_serves_without_jax():
     """In a fresh interpreter (this one has jax loaded by conftest): the port
-    alone builds a map, serves, takes a CPU train step and runs the
-    evaluation CLI with SA modes full,full,all, and loads no module of the
-    JAX package and no jax."""
+    alone builds a map, serves, takes a CPU train step, one with the bf16
+    edge cache at every SA level, runs the evaluation CLI with SA modes
+    full,full,all and run_pipeline with the opt-in options (the LN gate at
+    every width, stock feed-forward blocks, the VMEM gather in mode off),
+    and loads no module of the JAX package and no jax."""
     code = textwrap.dedent("""
         import dataclasses, sys
         import numpy as np, torch
@@ -185,6 +187,16 @@ def test_port_imports_and_serves_without_jax():
         from text2loc_tpu_torch.evaluation.cli import main_pipeline
         out = main_pipeline(["--synthetic", "--device", "cpu", "--fused_sa",
                              "full,full,all"])
+        assert np.isfinite(out["pos_in_cells"]).all(), out
+        ecoarse = init_weights(build_model(cfg, "coarse", fused_train="e"), gen)
+        opt = steps.make_optimizer(ecoarse.parameters(), cfg, steps_per_epoch=1)
+        step = steps.make_coarse_train_step(ecoarse, emb, cfg, opt, gen)
+        loss = float(step(data.gather_coarse(np.arange(4), cfg.model.object_size))["loss"])
+        assert np.isfinite(loss), loss
+        from text2loc_tpu_torch.evaluation.pipeline import run_pipeline
+        opts = dict(sa_mode="off", fused_ln="all", fused_ffn="0", vmem_gather=True)
+        models = [init_weights(build_model(cfg, k, **opts), gen) for k in ("coarse", "fine")]
+        out = run_pipeline(data, *models, emb, cfg, device="cpu", verbose=False)
         assert np.isfinite(out["pos_in_cells"]).all(), out
         loaded = sorted(m for m in sys.modules
                         if m in ("jax", "text2loc_tpu")

@@ -97,19 +97,32 @@ def from_jax_params(params, batch_stats, cfg, kind: str) -> dict:
 
 
 def build_model(cfg, kind: str, sa_mode="first", approx_neighbors=None,
-                bisect_iters: int = 12) -> nn.Module:
-    """A port model of `kind` ("coarse" or "fine") for ModelConfig cfg.model,
-    with PointNet2's inference SA options (models/pointnet2.py)."""
+                bisect_iters: int = 12, fused_train=None, fused_attn: str = "1",
+                fused_ffn: str = "1", fused_ln: str = "1",
+                vmem_gather: bool = False) -> nn.Module:
+    """A port model of `kind` ("coarse" or "fine") for the Config `cfg`, with
+    PointNet2's inference SA options and vmem_gather (models/pointnet2.py),
+    the training SA tokens `fused_train` (None: the stage's default,
+    training/steps.default_fused_train) and the transformer gates
+    fused_attn / fused_ffn / fused_ln ("0" | "1" | "all",
+    models/transformer.py): the JAX package's TEXT2LOC_* switches as
+    arguments."""
     from text2loc_tpu_torch.models.cell_retrieval import CellRetrievalNetwork
     from text2loc_tpu_torch.models.cross_matcher import CrossMatch
+    from text2loc_tpu_torch.models.transformer import Gates
+    from text2loc_tpu_torch.training.steps import default_fused_train
 
-    sa = dict(sa_mode=sa_mode, approx_neighbors=approx_neighbors,
-              bisect_iters=bisect_iters)
+    if kind not in ("coarse", "fine"):
+        raise ValueError(f"kind {kind!r}: expected 'coarse' or 'fine'")
+    if fused_train is None:
+        fused_train = default_fused_train(cfg, kind)
+    opts = dict(sa_mode=sa_mode, approx_neighbors=approx_neighbors,
+                bisect_iters=bisect_iters, fused_train=fused_train,
+                gates=Gates(attn=fused_attn, ffn=fused_ffn, ln=fused_ln),
+                vmem_gather=vmem_gather)
     if kind == "coarse":
-        return CellRetrievalNetwork(cfg.model, **sa)
-    if kind == "fine":
-        return CrossMatch(cfg.model, **sa)
-    raise ValueError(f"kind {kind!r}: expected 'coarse' or 'fine'")
+        return CellRetrievalNetwork(cfg.model, **opts)
+    return CrossMatch(cfg.model, **opts)
 
 
 @torch.no_grad()

@@ -22,6 +22,12 @@
 // acc[rpt][CW].
 // Sums over edges are per-block partials, reduced by a second kernel in a
 // fixed order: two runs give bit-equal results (no float atomics).
+//
+// The bf16 edge cache of the JAX kernel (cache_dtype=bfloat16, token "e")
+// rounds e to bf16 where it is formed and takes everything after of the
+// rounded value. Here every pass recomputes e and rounds it the same way
+// (load_tile's ROUND_E), so the six passes see the same e as through a
+// cache, and no [N, S*K, H1] tensor is written to device memory.
 #pragma once
 
 #include "common.cuh"
@@ -81,8 +87,9 @@ __device__ __forceinline__ int tile_rows(const Args& a) { return kWarps * a.rpt;
 // Pack the kept edges of the centers s0, s0 + 1, ... of cloud n into a tile
 // (warp 0 takes whole centers while their edges fit), then fill the row
 // data, and e (and h1 when hs != nullptr) into [rows][h1] row-major
-// buffers. Returns the number of centers taken (at least one).
-template <typename T>
+// buffers; ROUND_E rounds e to bf16 (the token "e"). Returns the number of
+// centers taken (at least one).
+template <typename T, bool ROUND_E>
 __device__ __forceinline__ int load_tile(const Args& a, int n, int s0, Rows rw, Centers cs,
                                          float* es, float* hs) {
   const int rows = tile_rows(a);
@@ -143,6 +150,7 @@ __device__ __forceinline__ int load_tile(const Args& a, int n, int s0, Rows rw, 
       const int s = cs.sid[rw.ctr[r]];
       e = round_to<T>(a.u[((size_t)n * a.p + rw.idx[r]) * a.h1 + c]) -
           a.sv[((size_t)n * a.s + s) * a.h1 + c];
+      if (ROUND_E) e = __bfloat162float(__float2bfloat16_rn(e));
     }
     es[i] = e;
     if (hs != nullptr) hs[i] = round_to<T>(fmaxf(fmaf(e, a1[c], c1[c]), 0.f));

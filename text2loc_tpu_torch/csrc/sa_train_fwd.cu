@@ -19,82 +19,9 @@
 // thread, W2 read through L1/L2). Statistics are per-block partials summed
 // by t2l_sa_train_reduce in a fixed order, so two runs agree bit for bit.
 // A later PR can move the products to wgmma.
-#include "sa_train_common.cuh"
+#include "sa_train_fwd.cuh"
 
 namespace {
-
-using namespace t2l::sa;
-
-template <typename T, int LAYER, int CW>
-__global__ void __launch_bounds__(kThreads, CW <= 4 ? 2 : 1)
-    sa_stats_kernel(Args a, float* part) {
-  const Smem sm = carve(a, 0);
-  const int g = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int h = LAYER == 1 ? a.h1 : a.h2;
-  const int cw = h / 32;
-  float sum[CW], sq[CW];
-#pragma unroll
-  for (int j = 0; j < CW; ++j) sum[j] = sq[j] = 0.f;
-  for (int n = blockIdx.x; n < a.n; n += gridDim.x) {
-    for (int s0 = 0; s0 < a.s;) {
-      const int taken =
-          load_tile<T>(a, n, s0, sm.rw, sm.cs, sm.es, LAYER == 2 ? sm.hs : nullptr);
-      float z[kMaxRpt][CW];
-      if (LAYER == 2) tile_z<T>(a, sm.hs, z);
-#pragma unroll
-      for (int i = 0; i < kMaxRpt; ++i)
-#pragma unroll
-        for (int j = 0; j < CW; ++j)
-          if (i < a.rpt && j < cw) {
-            const int r = g * a.rpt + i, c = lane + 32 * j;
-            if (sm.rw.mf[r] > 0.f) {
-              const float v = LAYER == 1 ? sm.es[(size_t)r * a.h1 + c] : z[i][j];
-              sum[j] += v;
-              sq[j] += v * v;
-            }
-          }
-      s0 += taken;
-      __syncthreads();  // the next tile overwrites es / hs
-    }
-  }
-  float* out = part + (size_t)blockIdx.x * 2 * h;
-  block_column_sums(sum, h, sm.red, out);
-  block_column_sums(sq, h, sm.red, out + h);
-}
-
-template <typename T, int CW>
-__global__ void __launch_bounds__(kThreads, CW <= 4 ? 2 : 1)
-    sa_out_kernel(Args a, float* out) {
-  const Smem sm = carve(a, 0);
-  const int g = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int cw = a.h2 / 32;
-  const float* a2 = a.aux2 + kA * a.h2;
-  const float* c2 = a.aux2 + kC * a.h2;
-  for (int n = blockIdx.x; n < a.n; n += gridDim.x) {
-    for (int s0 = 0; s0 < a.s;) {
-      const int taken = load_tile<T>(a, n, s0, sm.rw, sm.cs, sm.es, sm.hs);
-      float z[kMaxRpt][CW];
-      tile_z<T>(a, sm.hs, z);
-#pragma unroll
-      for (int i = 0; i < kMaxRpt; ++i)
-#pragma unroll
-        for (int j = 0; j < CW; ++j)
-          if (i < a.rpt && j < cw) {
-            const int r = g * a.rpt + i, c = lane + 32 * j;
-            const float y = fmaf(z[i][j], a2[c], c2[c]);
-            sm.ys[(size_t)r * a.h2 + c] = sm.rw.mm[r] > 0.f ? fmaxf(y, 0.f) : kNeg;
-          }
-      __syncthreads();
-      tile_pool(a, sm.rw, sm.cs, sm.ys, sm.mx, sm.cnt, sm.any);
-      for (int q = threadIdx.x; q < taken * a.h2; q += kThreads) {
-        const int t = q / a.h2, c = q - t * a.h2;
-        out[((size_t)n * a.s + sm.cs.sid[t]) * a.h2 + c] = sm.any[q] > 0.f ? sm.mx[q] : 0.f;
-      }
-      s0 += taken;
-      __syncthreads();
-    }
-  }
-}
 
 __global__ void sa_reduce_kernel(const float* __restrict__ part, int nblk, int len,
                               float* __restrict__ out) {
@@ -103,27 +30,6 @@ __global__ void sa_reduce_kernel(const float* __restrict__ part, int nblk, int l
   float s = 0.f;
   for (int b = 0; b < nblk; ++b) s += part[(size_t)b * len + i];
   out[i] = s;
-}
-
-template <typename T, int CW>
-int forward_pass_cw(int pass, const Args& a, void* out0, int blocks, size_t smem,
-                    cudaStream_t st) {
-  float* o = static_cast<float*>(out0);
-  switch (pass) {
-    case 1: return launch_pass(sa_stats_kernel<T, 1, CW>, blocks, smem, st, a, o);
-    case 2: return launch_pass(sa_stats_kernel<T, 2, CW>, blocks, smem, st, a, o);
-    case 3: return launch_pass(sa_out_kernel<T, CW>, blocks, smem, st, a, o);
-  }
-  return (int)cudaErrorInvalidValue;
-}
-
-template <typename T>
-int forward_pass(int pass, const Args& a, void* out0, int blocks, size_t smem,
-                 cudaStream_t st) {
-  const int cw = (a.h1 > a.h2 ? a.h1 : a.h2) / 32;
-  if (cw <= 2) return forward_pass_cw<T, 2>(pass, a, out0, blocks, smem, st);
-  if (cw <= 4) return forward_pass_cw<T, 4>(pass, a, out0, blocks, smem, st);
-  return forward_pass_cw<T, 8>(pass, a, out0, blocks, smem, st);
 }
 
 }  // namespace
@@ -152,8 +58,8 @@ int t2l_sa_train_fwd(int pass, const void* u, const void* sv, const void* idx,
          n, p, s, k, h1, h2, rpt};
   const size_t smem = t2l_sa_train_smem(0, p, k, h1, h2, rpt);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == t2l::kBF16) return forward_pass<__nv_bfloat16>(pass, a, out0, blocks, smem, st);
-  return forward_pass<float>(pass, a, out0, blocks, smem, st);
+  if (dtype == t2l::kBF16) return forward_pass<__nv_bfloat16, false>(pass, a, out0, blocks, smem, st);
+  return forward_pass<float, false>(pass, a, out0, blocks, smem, st);
 }
 
 // out[i] = sum over b < nblk of part[b, i], in order of b.

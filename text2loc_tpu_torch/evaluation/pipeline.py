@@ -12,7 +12,9 @@ text2loc_tpu/evaluation/pipeline.py: run_coarse, run_fine, run_pipeline).
     python -m text2loc_tpu_torch.evaluation.pipeline --synthetic --device cpu
 
 The models are in eval mode on `device` (the CUDA card unless the caller
-asks for the CPU); their PointNet2 SA mode selects the kernels.
+asks for the CPU); the options they were built with (convert.build_model:
+sa_mode, approx_neighbors, vmem_gather, and the transformer gates
+fused_attn / fused_ffn / fused_ln) select the kernels.
 """
 
 from __future__ import annotations

@@ -16,7 +16,7 @@ from torch import nn
 from text2loc_tpu_torch.data.batch import ObjectSet, TextSet
 from text2loc_tpu_torch.models.language_encoder import LanguageEncoder
 from text2loc_tpu_torch.models.object_encoder import ObjectEncoder
-from text2loc_tpu_torch.models.transformer import EncoderLayer
+from text2loc_tpu_torch.models.transformer import EncoderLayer, Gates
 from text2loc_tpu_torch.ops.masked import l2_normalize, masked_max
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -28,39 +28,27 @@ def model_dtypes(cfg):
     return dtype, DTYPES[cfg.body_dtype] if cfg.body_dtype else dtype
 
 
-def default_fused_train(cfg, kind: str):
-    """Which SA levels train through the fused kernel: the JAX package's
-    measured per-stage defaults for an f32 body on the 3-level ladder
-    (coarse all three, fine levels 2-3; training/steps.py), else the last
-    level only."""
-    n = len(cfg.pointnet.sa_num_points)
-    body = cfg.body_dtype or cfg.train_dtype
-    if n == 3 and body == "float32":
-        return (True, True, True) if kind == "coarse" else (False, True, True)
-    return (False,) * (n - 1) + (True,)
-
-
 class CellRetrievalNetwork(nn.Module):
-    """`fused_train`: per SA level, whether training runs the fused kernel
-    (default: default_fused_train(cfg, "coarse")). `sa_mode`,
-    `approx_neighbors`, `bisect_iters`: PointNet2's inference SA options."""
+    """`fused_train`: PointNet2's per-level training SA tokens (None: its
+    default; the trainers pass training/steps.default_fused_train's).
+    `sa_mode`, `approx_neighbors`, `bisect_iters`, `vmem_gather`: PointNet2's
+    SA options. `gates`: the transformer layers' fused-block gates."""
 
     def __init__(self, cfg, sa_mode="first", fused_train=None, approx_neighbors=None,
-                 bisect_iters: int = 12):
+                 bisect_iters: int = 12, gates: Gates = Gates(), vmem_gather: bool = False):
         super().__init__()
         self.cfg = cfg
         self.dtype, body_dtype = model_dtypes(cfg)
         d = cfg.coarse_embed_dim
         self.embed_dim = d
-        if fused_train is None:
-            fused_train = default_fused_train(cfg, "coarse")
         self.object_encoder = ObjectEncoder(d, cfg, dtype=body_dtype, sa_mode=sa_mode,
                                             fused_train=fused_train,
                                             approx_neighbors=approx_neighbors,
-                                            bisect_iters=bisect_iters)
+                                            bisect_iters=bisect_iters,
+                                            vmem_gather=vmem_gather)
         self.obj_inter = nn.ModuleList(
             EncoderLayer(d, cfg.object_inter_num_heads, 2 * d, dtype=self.dtype,
-                         dropout_rate=cfg.dropout_rate)
+                         dropout_rate=cfg.dropout_rate, gates=gates)
             for _ in range(cfg.object_inter_num_layers))
         self.language_encoder = LanguageEncoder(
             d, cfg.text_embed_dim, is_fine=False,
@@ -68,7 +56,8 @@ class CellRetrievalNetwork(nn.Module):
             intra_num_heads=cfg.intra_num_heads,
             inter_num_layers=cfg.inter_num_layers,
             inter_num_heads=cfg.inter_num_heads,
-            mask_padded=cfg.mask_padded, dtype=self.dtype, dropout_rate=cfg.dropout_rate)
+            mask_padded=cfg.mask_padded, dtype=self.dtype, dropout_rate=cfg.dropout_rate,
+            gates=gates)
 
     def forward(self, objects: ObjectSet, text: TextSet):
         """(cell embeddings [B, D], text embeddings [B, D]), both normalized."""

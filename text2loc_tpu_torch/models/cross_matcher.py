@@ -15,42 +15,43 @@ import torch
 from torch import nn
 
 from text2loc_tpu_torch.data.batch import ObjectSet, TextSet
-from text2loc_tpu_torch.models.cell_retrieval import default_fused_train, model_dtypes
+from text2loc_tpu_torch.models.cell_retrieval import model_dtypes
 from text2loc_tpu_torch.models.language_encoder import LanguageEncoder
 from text2loc_tpu_torch.models.mlp import get_mlp_offset
 from text2loc_tpu_torch.models.object_encoder import ObjectEncoder
-from text2loc_tpu_torch.models.transformer import DecoderLayer
+from text2loc_tpu_torch.models.transformer import DecoderLayer, Gates
 from text2loc_tpu_torch.ops.masked import l2_normalize, masked_max
 
 
 class CrossMatch(nn.Module):
-    """`fused_train`: per SA level, whether training runs the fused kernel
-    (default: default_fused_train(cfg, "fine")). `sa_mode`,
-    `approx_neighbors`, `bisect_iters`: PointNet2's inference SA options."""
+    """`fused_train`: PointNet2's per-level training SA tokens (None: its
+    default; the trainers pass training/steps.default_fused_train's).
+    `sa_mode`, `approx_neighbors`, `bisect_iters`, `vmem_gather`: PointNet2's
+    SA options. `gates`: the transformer layers' fused-block gates."""
 
     def __init__(self, cfg, sa_mode="first", fused_train=None, approx_neighbors=None,
-                 bisect_iters: int = 12):
+                 bisect_iters: int = 12, gates: Gates = Gates(), vmem_gather: bool = False):
         super().__init__()
         self.cfg = cfg
         self.dtype, body_dtype = model_dtypes(cfg)
         d = cfg.fine_embed_dim
         self.embed_dim = d
-        if fused_train is None:
-            fused_train = default_fused_train(cfg, "fine")
         self.object_encoder = ObjectEncoder(d, cfg, dtype=body_dtype, sa_mode=sa_mode,
                                             fused_train=fused_train,
                                             approx_neighbors=approx_neighbors,
-                                            bisect_iters=bisect_iters)
+                                            bisect_iters=bisect_iters,
+                                            vmem_gather=vmem_gather)
         self.language_encoder = LanguageEncoder(
             d, cfg.text_embed_dim, is_fine=True,
             intra_num_layers=cfg.fine_intra_num_layers,
             intra_num_heads=cfg.fine_intra_num_heads,
-            mask_padded=cfg.mask_padded, dtype=self.dtype, dropout_rate=cfg.dropout_rate)
+            mask_padded=cfg.mask_padded, dtype=self.dtype, dropout_rate=cfg.dropout_rate,
+            gates=gates)
         n_layers = max(cfg.fine_num_decoder_layers, 1)
 
         def dec():
             return DecoderLayer(d, cfg.fine_num_decoder_heads, 4 * d, dtype=self.dtype,
-                                dropout_rate=cfg.dropout_rate)
+                                dropout_rate=cfg.dropout_rate, gates=gates)
 
         self.cross_hints = nn.ModuleList(dec() for _ in range(n_layers))
         self.cross_objects = (nn.ModuleList(dec() for _ in range(n_layers))

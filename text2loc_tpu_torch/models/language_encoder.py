@@ -17,16 +17,18 @@ from torch import nn
 
 from text2loc_tpu_torch.data.batch import TextSet
 from text2loc_tpu_torch.models.mlp import get_mlp2
-from text2loc_tpu_torch.models.transformer import EncoderLayer
+from text2loc_tpu_torch.models.transformer import EncoderLayer, Gates
 from text2loc_tpu_torch.ops.masked import masked_max
 
 
 class LanguageEncoder(nn.Module):
+    """`gates`: the fused-block gates of every transformer layer."""
+
     def __init__(self, embed_dim: int, token_dim: int, is_fine: bool = False,
                  intra_num_layers: int = 1, intra_num_heads: int = 4,
                  inter_num_layers: int = 1, inter_num_heads: int = 4,
                  mask_padded: bool = True, dtype=torch.float32,
-                 dropout_rate: float = 0.1):
+                 dropout_rate: float = 0.1, gates: Gates = Gates()):
         super().__init__()
         self.embed_dim = embed_dim
         self.token_dim = token_dim
@@ -36,13 +38,13 @@ class LanguageEncoder(nn.Module):
         e = token_dim
         self.intra = nn.ModuleList(
             EncoderLayer(e, intra_num_heads, 4 * e, dtype=dtype,
-                         dropout_rate=dropout_rate)
+                         dropout_rate=dropout_rate, gates=gates)
             for _ in range(intra_num_layers))
         self.inter_mlp = get_mlp2((e, embed_dim), dtype=dtype)
         if not is_fine:
             self.inter = nn.ModuleList(
                 EncoderLayer(embed_dim, inter_num_heads, 4 * embed_dim, dtype=dtype,
-                             dropout_rate=dropout_rate)
+                             dropout_rate=dropout_rate, gates=gates)
                 for _ in range(inter_num_layers))
 
     def encode_sentences(self, text: TextSet) -> torch.Tensor:

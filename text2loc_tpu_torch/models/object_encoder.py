@@ -15,13 +15,13 @@ from text2loc_tpu_torch.ops.masked import l2_normalize
 
 
 class ObjectEncoder(nn.Module):
-    """`sa_mode`, `approx_neighbors`, `bisect_iters`: PointNet2's inference
-    SA options. `fused_train`: per SA level, whether training runs the fused
-    kernel."""
+    """`sa_mode`, `approx_neighbors`, `bisect_iters`, `vmem_gather`:
+    PointNet2's SA options. `fused_train`: PointNet2's per-level training SA
+    tokens."""
 
     def __init__(self, embed_dim: int, cfg, dtype=torch.float32,
                  sa_mode="first", fused_train=None, approx_neighbors=None,
-                 bisect_iters: int = 12):
+                 bisect_iters: int = 12, vmem_gather: bool = False):
         super().__init__()
         if cfg.class_embed or cfg.color_embed:
             raise NotImplementedError(
@@ -38,7 +38,8 @@ class ObjectEncoder(nn.Module):
                                       dtype=dtype, sa_mode=sa_mode,
                                       fused_train=fused_train,
                                       approx_neighbors=approx_neighbors,
-                                      bisect_iters=bisect_iters)
+                                      bisect_iters=bisect_iters,
+                                      vmem_gather=vmem_gather)
             level = cfg.pointnet.features_level
             pn_dim = (cfg.pointnet.global_mlp[-1],) + tuple(cfg.pointnet.head_dims)
             self.mlp_pointnet = get_mlp([pn_dim[level], embed_dim], dtype=dtype)

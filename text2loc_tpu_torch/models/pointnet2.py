@@ -22,9 +22,21 @@ The fused modes run the CUDA kernel on the card and its plain version on
 the CPU (ops/pointconv.py).
 
 In training (module.train()) every level takes the K nearest in-radius
-points and batch-statistic BatchNorm over the valid edges of real objects;
-a level with fused_train=True runs ops/sa_train.py (the CUDA kernels on the
-card, the hand-derived backward), the others the plain masked edge MLP.
+points and batch-statistic BatchNorm over the valid edges of real objects.
+Per level, `fused_train` takes the JAX package's TEXT2LOC_FUSED_SA_TRAIN
+tokens (fused_train_list): "1" runs ops/sa_train.py (the CUDA kernels on
+the card, the hand-derived backward), "e" the same with the edge tensor
+rounded to bf16 and cached (cache_dtype=bfloat16), "e32" with an f32 cache
+(the same function as "1", and the same kernels), "0" the plain masked edge
+MLP.
+
+`vmem_gather` (the JAX package's TEXT2LOC_VMEM_GATHER=1) routes the
+neighbour gather of mode "off" and of the plain training branch through
+the row-gather kernel (ops/ballquery.gather_neighbors; with its scatter-add
+backward where the gathered features carry a gradient). The JAX package
+takes its kernel only where a cloud fits its TPU VMEM budget
+(pallas_gather.fits_vmem); the port drops that budget, since the gather is
+exact either way, and takes the kernel at every shape.
 """
 
 from __future__ import annotations
@@ -35,7 +47,7 @@ import torch
 from torch import nn
 
 from text2loc_tpu_torch.models.mlp import MaskedBatchNorm, get_mlp
-from text2loc_tpu_torch.ops.ballquery import ball_query_knn
+from text2loc_tpu_torch.ops.ballquery import ball_query_knn, gather_neighbors
 from text2loc_tpu_torch.ops.fps import fps_gather
 from text2loc_tpu_torch.ops.masked import masked_max
 from text2loc_tpu_torch.ops.pointconv import (
@@ -47,6 +59,40 @@ from text2loc_tpu_torch.ops.pointconv import (
 from text2loc_tpu_torch.ops.sa_train import sa_train
 
 SA_MODES = ("off", "first", "full", "gather", "exact", "all")
+TRAIN_TOKENS = ("0", "1", "e", "e32")
+# The training SA level's cache dtype per fused token ("1": the recompute
+# design, which "e32" equals).
+CACHE_DTYPES = {"1": None, "e": torch.bfloat16, "e32": torch.float32}
+
+
+def train_token(tok) -> str:
+    """One level's training SA token: "0"|"1"|"e"|"e32" ("" is "0"; True /
+    False are "1" / "0")."""
+    if isinstance(tok, bool):
+        return "1" if tok else "0"
+    tok = "0" if tok == "" else tok
+    if tok not in TRAIN_TOKENS:
+        raise ValueError(f"fused_train token {tok!r}: expected 0|1|e|e32")
+    return tok
+
+
+def fused_train_list(value, n_levels: int) -> tuple:
+    """Per-level training SA tokens from one token, a comma list ("0,e,e",
+    the JAX package's TEXT2LOC_FUSED_SA_TRAIN form) or a sequence; None is
+    the JAX module's default without a stage auto: the last level "1", the
+    others "0". A wrong length or an unknown token raises."""
+    if value is None:
+        return ("0",) * (n_levels - 1) + ("1",)
+    if isinstance(value, str) and "," in value:
+        toks = [t.strip() for t in value.split(",")]
+    elif isinstance(value, (str, bool)):
+        toks = [value] * n_levels
+    else:
+        toks = list(value)
+    if len(toks) != n_levels:
+        raise ValueError(f"fused_train {value!r}: expected {n_levels} tokens (one per SA "
+                         f"level), got {len(toks)}")
+    return tuple(train_token(t) for t in toks)
 
 
 def sa_mode_list(mode, n_levels: int) -> tuple:
@@ -85,8 +131,8 @@ class SetAbstraction(nn.Module):
 
     def __init__(self, num_samples: int, radius: float, mlp_channels,
                  max_neighbors: int, dtype=torch.float32, mode: str = "first",
-                 fused_train: bool = False, approx_neighbors=None,
-                 bisect_iters: int = 12):
+                 fused_train="0", approx_neighbors=None,
+                 bisect_iters: int = 12, vmem_gather: bool = False):
         super().__init__()
         (mode,) = sa_mode_list(mode, 1)
         cin, h1, h2 = mlp_channels
@@ -95,7 +141,8 @@ class SetAbstraction(nn.Module):
         self.max_neighbors = max_neighbors
         self.dtype = dtype
         self.mode = mode
-        self.fused_train = fused_train
+        self.fused_train = train_token(fused_train)
+        self.vmem_gather = vmem_gather
         # None: the JAX default, approximate keys in "gather" mode only.
         self.approx_neighbors = (mode == "gather" if approx_neighbors is None
                                  else bool(approx_neighbors))
@@ -142,10 +189,8 @@ class SetAbstraction(nn.Module):
         dt = self.dtype
         idx, mask = ball_query_knn(pos, centers, self.radius, self.max_neighbors,
                                    approx=self.approx_neighbors)
-        n, s, k = idx.shape
         both = torch.cat([x, pos.to(x.dtype)], dim=-1)
-        nbr = torch.gather(both, 1, idx.reshape(n, s * k, 1).expand(n, s * k, c + 3))
-        nbr = nbr.reshape(n, s, k, c + 3)
+        nbr = gather_neighbors(both, idx, self.vmem_gather)            # [N, S, K, C+3]
         rel = nbr[..., c:] - centers[:, :, None, :].to(x.dtype)
         h = torch.cat([nbr[..., :c], rel], dim=-1)
         for lin, bn in ((self.dense_0, self.bn_0), (self.dense_1, self.bn_1)):
@@ -162,7 +207,7 @@ class SetAbstraction(nn.Module):
         bn_mask = nbr_mask
         if obj_mask is not None:
             bn_mask = nbr_mask & obj_mask.to(torch.bool)[:, None, None]
-        if self.fused_train:
+        if self.fused_train != "0":
             # Hoisted first layer: concat(x_j, pos_j - c_i) @ W1 + b1
             # == (concat(x_j, pos_j) @ W1 + b1) - c_i @ W1[pos rows].
             w1 = self.dense_0.weight.t()
@@ -172,14 +217,13 @@ class SetAbstraction(nn.Module):
             out, (m1, v1, m2, v2, n1) = sa_train(
                 u, sv, self.dense_1.weight.t(), self.dense_1.bias, self.bn_0.weight,
                 self.bn_0.bias, self.bn_1.weight, self.bn_1.bias, idx, nbr_mask, bn_mask,
-                eps=self.bn_0.eps, compute_dtype=dt)
+                eps=self.bn_0.eps, compute_dtype=dt,
+                cache_dtype=CACHE_DTYPES[self.fused_train])
             self.bn_0.update_running(m1, v1, n1)
             self.bn_1.update_running(m2, v2, n1)
             return out.to(dt)
-        n, s, k = idx.shape
         both = torch.cat([x, pos.to(x.dtype)], dim=-1)
-        nbr = torch.gather(both, 1, idx.reshape(n, s * k, 1).expand(n, s * k, c + 3))
-        nbr = nbr.reshape(n, s, k, c + 3)
+        nbr = gather_neighbors(both, idx, self.vmem_gather)            # [N, S, K, C+3]
         rel = nbr[..., c:] - centers[:, :, None, :].to(x.dtype)
         h = torch.cat([nbr[..., :c], rel], dim=-1)
         for lin, bn in ((self.dense_0, self.bn_0), (self.dense_1, self.bn_1)):
@@ -206,28 +250,29 @@ class GlobalAbstraction(nn.Module):
 class PointNet2(nn.Module):
     """Batched PointNet++ over [N, P, 3] xyz + [N, P, 3] rgb clouds.
     `sa_mode`: the inference mode of every SA level, a comma list or a
-    sequence of one mode per level (sa_mode_list); `approx_neighbors` and
-    `bisect_iters` as SetAbstraction's. `fused_train`: per SA level, whether
-    training runs the fused kernel."""
+    sequence of one mode per level (sa_mode_list); `approx_neighbors`,
+    `bisect_iters` and `vmem_gather` as SetAbstraction's. `fused_train`: the
+    training SA tokens, one for every level, a comma list or a sequence
+    (fused_train_list)."""
 
     def __init__(self, cfg, num_classes: int, num_colors: int,
                  dtype=torch.float32, sa_mode="first", fused_train=None,
-                 approx_neighbors=None, bisect_iters: int = 12):
+                 approx_neighbors=None, bisect_iters: int = 12,
+                 vmem_gather: bool = False):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
         ladder = list(cfg.sa_num_points)
         if any(ladder[i + 1] > ladder[i] for i in range(len(ladder) - 1)):
             raise ValueError(f"SA ladder {ladder} must not grow")
-        fused_train = tuple(fused_train) if fused_train is not None else (False,) * len(ladder)
-        if len(fused_train) != len(ladder):
-            raise ValueError(f"fused_train {fused_train}: one flag per SA level {ladder}")
+        fused_train = fused_train_list(fused_train, len(ladder))
         modes = sa_mode_list(sa_mode, len(ladder))
         for i in range(len(ladder)):
             setattr(self, f"sa{i + 1}", SetAbstraction(
                 ladder[i], cfg.sa_radii[i], cfg.sa_mlps[i], cfg.sa_max_neighbors,
                 dtype=dtype, mode=modes[i], fused_train=fused_train[i],
-                approx_neighbors=approx_neighbors, bisect_iters=bisect_iters))
+                approx_neighbors=approx_neighbors, bisect_iters=bisect_iters,
+                vmem_gather=vmem_gather))
         self.ga = GlobalAbstraction(cfg.global_mlp, dtype=dtype)
         self.lin1 = nn.Linear(cfg.global_mlp[-1], cfg.head_dims[0])
         self.lin2 = nn.Linear(cfg.head_dims[0], cfg.head_dims[1])

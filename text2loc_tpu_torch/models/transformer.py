@@ -2,16 +2,24 @@
 text2loc_tpu/models/transformer.py: TorchEncoderLayer, TorchDecoderLayer).
 
 In eval, where the JAX package runs its fused Pallas blocks, the port runs
-its fused blocks (ops/mha.py, ops/ffn.py: the CUDA kernel on the card, the
-plain version on the CPU), under the same gates:
+its fused blocks (ops/mha.py, ops/ffn.py, ops/ln.py: the CUDA kernel on the
+card, the plain version on the CPU), under the JAX gates. The JAX package
+reads them from TEXT2LOC_FUSED_ATTN / TEXT2LOC_FUSED_FFN / TEXT2LOC_FUSED_LN;
+the port takes them as constructor arguments (Gates), each "0" (off), "1"
+(the default) or "all":
 
-* attention block: d_model a multiple of 128, query and memory widths equal
-  to d_model, and d_model <= 256, or d_model <= 1024 with bf16 activations;
-* feed-forward block: d_model and the hidden width multiples of 128 and
-  d_model <= 256.
+* attention block (fused_attn_enabled): d_model a multiple of 128, query
+  and memory widths equal to d_model; "1": d_model <= 256, or <= 1024 with
+  bf16 activations; "all": every such d_model;
+* feed-forward block (fused_ffn_enabled): d_model and the hidden width
+  multiples of 128; "1": d_model <= 256; "all": every such d_model;
+* add + LayerNorm after a stock block (fused_ln_enabled): d_model a
+  multiple of 128; "1": d_model <= 256; "all": every such d_model.
 
-Everything else (the small test widths, the f32 d=1024 stack, the d=1024
-feed-forward) runs as stock tensor ops, what the JAX package leaves to XLA.
+A block whose gate is closed runs as stock tensor ops, what the JAX package
+leaves to XLA. A gate that is open runs the kernel, and on the card a
+kernel that cannot take the shape raises (the feed-forward block at
+d_model 1024, the f32 attention block at 1024) rather than falling back.
 In training (module.train()) every fused gate closes and the stock ops run
 with dropout at the torch positions: the attention weights, the attention
 output, the feed-forward hidden after the ReLU and the feed-forward output.
@@ -22,14 +30,54 @@ Weights of the blocks are stored [in, out], the layout the kernels read.
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 
 import torch
 from torch import nn
 
 from text2loc_tpu_torch.ops.ffn import ffn_addln
+from text2loc_tpu_torch.ops.ln import add_layernorm as fused_add_layernorm
 from text2loc_tpu_torch.ops.mha import mha_addln
 
 LN_EPS = 1e-5
+GATE_VALUES = ("0", "1", "all")
+
+
+@dataclass(frozen=True)
+class Gates:
+    """The fused-block gates of a layer: the values of the JAX package's
+    TEXT2LOC_FUSED_ATTN, TEXT2LOC_FUSED_FFN and TEXT2LOC_FUSED_LN."""
+
+    attn: str = "1"
+    ffn: str = "1"
+    ln: str = "1"
+
+    def __post_init__(self):
+        for name in ("attn", "ffn", "ln"):
+            v = getattr(self, name)
+            if v not in GATE_VALUES:
+                raise ValueError(f"fused_{name}={v!r}: expected one of {GATE_VALUES}")
+
+
+def fused_ln_enabled(d: int, value: str) -> bool:
+    """The JAX package's _fused_ln_enabled (transformer.py:78-85), minus its
+    backend and environment checks."""
+    return value != "0" and (d <= 256 or value == "all")
+
+
+def fused_ffn_enabled(d: int, value: str) -> bool:
+    """The JAX package's _fused_ffn_enabled (transformer.py:88-95)."""
+    return value != "0" and (d <= 256 or value == "all")
+
+
+def fused_attn_enabled(d: int, dtype, value: str) -> bool:
+    """The JAX package's _fused_attn_enabled (transformer.py:98-119), with
+    `dtype` the activations' dtype."""
+    if value == "0":
+        return False
+    if value == "all" or d <= 256:
+        return True
+    return d <= 1024 and dtype == torch.bfloat16
 
 
 class Dropout(nn.Module):
@@ -85,27 +133,25 @@ class MultiheadAttentionParams(nn.Module):
         self.out = Projection(d_model, d_model)
 
 
-def fused_attention_ok(d_model: int, x, kv) -> bool:
-    """The JAX package's gate for its fused attention block
-    (transformer.py:98-119, 304-306), minus its backend and env switches."""
-    if d_model % 128 or not (x.shape[-1] == d_model == kv.shape[-1]):
-        return False
-    return d_model <= 256 or (d_model <= 1024 and x.dtype == torch.bfloat16)
-
-
-def fused_ffn_ok(d_model: int, dim_feedforward: int) -> bool:
-    """The JAX package's gate for its fused feed-forward block
-    (transformer.py:88-95, 155-156)."""
-    return d_model % 128 == 0 and dim_feedforward % 128 == 0 and d_model <= 256
-
-
 def add_layernorm(x, res, norm: nn.LayerNorm, out_dtype):
-    """LayerNorm(x + res): f32 statistics, biased variance."""
+    """LayerNorm(x + res), the JAX package's stock branch: the sum in x's
+    dtype, then f32 statistics, biased variance."""
     s = (x + res).float()
     mu = s.mean(dim=-1, keepdim=True)
     var = torch.square(s - mu).mean(dim=-1, keepdim=True)
     y = (s - mu) * torch.rsqrt(var + LN_EPS)
     return (y * norm.weight + norm.bias).to(out_dtype)
+
+
+def apply_add_layernorm(x, res, norm: nn.LayerNorm, out_dtype, fused_ln: str,
+                        training: bool):
+    """LayerNorm(x + res) after a stock block: the add+LN kernel (ops/ln.py,
+    output in x's dtype) in eval where the LN gate opens, else the stock
+    formula (transformer.py:336-347)."""
+    d = x.shape[-1]
+    if not training and d % 128 == 0 and fused_ln_enabled(d, fused_ln):
+        return fused_add_layernorm(x, res.to(x.dtype), norm.weight, norm.bias, LN_EPS)
+    return add_layernorm(x, res, norm, out_dtype)
 
 
 def _stock_attention(x, kv, p: MultiheadAttentionParams, key_mask, dtype,
@@ -131,38 +177,43 @@ def _stock_attention(x, kv, p: MultiheadAttentionParams, key_mask, dtype,
 
 
 def attention_block(x, kv, key_mask, attn: MultiheadAttentionParams,
-                    norm: nn.LayerNorm, dtype, dropout: Dropout):
+                    norm: nn.LayerNorm, dtype, dropout: Dropout, gates: Gates):
     """LayerNorm(x + Dropout(MHA(x, kv))) — pass `kv is x` for
     self-attention."""
     d = attn.query.weight.shape[1]
-    if not dropout.training and fused_attention_ok(d, x, kv):
+    if (not dropout.training and d % 128 == 0 and x.shape[-1] == d == kv.shape[-1]
+            and fused_attn_enabled(d, x.dtype, gates.attn)):
         return mha_addln(
             x, kv, attn.query.weight, attn.query.bias, attn.key.weight,
             attn.key.bias, attn.value.weight, attn.value.bias, attn.out.weight,
             attn.out.bias, norm.weight, norm.bias, key_mask,
             num_heads=attn.num_heads, eps=LN_EPS)
     res = dropout(_stock_attention(x, kv, attn, key_mask, dtype, dropout))
-    return add_layernorm(x, res, norm, dtype)
+    return apply_add_layernorm(x, res, norm, dtype, gates.ln, dropout.training)
 
 
 def feed_forward(x, linear1: Projection, linear2: Projection, norm: nn.LayerNorm,
-                 dtype, dropout: Dropout):
+                 dtype, dropout: Dropout, gates: Gates):
     """LayerNorm(x + Dropout(linear2(Dropout(relu(linear1(x))))))."""
     d, f = linear1.weight.shape
-    if not dropout.training and fused_ffn_ok(d, f):
+    if (not dropout.training and d % 128 == 0 and f % 128 == 0
+            and fused_ffn_enabled(d, gates.ffn)):
         return ffn_addln(x.contiguous(), linear1.weight, linear1.bias, linear2.weight,
                          linear2.bias, norm.weight, norm.bias, eps=LN_EPS)
     h = dropout(torch.relu(linear1(x, dtype)))
-    return add_layernorm(x, dropout(linear2(h, dtype)), norm, dtype)
+    return apply_add_layernorm(x, dropout(linear2(h, dtype)), norm, dtype, gates.ln,
+                               dropout.training)
 
 
 class EncoderLayer(nn.Module):
-    """Post-LN self-attention encoder layer (torch defaults)."""
+    """Post-LN self-attention encoder layer (torch defaults); `gates`: the
+    fused-block gates."""
 
     def __init__(self, d_model: int, num_heads: int, dim_feedforward: int,
-                 dtype=torch.float32, dropout_rate: float = 0.1):
+                 dtype=torch.float32, dropout_rate: float = 0.1, gates: Gates = Gates()):
         super().__init__()
         self.dtype = dtype
+        self.gates = gates
         self.dropout = Dropout(dropout_rate)
         self.self_attn = MultiheadAttentionParams(d_model, num_heads)
         self.norm1 = nn.LayerNorm(d_model)
@@ -173,9 +224,9 @@ class EncoderLayer(nn.Module):
     def forward(self, x, mask=None):
         x = x.contiguous()
         x = attention_block(x, x, mask, self.self_attn, self.norm1, self.dtype,
-                            self.dropout)
+                            self.dropout, self.gates)
         return feed_forward(x, self.linear1, self.linear2, self.norm2, self.dtype,
-                            self.dropout)
+                            self.dropout, self.gates)
 
 
 class DecoderLayer(nn.Module):
@@ -183,12 +234,13 @@ class DecoderLayer(nn.Module):
 
     `stage` factors the layer at the self/cross boundary (exact): "self"
     runs the self-attention block only, "rest" takes a tgt that already went
-    through it."""
+    through it. `gates`: the fused-block gates."""
 
     def __init__(self, d_model: int, num_heads: int, dim_feedforward: int,
-                 dtype=torch.float32, dropout_rate: float = 0.1):
+                 dtype=torch.float32, dropout_rate: float = 0.1, gates: Gates = Gates()):
         super().__init__()
         self.dtype = dtype
+        self.gates = gates
         self.dropout = Dropout(dropout_rate)
         self.self_attn = MultiheadAttentionParams(d_model, num_heads)
         self.norm1 = nn.LayerNorm(d_model)
@@ -205,10 +257,10 @@ class DecoderLayer(nn.Module):
         tgt = tgt.contiguous()
         if stage != "rest":
             tgt = attention_block(tgt, tgt, tgt_mask, self.self_attn, self.norm1,
-                                  self.dtype, self.dropout)
+                                  self.dtype, self.dropout, self.gates)
             if stage == "self":
                 return tgt
         tgt = attention_block(tgt, memory.contiguous(), memory_mask, self.cross_attn,
-                              self.norm2, self.dtype, self.dropout)
+                              self.norm2, self.dtype, self.dropout, self.gates)
         return feed_forward(tgt, self.linear1, self.linear2, self.norm3, self.dtype,
-                            self.dropout)
+                            self.dropout, self.gates)

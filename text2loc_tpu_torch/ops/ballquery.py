@@ -1,9 +1,13 @@
-"""Radius-limited neighbour query on fixed-shape point batches (port of
-text2loc_tpu/ops/ballquery.py:ball_query_knn; plain PyTorch only)."""
+"""Radius-limited neighbour query on fixed-shape point batches and the
+neighbour gather (port of text2loc_tpu/ops/ballquery.py: ball_query_knn,
+onehot_gather, gather_neighbors). The query is plain PyTorch; the gather
+takes the row-gather kernel (ops/gather.py) when asked to."""
 
 from __future__ import annotations
 
 import torch
+
+from text2loc_tpu_torch.ops.gather import gather_rows, gather_rows_grad
 
 _BIG = 1e30
 
@@ -72,3 +76,33 @@ def ball_query_knn(src: torch.Tensor, query: torch.Tensor, radius: float, k: int
     idx = idx[..., :k]
     idx = torch.where(mask, idx, idx[..., :1])
     return idx, mask
+
+
+def onehot_gather(values: torch.Tensor, idx: torch.Tensor,
+                  vmem_gather: bool = False) -> torch.Tensor:
+    """values [N, P, C] gathered by idx [N, ...] -> [N, ..., C].
+
+    Named after the JAX function, which gathers through a one-hot matmul;
+    the result is exact either way, and here it is take-along-axis.
+    `vmem_gather` (the JAX package's TEXT2LOC_VMEM_GATHER=1) routes it
+    through the row-gather kernel: gather_rows_grad (the gather kernel, and
+    the scatter-add kernel in the backward) when values carries a gradient,
+    else gather_rows alone. The JAX package takes its kernel only where the
+    cloud fits its VMEM budget (pallas_gather.fits_vmem); the port has no
+    such budget and takes the kernel at every shape."""
+    n, p, c = values.shape
+    lead = idx.shape[1:]
+    flat = idx.reshape(n, -1)
+    if not vmem_gather:
+        out = torch.gather(values, 1, flat.long()[..., None].expand(n, flat.shape[1], c))
+    elif values.requires_grad and torch.is_grad_enabled():
+        out = gather_rows_grad(values, flat)
+    else:
+        out = gather_rows(values, flat)
+    return out.reshape((n,) + tuple(lead) + (c,))
+
+
+def gather_neighbors(values: torch.Tensor, idx: torch.Tensor,
+                     vmem_gather: bool = False) -> torch.Tensor:
+    """values [N, P, C], idx [N, Q, K] -> [N, Q, K, C]."""
+    return onehot_gather(values, idx, vmem_gather)

@@ -1,8 +1,9 @@
 """Wrappers of the training set-abstraction kernels (csrc/sa_train_fwd.cu,
-csrc/sa_train_bwd.cu): one SA level's forward passes and backward passes,
-each returning the raw per-pass sums. The BatchNorm finalization between
-passes is host-side tensor arithmetic in ops/sa_train.py, as in the JAX
-package."""
+csrc/sa_train_bwd.cu, and with e rounded to bf16 csrc/sa_train_e_fwd.cu,
+csrc/sa_train_e_bwd.cu): one SA level's forward passes and backward
+passes, each returning the raw per-pass sums. The BatchNorm finalization
+between passes is host-side tensor arithmetic in ops/sa_train.py, as in the
+JAX package."""
 
 from __future__ import annotations
 
@@ -20,6 +21,16 @@ KERNEL_BWD = _cuda.Kernel(
     source="text2loc_tpu_torch/csrc/sa_train_bwd.cu",
     replaces="text2loc_tpu/ops/pallas_sa_train.py:978",
 )
+KERNEL_E_FWD = _cuda.Kernel(
+    name="sa_train_e_fwd",
+    source="text2loc_tpu_torch/csrc/sa_train_e_fwd.cu",
+    replaces="text2loc_tpu/ops/pallas_sa_train.py:740",
+)
+KERNEL_E_BWD = _cuda.Kernel(
+    name="sa_train_e_bwd",
+    source="text2loc_tpu_torch/csrc/sa_train_e_bwd.cu",
+    replaces="text2loc_tpu/ops/pallas_sa_train.py:825",
+)
 MAX_WIDTH = 256    # 8 columns per lane of a warp
 MAX_K = 64         # a center's K edges fit one tile of <= 64 rows
 _WARPS = 8
@@ -30,9 +41,11 @@ class Level:
     """The validated inputs of one SA level's kernels on the card: u [N, P,
     H1] f32, sv [N, S, H1] f32, w2 [H1, H2] f32, idx [N, S, K] int32,
     maskm / maskf [N, S, K] bool, and the compute dtype (f32 or bf16) of the
-    in-kernel products. Holds W2 and W2^T in the compute dtype."""
+    in-kernel products. Holds W2 and W2^T in the compute dtype. With
+    cache_dtype bfloat16 it runs the kernels that round e to bf16 in every
+    pass (the token "e"); None or float32: the recompute kernels."""
 
-    def __init__(self, u, sv, w2, idx, maskm, maskf, compute_dtype):
+    def __init__(self, u, sv, w2, idx, maskm, maskf, compute_dtype, cache_dtype=None):
         if compute_dtype not in _cuda.DTYPE_CODE:
             raise ValueError(f"compute dtype {compute_dtype}: expected f32 or bf16")
         if u.ndim != 3 or idx.ndim != 3:
@@ -58,6 +71,13 @@ class Level:
         self.w2t = w2.t().to(compute_dtype).contiguous()
         self.dtype_code = _cuda.DTYPE_CODE[compute_dtype]
         self.n, self.p, self.s, self.k, self.h1, self.h2 = n, p, s, k, h1, h2
+        if cache_dtype not in (None, torch.float32, torch.bfloat16):
+            raise ValueError(f"cache dtype {cache_dtype}: expected None, f32 or bf16")
+        self.kernel_fwd, self.kernel_bwd = KERNEL_FWD, KERNEL_BWD
+        self.sym_fwd, self.sym_bwd = "t2l_sa_train_fwd", "t2l_sa_train_bwd"
+        if cache_dtype == torch.bfloat16:
+            self.kernel_fwd, self.kernel_bwd = KERNEL_E_FWD, KERNEL_E_BWD
+            self.sym_fwd, self.sym_bwd = "t2l_sa_train_e_fwd", "t2l_sa_train_e_bwd"
         sms = torch.cuda.get_device_properties(u.device).multi_processor_count
         self.blocks = max(1, min(n, _BLOCKS_PER_SM * sms))
 
@@ -82,13 +102,13 @@ class Level:
         return torch.empty(shape, dtype=torch.float32, device=self.u.device)
 
     def _fwd(self, pass_id, aux1, aux2, out, blocks):
-        _cuda.launch(KERNEL_FWD, "t2l_sa_train_fwd", pass_id,
+        _cuda.launch(self.kernel_fwd, self.sym_fwd, pass_id,
                      *(_cuda.ptr(t) for t in (self.u, self.sv, self.idx, self.maskm,
                                              self.maskf, self.w2, aux1, aux2, out)),
                      *self._dims(False, blocks))
 
     def _bwd(self, pass_id, aux1, aux2, dout, outs, blocks):
-        _cuda.launch(KERNEL_BWD, "t2l_sa_train_bwd", pass_id,
+        _cuda.launch(self.kernel_bwd, self.sym_bwd, pass_id,
                      *(_cuda.ptr(t) for t in (self.u, self.sv, self.idx, self.maskm,
                                              self.maskf, self.w2, self.w2t, aux1, aux2,
                                              dout, *outs)),
@@ -114,7 +134,7 @@ class Level:
         h = self.h1 if layer == 1 else self.h2
         part = self._empty(self.blocks, 2, h)
         self._fwd(layer, aux1, aux2, part, self.blocks)
-        return self._reduce(KERNEL_FWD, part)
+        return self._reduce(self.kernel_fwd, part)
 
     def out(self, aux1, aux2):
         """[N, S, H2] f32: the neighbour max of relu(BN2(z)), 0 on empty rows."""
@@ -131,7 +151,7 @@ class Level:
         _cuda.check(dout, "dout", dtype=torch.float32, shape=(self.n, self.s, self.h2))
         part = self._empty(self.blocks, 2, self.h2)
         self._bwd(1, aux1, aux2, dout, (part, part, part), self.blocks)
-        return self._reduce(KERNEL_BWD, part)
+        return self._reduce(self.kernel_bwd, part)
 
     def bwd_mid(self, aux1, aux2, dout):
         """([2, H1] (sum dy1, sum dy1 * yhat1), dW2 [H1, H2], db2 [H2]);
@@ -142,8 +162,8 @@ class Level:
         part_w = self._empty(self.blocks, self.h1, self.h2)
         part_b = self._empty(self.blocks, self.h2)
         self._bwd(2, aux1, aux2, dout, (part_a, part_w, part_b), self.blocks)
-        return (self._reduce(KERNEL_BWD, part_a), self._reduce(KERNEL_BWD, part_w),
-                self._reduce(KERNEL_BWD, part_b))
+        return (self._reduce(self.kernel_bwd, part_a), self._reduce(self.kernel_bwd, part_w),
+                self._reduce(self.kernel_bwd, part_b))
 
     def bwd_in(self, aux1, aux2, dout):
         """(du [N, P, H1], dsv [N, S, H1]); aux rows 4-5 hold the correction

@@ -17,9 +17,18 @@ kernel's: mean = sum/n, biased variance = max(sum_sq/n - mean^2, 0), with
 n = max(#maskf edges, 1). maskf (valid edges of real objects) masks the
 statistics, maskm (valid edges) the neighbour max.
 
-The cached-edge variant of the JAX kernel at cache dtype f32 computes the
-same function as its recompute variant, so both are this one function;
-the bf16 edge cache is a different function and is not ported.
+The cached-edge variant of the JAX kernel (_forward_e / _backward_e) at
+cache dtype f32 computes the same function as its recompute variant, so
+both are this one function (cache_dtype None or float32). At cache dtype
+bf16 (the token "e") e is rounded to bf16 where it is formed,
+
+    e[n,s,k] = bf16(round(u[n, idx[n,s,k]]) - sv[n,s])
+
+and every later quantity (the BN1 statistics, h1, z, the backward) is
+taken of the rounded e; the gradients pass the rounding unchanged (du is
+the scatter of de, dsv = -sum_k de). On the card no cache is written:
+every pass recomputes e and rounds it the same way (csrc/sa_train_e_fwd.cu,
+sa_train_e_bwd.cu), which gives the passes the e a cache would hold.
 """
 
 from __future__ import annotations
@@ -40,10 +49,12 @@ def _round(x, dtype):
     return x + (x.to(dtype).float() - x).detach()
 
 
-def _check_cache_dtype(cache_dtype):
-    if cache_dtype not in (None, torch.float32):
-        raise ValueError(f"cache_dtype {cache_dtype}: only None and float32 (the same "
-                         "function) are ported")
+def _edge_dtype(cache_dtype):
+    """The dtype e is rounded through: bf16 for the bf16 cache, else f32
+    (None and float32 are the recompute function)."""
+    if cache_dtype not in (None, torch.float32, torch.bfloat16):
+        raise ValueError(f"cache_dtype {cache_dtype}: expected None, float32 or bfloat16")
+    return torch.bfloat16 if cache_dtype == torch.bfloat16 else torch.float32
 
 
 def _stats(x, mf, n1):
@@ -68,22 +79,23 @@ def _aux(rows, width, device):
     return aux
 
 
-def _edges(u, sv, idx, cdt):
+def _edges(u, sv, idx, cdt, edt=torch.float32):
+    """e [N, S, K, H1] f32, rounded through the edge dtype `edt`."""
     n, p, h1 = u.shape
     s, k = idx.shape[1:]
     flat = idx.reshape(n, s * k, 1).long().expand(n, s * k, h1)
     g = torch.gather(_round(u.float(), cdt), 1, flat).reshape(n, s, k, h1)
-    return g - sv.float()[:, :, None, :]
+    return _round(g - sv.float()[:, :, None, :], edt)
 
 
 def sa_train_plain(u, sv, w2, b2, g1, be1, g2, be2, idx, maskm, maskf,
-                   eps: float = 1e-5, compute_dtype=torch.float32):
+                   eps: float = 1e-5, compute_dtype=torch.float32, cache_dtype=None):
     """(out [N, S, H2] f32, (mean1, var1, mean2, var2, count)) in plain
     torch, differentiable by autograd (the statistics too)."""
     cdt = compute_dtype
     mf = maskf.float()[..., None]
     n1 = torch.clamp(maskf.float().sum(), min=1.0)
-    e = _edges(u, sv, idx, cdt)
+    e = _edges(u, sv, idx, cdt, _edge_dtype(cache_dtype))
     m1, v1 = _stats(e, mf, n1)
     a1, c1, _ = _affine(m1, v1, g1, be1, eps)
     h1 = torch.relu(e * a1 + c1)
@@ -95,7 +107,7 @@ def sa_train_plain(u, sv, w2, b2, g1, be1, g2, be2, idx, maskm, maskf,
 
 
 def sa_train_backward_plain(u, sv, w2, idx, maskm, maskf, aux1, aux2, n1, dout,
-                            compute_dtype=torch.float32):
+                            compute_dtype=torch.float32, cache_dtype=None):
     """The hand-derived backward in plain torch (the CUDA backward's
     yardstick): (du, dsv, dW2, db2, dgamma1, dbeta1, dgamma2, dbeta2) given
     the forward's aux rows (a, c, mean, inv; aux2 row 6 = b2) and count.
@@ -113,7 +125,7 @@ def sa_train_backward_plain(u, sv, w2, idx, maskm, maskf, aux1, aux2, n1, dout,
     dims = (0, 1, 2)
     mf = maskf.float()[..., None]
     mm = maskm[..., None]
-    e = _edges(u, sv, idx, cdt)
+    e = _edges(u, sv, idx, cdt, _edge_dtype(cache_dtype))
     y1 = e * aux1[0] + aux1[1]
     h1 = torch.relu(y1)
     w2c = w2.float().to(cdt).float()
@@ -143,9 +155,10 @@ def sa_train_backward_plain(u, sv, w2, idx, maskm, maskf, aux1, aux2, n1, dout,
     return du, dsv, dw2, db2, dg1, dbe1, dg2, dbe2
 
 
-def _forward_plain(u, sv, w2, b2, g1, be1, g2, be2, idx, maskm, maskf, eps, cdt):
+def _forward_plain(u, sv, w2, b2, g1, be1, g2, be2, idx, maskm, maskf, eps, cdt,
+                   cache_dtype):
     out, (m1, v1, m2, v2, n1) = sa_train_plain(u, sv, w2, b2, g1, be1, g2, be2, idx,
-                                               maskm, maskf, eps, cdt)
+                                               maskm, maskf, eps, cdt, cache_dtype)
     a1, c1, inv1 = _affine(m1, v1, g1, be1, eps)
     a2, c2, inv2 = _affine(m2, v2, g2, be2, eps)
     aux1 = _aux({0: a1, 1: c1, 2: m1, 3: inv1}, u.shape[-1], u.device)
@@ -191,20 +204,22 @@ class _SATrain(torch.autograd.Function):
     tensors, the plain versions for CPU tensors."""
 
     @staticmethod
-    def forward(ctx, u, sv, w2, b2, g1, be1, g2, be2, idx, maskm, maskf, eps, cdt):
+    def forward(ctx, u, sv, w2, b2, g1, be1, g2, be2, idx, maskm, maskf, eps, cdt,
+                cache_dtype):
         if u.is_cuda:
             level = cuda_sa_train.Level(u.contiguous(), sv.contiguous(),
                                         w2.contiguous(), idx.to(torch.int32).contiguous(),
-                                        maskm.contiguous(), maskf.contiguous(), cdt)
+                                        maskm.contiguous(), maskf.contiguous(), cdt,
+                                        cache_dtype)
             out, stats, aux1, aux2 = forward_cuda(level, b2, g1, be1, g2, be2, maskf, eps)
             ctx.level = level
         elif u.device.type == "cpu":
             out, stats, aux1, aux2 = _forward_plain(u, sv, w2, b2, g1, be1, g2, be2, idx,
-                                                    maskm, maskf, eps, cdt)
+                                                    maskm, maskf, eps, cdt, cache_dtype)
             ctx.level = None
         else:
             raise ValueError(f"no SA training level for device {u.device}")
-        ctx.cdt = cdt
+        ctx.cdt, ctx.cache_dtype = cdt, cache_dtype
         ctx.save_for_backward(u, sv, w2, idx, maskm, maskf, aux1, aux2, stats[4])
         ctx.mark_non_differentiable(*stats)
         return (out,) + tuple(stats)
@@ -216,8 +231,8 @@ class _SATrain(torch.autograd.Function):
             grads = backward_cuda(ctx.level, aux1, aux2, n1, dout)
         else:
             grads = sa_train_backward_plain(u, sv, w2, idx, maskm, maskf, aux1, aux2, n1,
-                                            dout, ctx.cdt)
-        return grads + (None,) * 5
+                                            dout, ctx.cdt, ctx.cache_dtype)
+        return grads + (None,) * 6
 
 
 def sa_train(u, sv, w2, b2, g1, be1, g2, be2, idx, maskm, maskf, eps: float = 1e-5,
@@ -226,8 +241,11 @@ def sa_train(u, sv, w2, b2, g1, be1, g2, be2, idx, maskm, maskf, eps: float = 1e
     mean2, var2, count)); gradients by the hand-derived backward. The CUDA
     kernels run for CUDA tensors (no fallback), the plain versions for CPU
     tensors. u [N, P, H1] = concat(x, pos) @ W1 + b1, sv [N, S, H1] =
-    centers @ W1[pos rows], idx [N, S, K], maskm / maskf [N, S, K] bool."""
-    _check_cache_dtype(cache_dtype)
+    centers @ W1[pos rows], idx [N, S, K], maskm / maskf [N, S, K] bool.
+    cache_dtype: None or float32 (the recompute function), or bfloat16 (e
+    rounded to bf16, the JAX kernel's bf16 cache)."""
+    if _edge_dtype(cache_dtype) == torch.float32:
+        cache_dtype = None
     out, *stats = _SATrain.apply(u, sv, w2, b2, g1, be1, g2, be2, idx, maskm.bool(),
-                                 maskf.bool(), eps, compute_dtype)
+                                 maskf.bool(), eps, compute_dtype, cache_dtype)
     return out, tuple(stats)

@@ -41,7 +41,9 @@ class LocalizationResult(NamedTuple):
 class Localizer:
     """Query path over a fixed cell gallery. The caches are derived from the
     models and the map at construction; build a new Localizer for new
-    weights. `device` defaults to the CUDA card; pass "cpu" for the plain
+    weights. The options the models were built with (convert.build_model:
+    sa_mode, vmem_gather, fused_attn / fused_ffn / fused_ln) select the
+    kernels. `device` defaults to the CUDA card; pass "cpu" for the plain
     versions of the kernels."""
 
     def __init__(self, data, coarse_model, fine_model, embedder, cfg,

@@ -20,19 +20,23 @@ from text2loc_tpu_torch.convert import build_model, init_weights
 from text2loc_tpu_torch.training import steps as steps_lib
 
 
-def train_coarse(cfg, data_train, embedder, device="cuda", model=None):
+def train_coarse(cfg, data_train, embedder, device="cuda", model=None, fused_train=None):
     """Train the retrieval towers for cfg.train.epochs epochs; returns
     (model, history) with one {"epoch", "step", "loss", "seconds"} row per
     step (`seconds`: host wall time of the step, ending when its loss is
     read back). `model` defaults to a CellRetrievalNetwork with seeded
-    random weights; the compute dtype is cfg.model.train_dtype."""
+    random weights and the training SA tokens `fused_train` (None:
+    steps.default_fused_train); the compute dtype is cfg.model.train_dtype."""
     t = cfg.train
     cfg = dataclasses.replace(
         cfg, model=dataclasses.replace(cfg.model, dtype=cfg.model.train_dtype))
     device = torch.device(device)
     if model is None:
-        model = init_weights(build_model(cfg, "coarse"),
+        model = init_weights(build_model(cfg, "coarse", fused_train=fused_train),
                              torch.Generator().manual_seed(t.seed))
+    elif fused_train is not None:
+        raise ValueError("fused_train is fixed when the model is built; pass one or "
+                         "the other")
     model = model.to(device)
     n_train = data_train.num_poses
     steps_per_epoch = max(n_train // t.batch_size, 1)

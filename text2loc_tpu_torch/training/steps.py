@@ -3,10 +3,12 @@ batch preparation with on-device augmentation, the frozen-text lookup, both
 towers' training forward, the loss, the backward and one Adam update, as
 one plain Python function per step.
 
-The model is in training mode (module.train()): every SA level named in
-its fused_train flags runs ops/sa_train.py (the CUDA kernels on the card),
-the other layers their plain training paths. Augmentation and dropout draw
-from one explicit torch.Generator on the model's device.
+The model is in training mode (module.train()): every SA level whose
+fused_train token is not "0" runs ops/sa_train.py (the CUDA kernels on the
+card), the other layers their plain training paths. default_fused_train
+gives a stage's tokens, as the JAX package's "auto" resolves them.
+Augmentation and dropout draw from one explicit torch.Generator on the
+model's device.
 """
 
 from __future__ import annotations
@@ -58,6 +60,29 @@ def make_optimizer(params, cfg, steps_per_epoch: int, lr=None) -> Optimizer:
     adam = torch.optim.Adam(params, lr=base, betas=(0.9, 0.999), eps=1e-8)
     factor = make_lr_schedule(cfg, steps_per_epoch) if lr is None else (lambda i: 1.0)
     return Optimizer(adam, torch.optim.lr_scheduler.LambdaLR(adam, factor))
+
+
+# What the JAX package's TEXT2LOC_FUSED_SA_TRAIN "auto" resolves to per
+# stage (its training/steps.py:130-141) for an f32 body on the 3-level
+# ladder: per SA level, "0" the plain path, "1" the recompute kernel, "e32"
+# the f32 edge cache (in the port the same function and kernels as "1").
+# The JAX auto also degrades "e"/"e32" to "1" above an HBM budget for the
+# cached edges; the port caches no edges, so that budget has nothing to
+# bound and is not carried over.
+COARSE_FUSED_TRAIN_AUTO = ("e32", "e32", "1")
+FINE_FUSED_TRAIN_AUTO = ("0", "e32", "e32")
+
+
+def default_fused_train(cfg, kind: str) -> tuple:
+    """The training SA tokens of stage `kind` ("coarse" or "fine"): the
+    stage auto for an f32 body on the 3-level ladder, else the JAX module
+    default (the last level "1", the others "0")."""
+    auto = COARSE_FUSED_TRAIN_AUTO if kind == "coarse" else FINE_FUSED_TRAIN_AUTO
+    n = len(cfg.model.pointnet.sa_mlps)
+    body = cfg.model.body_dtype or cfg.model.train_dtype
+    if n == len(auto) and body == "float32":
+        return auto
+    return ("0",) * (n - 1) + ("1",)
 
 
 def to_device(batch: dict, device) -> dict:
