@@ -7,19 +7,25 @@ toolkit. Phases, each printing one JSON line:
 
 1. device: the card (nvidia-smi name and power limit), torch and CUDA
    versions; TF32 is switched off for f32 matrix products and convolutions;
-2. build: nvcc builds the kernel sources of text2loc_tpu_torch/csrc (ten
-   kernels: the inference SA level is one source with five selections);
+2. build: nvcc builds the kernel sources of text2loc_tpu_torch/csrc (one
+   process per source, all at once);
 3. kernels: each serve kernel against its plain PyTorch version on the card
    at the serve's shapes, bf16 and f32, with median times by CUDA events;
    the inference SA level in every selection (first, bisect, gather over
    the exact and the approximate ball query, exact, all) at the gallery's
-   three levels; then the training SA level (sa_train_fwd, sa_train_bwd)
+   three levels; the attention block by its route (mha_addln, the fused
+   kernel, to d=256; mha_addln_tiled, the tiled chain, at the intra stack's
+   E=1024 in bf16 and f32, with each stage of the chain against its plain
+   stage and, as a yardstick the port never calls, stock_ms: the port's
+   fused_attn="0" path with cuBLAS products, on the bf16 case's line);
+   then the training SA level (sa_train_fwd, sa_train_bwd)
    against its plain forward and hand-derived plain backward at the coarse
    train step's three levels (896 clouds, K=32), f32 and bf16;
 4. serve: the cached serve (Localizer.localize) at the full width of the
    default Config (bf16) over a 64-cell synthetic map with seeded random
    weights; batches of 1, 8 and 64 queries; every serve kernel's launch
-   count during the build and the queries must be > 0;
+   count during the build and the queries must be > 0 (mha_addln and
+   mha_addln_tiled among them);
 5. serve_vs_cpu: the same weights in f32 on the card and on the CPU (plain
    versions) over an 8-cell map: equal top-1 cells where the top-1/top-2
    score margin exceeds 1e-4, positions within 1e-2 m;
@@ -43,11 +49,13 @@ toolkit. Phases, each printing one JSON line:
 10. pipeline_optin: the opt-in kernel paths of the evaluation at full
    Config() width (bf16) over the 64-cell map and phase 6's weights:
    run_pipeline with fused_ln="all" and fused_ffn="0" (mode first), and
-   with mode off, vmem_gather=True and fused_attn="0"; wall seconds,
-   fine_qps, top-1 agreement with the default run; add_ln and gather_rows
-   must launch (and launch 0 times in phases 4 and 6);
+   with mode off, vmem_gather=True and fused_attn="0", and with
+   fused_attn="all" (mode first); wall seconds, fine_qps, top-1 agreement
+   with the default run; add_ln and gather_rows must launch (and launch 0
+   times in phases 4 and 6);
 11. pipeline_optin_vs_cpu: the same options in f32 on the card and on the
-   CPU over an 8-cell map, with phase 7's criteria;
+   CPU over an 8-cell map, with phase 7's criteria (fused_attn="all" runs
+   the tiled chain in f32 at E=1024);
 12. train_optin: 3 train_coarse steps with a bf16 body and the training SA
    tokens ("e","e","1") (e rounded to bf16), then 2 fine steps with
    ("0","0","e") and vmem_gather=True, at full width: step times and peak
@@ -186,7 +194,7 @@ class KernelRecord:
         return "operations" if self.op_s >= self.byte_s else "bytes"
 
     def add(self, name, dtype, pairs, kernel_fn, plain_fn, work, exact=False,
-            norm_floor=None, counts=None, limit_fn=None, library_fn=None):
+            norm_floor=None, counts=None, limit_fn=None, library_fn=None, stock_fn=None):
         """pairs: [(kernel output, plain output)], each within TOLERANCE x
         max|plain| (0 when exact); work: (FLOPs, bytes, dtype of the products)
         of the case. With `norm_floor` the check is instead ||kernel - plain||
@@ -194,7 +202,9 @@ class KernelRecord:
         `limit_fn(got, want)` -> (max abs error, limit, ok, ulps) the check
         is the case's own (ulps: the error in bf16 spacings, or None).
         `library_fn`: one PyTorch call computing the same function, timed
-        beside the kernel."""
+        beside the kernel; `stock_fn`: the port's stock-ops path for the
+        same function, timed onto the case line only (stock_ms). Returns
+        the case's (ms, plain_ms)."""
         err, ok, limit, rels, ulps = 0.0, True, 0.0, [], None
         for got, want in pairs:
             got, want = got.float(), want.float()
@@ -217,12 +227,13 @@ class KernelRecord:
                 err, limit = e, lim
         ms, plain_ms = cuda_ms(kernel_fn), cuda_ms(plain_fn)
         library_ms = cuda_ms(library_fn) if library_fn is not None else None
+        stock = {"stock_ms": cuda_ms(stock_fn)} if stock_fn is not None else {}
         op_s, byte_s = bound(*work)
         bound_ms = max(op_s, byte_s) * 1e3
         emit({"phase": "kernel", "case": name, "dtype": str(dtype).split(".")[-1],
               "max_abs_err": err, "bound": limit, "ms": ms, "plain_ms": plain_ms,
               "bound_ms": bound_ms, "bound_by": "operations" if op_s >= byte_s else "bytes",
-              "library_ms": library_ms, "ok": ok,
+              "library_ms": library_ms, **stock, "ok": ok,
               **({"rel_l2_errs": rels} if norm_floor is not None else {}),
               **({"max_ulps": ulps} if ulps is not None else {})})
         check(ok, f"{name} {dtype}: error {err} above {limit}")
@@ -237,6 +248,7 @@ class KernelRecord:
                 self.library_ms = (self.library_ms or 0.0) + library_ms
             self.op_s += op_s
             self.byte_s += byte_s
+        return ms, plain_ms
 
 
 SA_LEVELS = [(256, 128, 6, 32, 64, 0.2), (128, 64, 67, 128, 128, 0.3),
@@ -320,13 +332,74 @@ def phase_sa_kernels(dev, gen, pts, xyz, records) -> None:
 SA_KERNELS = ("sa_select_first", "sa_select_bisect", "sa_gather", "sa_exact", "sa_all")
 
 
+def _stock_attention_fn(args, dt):
+    """The port's fused_attn="0" block (models/transformer.py: stock
+    projections and attention, cuBLAS products, then the stock add +
+    LayerNorm) with the case's weights: a yardstick the port's fused route
+    never calls."""
+    from text2loc_tpu_torch.models.transformer import (Dropout, Gates,
+                                                       MultiheadAttentionParams,
+                                                       attention_block)
+
+    x, kv, wq, bq, wk, bk, wv, bv, wo, bo, g, be, mask = args
+    d = x.shape[-1]
+    params = MultiheadAttentionParams(d, 4).to(x.device)
+    norm = torch.nn.LayerNorm(d).to(x.device)
+    with torch.no_grad():
+        for proj, w, b in zip((params.query, params.key, params.value, params.out),
+                              (wq, wk, wv, wo), (bq, bk, bv, bo)):
+            proj.weight.copy_(w)
+            proj.bias.copy_(b)
+        norm.weight.copy_(g)
+        norm.bias.copy_(be)
+    drop = Dropout(0.0).eval()
+
+    def run():
+        with torch.no_grad():
+            return attention_block(x, kv, mask, params, norm, dt, drop, Gates(attn="0"))
+    return run
+
+
+def _mha_tiled_stages(name, args, dt) -> None:
+    """Each stage of the tiled chain alone against its plain stage on the
+    plain stage's inputs (TOLERANCE x max|plain|): (a) the projection GEMM,
+    (b) the attention core, (c)+(d) the out-projection GEMM with the
+    residual and the LayerNorm; with each stage's time."""
+    from text2loc_tpu_torch.ops import cuda_mha, mha
+
+    x, kv, wq, bq, wk, bk, wv, bv, wo, bo, g, be, mask = args
+    q, k, v = mha.mha_project_plain(x, kv, wq, bq, wk, bk, wv, bv, num_heads=4)
+    o = mha.mha_core_plain(q, k, v, mask, num_heads=4)
+    stages = [
+        ("project", lambda: cuda_mha.tiled_project_cuda(x, kv, wq, bq, wk, bk, wv, bv,
+                                                        num_heads=4), (q, k, v)),
+        ("core", lambda: (cuda_mha.tiled_core_cuda(q, k, v, mask, num_heads=4),), (o,)),
+        ("out_addln", lambda: (cuda_mha.tiled_out_addln_cuda(x, o, wo, bo, g, be),),
+         (mha.mha_out_addln_plain(x, o, wo, bo, g, be),)),
+    ]
+    for stage, fn, wants in stages:
+        err, ok, limit = 0.0, True, 0.0
+        for got, want in zip(fn(), wants):
+            got, want = got.float(), want.float()
+            e = (got - want).abs().max().item()
+            lim = TOLERANCE[dt] * want.abs().max().item()
+            ok = ok and bool(torch.isfinite(got).all()) and e <= lim
+            if e >= err:
+                err, limit = e, lim
+        emit({"phase": "kernel_stage", "case": f"mha_addln_tiled {name}", "stage": stage,
+              "dtype": str(dt).split(".")[-1], "max_abs_err": err, "bound": limit,
+              "ms": cuda_ms(fn), "ok": ok})
+        check(ok, f"mha_addln_tiled {name} stage {stage}: error {err} above {limit}")
+
+
 def phase_kernels(dev) -> dict:
     """Each kernel vs its plain version at the shapes of a 64-cell gallery
     (1792 clouds of 256 points) and a 64-query batch with top-10."""
     from text2loc_tpu_torch.ops import cuda_ffn, cuda_fps, cuda_mha, ffn, fps, mha
 
     gen = torch.Generator().manual_seed(SEED)
-    records = {k: KernelRecord() for k in ("fps", *SA_KERNELS, "mha_addln", "ffn_addln")}
+    records = {k: KernelRecord() for k in ("fps", *SA_KERNELS, "mha_addln", "mha_addln_tiled",
+                                          "ffn_addln")}
 
     n, p = 64 * 28, 256
     pts = _clouds(gen, n, p, dev)
@@ -351,8 +424,6 @@ def phase_kernels(dev) -> dict:
                   ("intra E=1024", 1584, 16, 16, 1024, True, False)]
     for dt in (torch.bfloat16, torch.float32):
         for name, b, lq, lk, d, self_attn, empty in attn_cases:
-            if d > 256 and dt == torch.float32:
-                continue      # f32 at d=1024 runs stock ops, as in the JAX gate
             x = _rand(gen, (b, lq, d), 1.0, dev).to(dt)
             kv = x if self_attn else _rand(gen, (b, lk, d), 1.0, dev).to(dt)
             mats = [_rand(gen, (d, d), d ** -0.5, dev) for _ in range(4)]
@@ -368,12 +439,21 @@ def phase_kernels(dev) -> dict:
             work = (2.0 * (2 * b * lq * d * d + 2 * b * lk * d * d + 2 * b * lq * lk * d),
                     2 * b * lq * d * es + (0 if self_attn else b * lk * d * es)
                     + 4 * d * d * 4 + 6 * d * 4 + b * lk, dt)
-            records["mha_addln"].add(
-                f"mha_addln {name} B={b} Lq={lq} Lk={lk} D={d}", dt,
+            kname = ("mha_addln" if cuda_mha.route(lq, lk, d, 4, dt, self_attn=self_attn)
+                     == "fused" else "mha_addln_tiled")
+            tiled_bf16 = kname == "mha_addln_tiled" and dt == torch.bfloat16
+            ms, plain_ms = records[kname].add(
+                f"{kname} {name} B={b} Lq={lq} Lk={lk} D={d}", dt,
                 [(cuda_mha.mha_addln_cuda(*args, num_heads=4),
                   mha.mha_addln_plain(*args, num_heads=4))],
                 lambda a=args: cuda_mha.mha_addln_cuda(*a, num_heads=4),
-                lambda a=args: mha.mha_addln_plain(*a, num_heads=4), work)
+                lambda a=args: mha.mha_addln_plain(*a, num_heads=4), work,
+                stock_fn=_stock_attention_fn(args, dt) if tiled_bf16 else None)
+            if tiled_bf16:
+                check(ms < plain_ms and ms <= 3.0,
+                      f"{kname} {name}: {ms} ms, plain {plain_ms} ms (limit: faster than "
+                      "plain and at most 3 ms)")
+                _mha_tiled_stages(name, args, dt)
 
     ffn_cases = [("cct", 640 * 16, 128, 512), ("obj_inter", 64 * 28, 256, 512),
                  ("inter head", 64 * 6, 256, 1024)]
@@ -819,7 +899,7 @@ def phase_pipeline(dev, kernels, absent=()) -> dict:
               "cells": data.num_cells, "wall_s": wall, "fine_qps": r["fine_qps"],
               "coarse_top1": r["coarse"][1], "fine_top1": r["fine"][1],
               **_agreement(base, r, data), "launches": counts})
-        want = _mode_sa_kernels(kw) | {"fps", "mha_addln", "ffn_addln"}
+        want = _mode_sa_kernels(kw) | {"fps", "mha_addln", "mha_addln_tiled", "ffn_addln"}
         check(all(counts[name] > 0 for name in want),
               f"{mode}: a kernel of the mode never launched: {counts}")
         check(all(counts[name] == 0 for name in SA_KERNELS if name not in want),
@@ -831,15 +911,19 @@ def phase_pipeline(dev, kernels, absent=()) -> dict:
 
 
 # The opt-in evaluation paths, as build_model's options: the LN kernel at
-# every width with stock feed-forward blocks before it (mode first), and
-# the row-gather kernel in mode off with stock attention blocks.
+# every width with stock feed-forward blocks before it (mode first), the
+# row-gather kernel in mode off with stock attention blocks, and every
+# attention block on its kernel (fused_attn="all": in f32 the E=1024 stack
+# too, on the tiled chain).
 PIPELINE_OPTIN = {
     "ln_all_ffn0": dict(sa_mode="first", fused_ln="all", fused_ffn="0"),
     "off_vmem_attn0": dict(sa_mode="off", vmem_gather=True, fused_attn="0"),
+    "attn_all": dict(sa_mode="first", fused_attn="all"),
 }
 # The kernels each path must launch besides FPS and its SA kernels.
-_OPTIN_KERNELS = {"ln_all_ffn0": ("mha_addln", "add_ln"),
-                  "off_vmem_attn0": ("ffn_addln", "add_ln", "gather_rows")}
+_OPTIN_KERNELS = {"ln_all_ffn0": ("mha_addln", "mha_addln_tiled", "add_ln"),
+                  "off_vmem_attn0": ("ffn_addln", "add_ln", "gather_rows"),
+                  "attn_all": ("mha_addln", "mha_addln_tiled", "ffn_addln")}
 
 
 def phase_pipeline_optin(dev, kernels) -> dict:
@@ -1226,10 +1310,10 @@ def main() -> int:
 
     optin = [cuda_ln.KERNEL, cuda_gather.KERNEL]
     serve_kernels = [cuda_fps.KERNEL, cuda_pointconv.KERNEL_FIRST, cuda_mha.KERNEL,
-                     cuda_ffn.KERNEL]
+                     cuda_mha.KERNEL_TILED, cuda_ffn.KERNEL]
     train_kernels = [cuda_fps.KERNEL, cuda_sa_train.KERNEL_FWD, cuda_sa_train.KERNEL_BWD]
     pipeline_kernels = [cuda_fps.KERNEL, *cuda_pointconv.KERNELS, cuda_mha.KERNEL,
-                        cuda_ffn.KERNEL]
+                        cuda_mha.KERNEL_TILED, cuda_ffn.KERNEL]
     train_optin_kernels = [cuda_fps.KERNEL, cuda_sa_train.KERNEL_FWD,
                            cuda_sa_train.KERNEL_BWD, cuda_sa_train.KERNEL_E_FWD, cuda_sa_train.KERNEL_E_BWD,
                            cuda_gather.KERNEL, cuda_gather.KERNEL_SCATTER]

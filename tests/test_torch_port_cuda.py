@@ -37,7 +37,8 @@ from text2loc_tpu_torch.ops.gather import (gather_rows, gather_rows_grad, gather
                                            scatter_rows, scatter_rows_plain)
 from text2loc_tpu_torch.ops.ln import add_layernorm, add_layernorm_plain
 from text2loc_tpu_torch.ops.fps import farthest_point_sampling_plain, fps_gather
-from text2loc_tpu_torch.ops.mha import mha_addln, mha_addln_plain
+from text2loc_tpu_torch.ops.mha import (mha_addln, mha_addln_plain, mha_core_plain,
+                                        mha_out_addln_plain, mha_project_plain)
 from text2loc_tpu_torch.ops.ballquery import ball_query_knn
 from text2loc_tpu_torch.ops.pointconv import (
     sa_gather,
@@ -197,12 +198,8 @@ def test_sa_level_wrappers_reject_what_the_kernel_does_not_take(dev):
                                       a["ab1"], a["w2"], a["ab2"])   # int64 idx
 
 
-@pytest.mark.parametrize("dtype,b,lq,lk,d,self_attn", [
-    (dt, *case) for dt in DTYPES for case in ((33, 16, 6, 128, False),
-                                              (9, 28, 28, 256, True))
-] + [(torch.bfloat16, 5, 16, 16, 1024, True)])   # d=1024 runs the kernel in bf16 only
-def test_mha_kernel(dev, dtype, b, lq, lk, d, self_attn):
-    rng = np.random.default_rng(2)
+def _mha_args(dev, dtype, b, lq, lk, d, self_attn, seed=2):
+    rng = np.random.default_rng(seed)
     x = _randn(rng, (b, lq, d), dev).to(dtype)
     kv = x if self_attn else _randn(rng, (b, lk, d), dev).to(dtype)
     mats = [_randn(rng, (d, d), dev, 1 / math.sqrt(d)) for _ in range(4)]
@@ -210,12 +207,69 @@ def test_mha_kernel(dev, dtype, b, lq, lk, d, self_attn):
     mask = torch.from_numpy(rng.random((b, lk)) > 0.3).to(dev)
     mask[:, 0] = True
     mask[1] = False                                   # an all-masked sample
-    args = (x, kv, mats[0], vecs[0], mats[1], vecs[1], mats[2], vecs[2], mats[3],
+    return (x, kv, mats[0], vecs[0], mats[1], vecs[1], mats[2], vecs[2], mats[3],
             vecs[3], _randn(rng, d, dev, 0.1, 1.0), _randn(rng, d, dev, 0.1), mask)
-    before = cuda_mha.KERNEL.launches
+
+
+@pytest.mark.parametrize("dtype,b,lq,lk,d,self_attn", [
+    (dt, *case) for dt in DTYPES for case in ((33, 16, 6, 128, False),
+                                              (9, 28, 28, 256, True),
+                                              (5, 16, 16, 1024, True))
+] + [(torch.bfloat16, 37, 16, 16, 1024, True),    # M = 592: the small GEMM tile
+     (torch.bfloat16, 7, 16, 6, 512, False),      # cross-attention above d=256
+     (torch.bfloat16, 3, 13, 13, 1024, True),     # M = 39: rows past M in a tile
+     (torch.float32, 3, 13, 5, 512, False)])
+def test_mha_kernel(dev, dtype, b, lq, lk, d, self_attn):
+    """The fused kernel to d=256, the tiled chain above (bf16 and f32),
+    each counting one launch per block."""
+    args = _mha_args(dev, dtype, b, lq, lk, d, self_attn)
+    routed = cuda_mha.route(lq, lk, d, 4, dtype, self_attn=self_attn)
+    assert routed == ("fused" if d <= 256 else "tiled")
+    kernel, other = ((cuda_mha.KERNEL, cuda_mha.KERNEL_TILED) if routed == "fused"
+                     else (cuda_mha.KERNEL_TILED, cuda_mha.KERNEL))
+    before, before_other = kernel.launches, other.launches
     got = mha_addln(*args, num_heads=4)
-    assert cuda_mha.KERNEL.launches == before + 1
+    assert kernel.launches == before + 1 and other.launches == before_other
     _close(got, mha_addln_plain(*args, num_heads=4), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,lq,lk,d,self_attn", [(37, 16, 16, 1024, True),
+                                                 (7, 16, 6, 512, False),
+                                                 (1584, 16, 16, 1024, True)])
+def test_mha_tiled_stages(dev, dtype, b, lq, lk, d, self_attn):
+    """Each stage of the tiled chain alone against its plain stage, on the
+    plain stage's inputs: the projection GEMM(s), the attention core, the
+    out-projection GEMM with the residual and the LayerNorm. The stage
+    entry points launch no counted block."""
+    x, kv, wq, bq, wk, bk, wv, bv, wo, bo, g, be, mask = _mha_args(
+        dev, dtype, b, lq, lk, d, self_attn, seed=4)
+    before = cuda_mha.KERNEL_TILED.launches
+    got = cuda_mha.tiled_project_cuda(x, kv, wq, bq, wk, bk, wv, bv, num_heads=4)
+    want = mha_project_plain(x, kv, wq, bq, wk, bk, wv, bv, num_heads=4)
+    for a, w in zip(got, want):
+        _close(a, w, dtype)
+    q, k, v = want
+    _close(cuda_mha.tiled_core_cuda(q, k, v, mask, num_heads=4),
+           mha_core_plain(q, k, v, mask, num_heads=4), dtype)
+    o = mha_core_plain(q, k, v, mask, num_heads=4)
+    _close(cuda_mha.tiled_out_addln_cuda(x, o, wo, bo, g, be),
+           mha_out_addln_plain(x, o, wo, bo, g, be), dtype)
+    assert cuda_mha.KERNEL_TILED.launches == before
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_mha_route_layout_is_the_kernels(dev, dtype):
+    """route's Python sum of the fused layout equals t2l_mha_addln_smem."""
+    from text2loc_tpu_torch.ops import _cuda
+
+    lib = _cuda.library()
+    for lq, lk, d, self_attn in [(16, 6, 128, False), (6, 16, 128, False), (16, 16, 128, True),
+                                 (28, 28, 256, True), (5, 3, 256, False), (64, 64, 256, True)]:
+        assert cuda_mha.fused_smem(lq, lk, d, 4, self_attn, dtype) == lib.t2l_mha_addln_smem(
+            lq, lk, d, 4, int(self_attn), _cuda.DTYPE_CODE[dtype])
+        assert cuda_mha.core_smem(lq, lk, d, 4, dtype) == lib.t2l_mha_tiled_core_smem(
+            lq, lk, d, 4, _cuda.DTYPE_CODE[dtype])
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -240,12 +294,18 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         cuda_fps.farthest_point_sampling_cuda(pts.transpose(0, 1), 8)
     with pytest.raises(ValueError):
         cuda_fps.farthest_point_sampling_cuda(pts.cpu(), 8)
-    x = torch.rand(2, 16, 1024, device=dev)        # f32 at d=1024: too big a block
-    w = torch.rand(1024, 1024, device=dev)
+    # f32 at d=1024 (a fused block too big for shared memory) runs the tiled
+    # chain; a sample beyond the attention core's shared memory is refused.
+    x = torch.rand(2, 16, 1024, device=dev)
+    kv = torch.rand(2, 16, 1024, device=dev)
+    w = torch.rand(1024, 1024, device=dev) / 32
     v = torch.rand(1024, device=dev)
-    with pytest.raises(ValueError):
-        cuda_mha.mha_addln_cuda(x, torch.rand(2, 16, 1024, device=dev), w, v, w, v,
-                                w, v, w, v, v, v, num_heads=4)
+    args = (x, kv, w, v, w, v, w, v, w, v, v, v)
+    _close(cuda_mha.mha_addln_cuda(*args, num_heads=4),
+           mha_addln_plain(*args, num_heads=4), torch.float32)
+    long_kv = torch.rand(2, 512, 1024, device=dev)
+    with pytest.raises(ValueError, match="232448"):
+        cuda_mha.mha_addln_cuda(x, long_kv, w, v, w, v, w, v, w, v, v, v, num_heads=4)
 
 
 def _sa_train_inputs(rng, dev, n, p, s, k, h1, h2):

@@ -1,0 +1,196 @@
+"""The attention block above d=256 (ops/mha.py's plain stages, ops/cuda_mha.py's
+route) against the JAX package.
+
+- mha_addln_plain against the Pallas kernel fused_mha_addlayernorm in
+  interpret mode at the tiled route's widths (D=1024 self-attention with
+  B*Lq not a multiple of 16, D=512 cross-attention), each with a sample
+  whose keys are all masked: ATOL in f32; in bf16 one bf16 ulp of
+  max|want| (the two sum the products in another order, which can round a
+  bf16 intermediate the other way).
+- Each plain stage (project, core, out + LayerNorm) in f32 against the
+  same step written in jnp after mha_addlayernorm_ref, at 1e-5 x max|ref|.
+- The route: the fused kernel for the smoke's d <= 256 shapes, the tiled
+  chain above, and no attention shape of Config()'s models refused under
+  fused_attn "1" or "all".
+
+The kernels themselves run only on the card: tests/test_torch_port_cuda.py.
+"""
+
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from text2loc_tpu.ops.pallas_mha import fused_mha_addlayernorm
+from text2loc_tpu_torch.config import Config
+from text2loc_tpu_torch.convert import build_model
+from text2loc_tpu_torch.models.transformer import MultiheadAttentionParams, fused_attn_enabled
+from text2loc_tpu_torch.ops import cuda_mha
+from text2loc_tpu_torch.ops.mha import (mha_addln, mha_addln_plain, mha_core_plain,
+                                        mha_out_addln_plain, mha_project_plain)
+
+ATOL = 1e-5
+HEADS = 4
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _inputs(seed, b, lq, lk, d, self_attn):
+    """numpy f32 x, kv, weights [in, out], biases, LN scale/bias, and a key
+    mask with sample 1 all masked."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(b, lq, d)).astype(np.float32)
+    kv = x if self_attn else rng.normal(size=(b, lk, d)).astype(np.float32)
+    mats = [(rng.normal(size=(d, d)) / math.sqrt(d)).astype(np.float32) for _ in range(4)]
+    vecs = [(0.1 * rng.normal(size=d)).astype(np.float32) for _ in range(4)]
+    scale = (1 + 0.1 * rng.normal(size=d)).astype(np.float32)
+    bias = (0.1 * rng.normal(size=d)).astype(np.float32)
+    mask = rng.random((b, lk)) > 0.3
+    mask[:, 0] = True
+    mask[1] = False
+    return x, kv, mats, vecs, scale, bias, mask
+
+
+def _bf16_ulp(v: float) -> float:
+    return 2.0 ** (math.floor(math.log2(v)) - 7)
+
+
+@pytest.mark.parametrize("dtype,b,lq,lk,d,self_attn", [
+    (torch.float32, 3, 13, 13, 1024, True),
+    (torch.bfloat16, 3, 13, 13, 1024, True),
+    (torch.bfloat16, 3, 16, 6, 512, False),
+])
+def test_mha_plain_matches_pallas_kernel_above_d256(dtype, b, lq, lk, d, self_attn):
+    x, kv, mats, vecs, scale, bias, mask = _inputs(7, b, lq, lk, d, self_attn)
+    dh = d // HEADS
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    jx = jnp.asarray(x).astype(jdt)
+    want = fused_mha_addlayernorm(
+        jx, jx if self_attn else jnp.asarray(kv).astype(jdt),
+        *(jnp.asarray(a) for a in (mats[0].reshape(d, HEADS, dh), vecs[0].reshape(HEADS, dh),
+                                   mats[1].reshape(d, HEADS, dh), vecs[1].reshape(HEADS, dh),
+                                   mats[2].reshape(d, HEADS, dh), vecs[2].reshape(HEADS, dh),
+                                   mats[3].reshape(HEADS, dh, d), vecs[3], scale, bias)),
+        key_mask=jnp.asarray(mask), num_heads=HEADS, interpret=True)
+    want = np.asarray(want.astype(jnp.float32))
+    tx = _t(x).to(dtype)
+    args = (tx, tx if self_attn else _t(kv).to(dtype), _t(mats[0]), _t(vecs[0]), _t(mats[1]),
+            _t(vecs[1]), _t(mats[2]), _t(vecs[2]), _t(mats[3]), _t(vecs[3]), _t(scale),
+            _t(bias), _t(mask))
+    got = mha_addln_plain(*args, num_heads=HEADS)
+    assert got.dtype == dtype and got.shape == (b, lq, d)
+    atol = ATOL if dtype == torch.float32 else _bf16_ulp(float(np.abs(want).max()))
+    np.testing.assert_allclose(got.float().numpy(), want, atol=atol, rtol=0)
+    np.testing.assert_array_equal(mha_addln(*args, num_heads=HEADS).float().numpy(),
+                                  got.float().numpy())
+
+
+def _close_rel(got, ref):
+    ref = np.asarray(ref)
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-5 * float(np.abs(ref).max()), rtol=0)
+
+
+@pytest.mark.parametrize("b,lq,lk,d,self_attn", [(3, 13, 13, 1024, True),
+                                                 (3, 16, 6, 512, False)])
+def test_plain_stages_match_jnp_steps(b, lq, lk, d, self_attn):
+    """Each stage on the same numpy inputs as the jnp step of
+    mha_addlayernorm_ref (text2loc_tpu/ops/pallas_mha.py:205-231), f32."""
+    x, kv, mats, vecs, scale, bias, mask = _inputs(8, b, lq, lk, d, self_attn)
+    dh = d // HEADS
+    hp = jax.lax.Precision.HIGHEST
+    # (a) projections; the ref scales the scores by 1/sqrt(dh), the stage q.
+    jq = (jnp.einsum("bld,dk->blk", x, mats[0], precision=hp) + vecs[0]) / np.sqrt(dh)
+    jk = jnp.einsum("bld,dk->blk", kv, mats[1], precision=hp) + vecs[1]
+    jv = jnp.einsum("bld,dk->blk", kv, mats[2], precision=hp) + vecs[2]
+    q, k, v = mha_project_plain(_t(x), _t(kv), _t(mats[0]), _t(vecs[0]), _t(mats[1]),
+                                _t(vecs[1]), _t(mats[2]), _t(vecs[2]), num_heads=HEADS)
+    for got, ref in ((q, jq), (k, jk), (v, jv)):
+        _close_rel(got, ref)
+    # (b) the core on the same numpy q, k, v (a fully masked sample included).
+    nq, nk, nv = (np.asarray(a) for a in (jq, jk, jv))
+    s = jnp.einsum("bqhk,bmhk->bhqm", nq.reshape(b, lq, HEADS, dh),
+                   nk.reshape(b, lk, HEADS, dh), precision=hp)
+    s = jnp.where(jnp.asarray(mask)[:, None, None, :], s, -1e9)
+    p = jax.nn.softmax(s, axis=-1)
+    jo = jnp.einsum("bhqm,bmhk->bqhk", p, nv.reshape(b, lk, HEADS, dh),
+                    precision=hp).reshape(b, lq, d)
+    o = mha_core_plain(_t(nq), _t(nk), _t(nv), _t(mask), num_heads=HEADS)
+    _close_rel(o, jo)
+    # (c) + (d) the out-projection, residual and LayerNorm on the same o.
+    no = np.asarray(jo)
+    s2 = x + jnp.einsum("bqk,kd->bqd", no, mats[3], precision=hp) + vecs[3]
+    mu = jnp.mean(s2, axis=-1, keepdims=True)
+    var = jnp.mean(jnp.square(s2 - mu), axis=-1, keepdims=True)
+    jy = (s2 - mu) * jax.lax.rsqrt(var + 1e-5) * scale + bias
+    y = mha_out_addln_plain(_t(x), _t(no), _t(mats[3]), _t(vecs[3]), _t(scale), _t(bias))
+    _close_rel(y, jy)
+
+
+# (Lq, Lk, D, self-attention) of chip_smoke.py's fused cases.
+SMOKE_FUSED = [(16, 6, 128, False), (6, 16, 128, False), (16, 16, 128, True),
+               (6, 6, 128, True), (28, 28, 256, True), (6, 6, 256, True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_route_takes_the_fused_kernel_to_d256_and_the_tiled_chain_above(dtype):
+    for lq, lk, d, self_attn in SMOKE_FUSED:
+        assert cuda_mha.route(lq, lk, d, HEADS, dtype, self_attn=self_attn) == "fused"
+    assert cuda_mha.route(16, 16, 1024, HEADS, dtype, self_attn=True) == "tiled"
+    assert cuda_mha.route(16, 6, 512, HEADS, dtype) == "tiled"
+    # d <= 256 whose fused layout exceeds a block's shared memory.
+    assert cuda_mha.route(64, 64, 256, HEADS, dtype, self_attn=True) == "tiled"
+    cuda_mha.check_tiled(64, 64, 256, HEADS, dtype)
+
+
+def test_fused_smem_is_make_layouts_sum():
+    """The Python sum of make_layout (csrc/mha_addln.cu) at a self and a
+    cross shape, by hand: x, (kv,) q, k, v, probabilities, pre-norm rows."""
+    assert cuda_mha.fused_smem(16, 16, 128, 4, True, torch.bfloat16) == (
+        2 * 16 * 128 * 4 + 4 * 4 * 16 * 16 + 4 * 16 * 128)
+    assert cuda_mha.fused_smem(5, 3, 128, 4, False, torch.float32) == (
+        4 * 5 * 128 + 4 * 3 * 128 + 4 * 5 * 128 + 2 * 4 * 3 * 128
+        + 16 * ((4 * 4 * 5 * 3 + 15) // 16) + 4 * 5 * 128)
+
+
+def test_check_tiled_names_its_limit():
+    with pytest.raises(ValueError, match="232448"):
+        cuda_mha.check_tiled(512, 512, 1024, 4, torch.float32)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        cuda_mha.check_tiled(16, 16, 320, 4, torch.bfloat16)
+
+
+@pytest.mark.parametrize("value", ["1", "all"])
+def test_no_attention_shape_of_the_default_config_is_refused(value):
+    """Every attention block of Config()'s two models (built on the meta
+    device) at every pair of the config's sequence lengths (tokens, hints,
+    objects, padded objects), in both dtypes: where the gate opens, the
+    routed kernel takes the shape."""
+    cfg = Config()
+    m = cfg.model
+    lengths = sorted({m.max_hint_tokens, m.num_mentioned, m.object_size, m.pad_size})
+    blocks = set()
+    with torch.device("meta"):
+        for kind in ("coarse", "fine"):
+            for mod in build_model(cfg, kind).modules():
+                if isinstance(mod, MultiheadAttentionParams):
+                    blocks.add((mod.query.weight.shape[0], mod.num_heads))
+    assert (1024, cfg.model.intra_num_heads) in blocks
+    tiled = set()
+    for d, heads in blocks:
+        for dtype in (torch.float32, torch.bfloat16):
+            if not fused_attn_enabled(d, dtype, value):
+                continue
+            for lq in lengths:
+                for lk in lengths:
+                    for self_attn in ((True, False) if lq == lk else (False,)):
+                        if cuda_mha.route(lq, lk, d, heads, dtype,
+                                          self_attn=self_attn) == "tiled":
+                            cuda_mha.check_tiled(lq, lk, d, heads, dtype)
+                            tiled.add((d, dtype))
+    assert (1024, torch.bfloat16) in tiled
+    assert ((1024, torch.float32) in tiled) == (value == "all")

@@ -19,7 +19,7 @@ the port takes them as constructor arguments (Gates), each "0" (off), "1"
 A block whose gate is closed runs as stock tensor ops, what the JAX package
 leaves to XLA. A gate that is open runs the kernel, and on the card a
 kernel that cannot take the shape raises (the feed-forward block at
-d_model 1024, the f32 attention block at 1024) rather than falling back.
+d_model 1024) rather than falling back.
 In training (module.train()) every fused gate closes and the stock ops run
 with dropout at the torch positions: the attention weights, the attention
 output, the feed-forward hidden after the ReLU and the feed-forward output.

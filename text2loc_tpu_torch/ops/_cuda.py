@@ -27,10 +27,10 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_ROOT = PACKAGE_DIR.parent / "build" / "text2loc_tpu_torch"
 SOURCES = ("fps.cu", "sa_select.cu", "sa_select_bisect.cu", "sa_gather.cu",
-           "sa_exact.cu", "sa_all.cu", "mha_addln.cu", "ffn_addln.cu",
+           "sa_exact.cu", "sa_all.cu", "mha_addln.cu", "mha_tiled.cu", "ffn_addln.cu",
            "sa_train_fwd.cu", "sa_train_bwd.cu", "sa_train_e_fwd.cu",
            "sa_train_e_bwd.cu", "add_ln.cu", "gather_rows.cu")
-HEADERS = ("common.cuh", "sa_level.cuh", "sa_train_common.cuh", "sa_train_fwd.cuh",
+HEADERS = ("common.cuh", "gemm_tc.cuh", "sa_level.cuh", "sa_train_common.cuh", "sa_train_fwd.cuh",
            "sa_train_bwd.cuh")
 _NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-Xcompiler", "-fPIC"]
@@ -123,6 +123,11 @@ _SIGNATURES = {
        for sel in ("first", "bisect", "gather", "exact", "all")},
     "t2l_mha_addln_smem": ([_I] * 6, ctypes.c_size_t),
     "t2l_mha_addln": ([_P] * 14 + [_I] * 5 + [_F, _F, _I, _I, _P], _I),
+    "t2l_mha_tiled_core_smem": ([_I] * 5, ctypes.c_size_t),
+    "t2l_mha_addln_tiled": ([_P] * 13 + [_I] * 5 + [_F, _F, _I, _I, _P], _I),
+    "t2l_mha_tiled_gemm": ([_P, _I, _P, _I, _P, _P, _I, _P] + [_I] * 5 + [_F, _I, _P], _I),
+    "t2l_mha_tiled_core": ([_P, _I, _P, _P, _I, _P, _P] + [_I] * 6 + [_P], _I),
+    "t2l_mha_tiled_ln": ([_P] * 4 + [_I, _I, _F, _I, _P], _I),
     "t2l_ffn_addln_smem": ([_I] * 3, ctypes.c_size_t),
     "t2l_ffn_addln": ([_P] * 8 + [_I] * 3 + [_F, _I, _P], _I),
     "t2l_sa_train_smem": ([_I] * 6, ctypes.c_size_t),
@@ -148,16 +153,18 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def launch(kernel: Kernel, symbol: str, *args) -> None:
+def launch(kernel: Kernel, symbol: str, *args, count: bool = True) -> None:
     """Call one launcher of the library on the current stream; raise on a
-    non-zero cudaGetLastError() and count the launch."""
+    non-zero cudaGetLastError() and count the launch (`count=False`: a
+    stage launched alone by a test, not the kernel's main path)."""
     lib = library()
     stream = torch.cuda.current_stream().cuda_stream
     err = getattr(lib, symbol)(*args, stream)
     if err != 0:
         msg = lib.t2l_error_string(err).decode()
         raise RuntimeError(f"{kernel.name} kernel launch failed: {msg} ({err})")
-    kernel.launches += 1
+    if count:
+        kernel.launches += 1
 
 
 def check(t: torch.Tensor, name: str, dtype=None, shape=None):
