@@ -17,7 +17,12 @@ toolkit. Phases, each printing one JSON line:
    kernel, to d=256; mha_addln_tiled, the tiled chain, at the intra stack's
    E=1024 in bf16 and f32, with each stage of the chain against its plain
    stage and, as a yardstick the port never calls, stock_ms: the port's
-   fused_attn="0" path with cuBLAS products, on the bf16 case's line);
+   fused_attn="0" path with cuBLAS products, on the bf16 case's line); the
+   feed-forward block by its route (ffn_addln, the fused kernel, to d=256;
+   ffn_addln_tiled, the tiled chain, at the E=1024 trunk's R=25,344 rows,
+   D=1024, F=4096 in bf16 and f32, each stage against its plain stage, the
+   bf16 case faster than plain, with stock_ms, the port's fused_ffn="0"
+   block, and fused_ms, the fused kernel at that shape, on its line);
    then the training SA level (sa_train_fwd, sa_train_bwd)
    against its plain forward and hand-derived plain backward at the coarse
    train step's three levels (896 clouds, K=32), f32 and bf16;
@@ -25,7 +30,7 @@ toolkit. Phases, each printing one JSON line:
    default Config (bf16) over a 64-cell synthetic map with seeded random
    weights; batches of 1, 8 and 64 queries; every serve kernel's launch
    count during the build and the queries must be > 0 (mha_addln and
-   mha_addln_tiled among them);
+   mha_addln_tiled among them; ffn_addln_tiled launches 0 times);
 5. serve_vs_cpu: the same weights in f32 on the card and on the CPU (plain
    versions) over an 8-cell map: equal top-1 cells where the top-1/top-2
    score margin exceeds 1e-4, positions within 1e-2 m;
@@ -33,7 +38,8 @@ toolkit. Phases, each printing one JSON line:
    tables) at full Config() width (bf16) over the 64-cell map, once per
    mode of scripts/validate_kernels.py's sweep table: wall seconds,
    fine_qps, top-1 rows, agreement with the "exact" (off) baseline; each
-   mode must launch its SA kernels and no other SA kernel;
+   mode must launch its SA kernels and no other SA kernel, and no opt-in
+   kernel (add_ln, gather_rows, ffn_addln_tiled);
 7. pipeline_vs_cpu: every mode in f32 on the card and on the CPU over an
    8-cell map: top-1 cells equal where the margin exceeds 1e-4, positions
    within 1e-2 m, tables equal where every retrieval agrees;
@@ -49,13 +55,16 @@ toolkit. Phases, each printing one JSON line:
 10. pipeline_optin: the opt-in kernel paths of the evaluation at full
    Config() width (bf16) over the 64-cell map and phase 6's weights:
    run_pipeline with fused_ln="all" and fused_ffn="0" (mode first), and
-   with mode off, vmem_gather=True and fused_attn="0", and with
-   fused_attn="all" (mode first); wall seconds, fine_qps, top-1 agreement
-   with the default run; add_ln and gather_rows must launch (and launch 0
-   times in phases 4 and 6);
+   with mode off, vmem_gather=True and fused_attn="0", with
+   fused_attn="all", with fused_ffn="all", and with both (attn_ffn_all;
+   each in mode first); wall seconds, fine_qps, top-1 agreement with the
+   default run; add_ln, gather_rows and ffn_addln_tiled must launch (and
+   launch 0 times in phases 4 and 6); then serve_optin, phase 4's serve
+   with fused_ffn="all", whose build must launch ffn_addln_tiled;
 11. pipeline_optin_vs_cpu: the same options in f32 on the card and on the
    CPU over an 8-cell map, with phase 7's criteria (fused_attn="all" runs
-   the tiled chain in f32 at E=1024);
+   the attention chain in f32 at E=1024, fused_ffn="all" the feed-forward
+   chain, after stock attention or after the attention chain);
 12. train_optin: 3 train_coarse steps with a bf16 body and the training SA
    tokens ("e","e","1") (e rounded to bf16), then 2 fine steps with
    ("0","0","e") and vmem_gather=True, at full width: step times and peak
@@ -75,14 +84,15 @@ and the training level of the token "e" (sa_train_e_fwd / _bwd) at the coarse
 step's three levels (f32, bf16), with the time of one PyTorch call that
 computes the same function where there is one (library_ms).
 
-Then the kernels line (launches: the counts during phases 4, 6, 8, 10 and
-12, each path's counts set to 0 just before it; max_abs_err, ms, plain_ms,
-bound_ms and library_ms: over the inference kernels' bf16 cases of phase 3
-(sa_gather's approximate ball query cases), FPS's f32 case, the training
-kernels' f32 cases, the "e" kernels' bf16 cases and the scatter's
-f32 cases, the paths' dtypes), the card's nvidia-smi line and, last, the
-result line. Any failed check raises: the script exits non-zero and prints
-no result. It imports nothing of JAX and nothing of the JAX package.
+Then the kernels line (launches: the counts during phases 4, 6, 8, 10
+(serve_optin too) and 12, each path's counts set to 0 just before it;
+max_abs_err, ms, plain_ms, bound_ms and library_ms: over the inference
+kernels' bf16 cases of phase 3 (sa_gather's approximate ball query cases),
+FPS's f32 case, the training kernels' f32 cases, the "e" kernels' bf16
+cases and the scatter's f32 cases, the paths' dtypes), the card's
+nvidia-smi line and, last, the result line. Any failed check raises: the
+script exits non-zero and prints no result. It imports nothing of JAX and
+nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -194,7 +204,7 @@ class KernelRecord:
         return "operations" if self.op_s >= self.byte_s else "bytes"
 
     def add(self, name, dtype, pairs, kernel_fn, plain_fn, work, exact=False,
-            norm_floor=None, counts=None, limit_fn=None, library_fn=None, stock_fn=None):
+            norm_floor=None, counts=None, limit_fn=None, library_fn=None, yardsticks=None):
         """pairs: [(kernel output, plain output)], each within TOLERANCE x
         max|plain| (0 when exact); work: (FLOPs, bytes, dtype of the products)
         of the case. With `norm_floor` the check is instead ||kernel - plain||
@@ -202,8 +212,9 @@ class KernelRecord:
         `limit_fn(got, want)` -> (max abs error, limit, ok, ulps) the check
         is the case's own (ulps: the error in bf16 spacings, or None).
         `library_fn`: one PyTorch call computing the same function, timed
-        beside the kernel; `stock_fn`: the port's stock-ops path for the
-        same function, timed onto the case line only (stock_ms). Returns
+        beside the kernel; `yardsticks`: {key: fn} timed onto the case line
+        only (stock_ms: the port's stock-ops path for the same function;
+        fused_ms: a kernel that the route no longer takes there). Returns
         the case's (ms, plain_ms)."""
         err, ok, limit, rels, ulps = 0.0, True, 0.0, [], None
         for got, want in pairs:
@@ -227,13 +238,13 @@ class KernelRecord:
                 err, limit = e, lim
         ms, plain_ms = cuda_ms(kernel_fn), cuda_ms(plain_fn)
         library_ms = cuda_ms(library_fn) if library_fn is not None else None
-        stock = {"stock_ms": cuda_ms(stock_fn)} if stock_fn is not None else {}
+        extra = {key: cuda_ms(fn) for key, fn in (yardsticks or {}).items()}
         op_s, byte_s = bound(*work)
         bound_ms = max(op_s, byte_s) * 1e3
         emit({"phase": "kernel", "case": name, "dtype": str(dtype).split(".")[-1],
               "max_abs_err": err, "bound": limit, "ms": ms, "plain_ms": plain_ms,
               "bound_ms": bound_ms, "bound_by": "operations" if op_s >= byte_s else "bytes",
-              "library_ms": library_ms, **stock, "ok": ok,
+              "library_ms": library_ms, **extra, "ok": ok,
               **({"rel_l2_errs": rels} if norm_floor is not None else {}),
               **({"max_ulps": ulps} if ulps is not None else {})})
         check(ok, f"{name} {dtype}: error {err} above {limit}")
@@ -360,23 +371,10 @@ def _stock_attention_fn(args, dt):
     return run
 
 
-def _mha_tiled_stages(name, args, dt) -> None:
-    """Each stage of the tiled chain alone against its plain stage on the
-    plain stage's inputs (TOLERANCE x max|plain|): (a) the projection GEMM,
-    (b) the attention core, (c)+(d) the out-projection GEMM with the
-    residual and the LayerNorm; with each stage's time."""
-    from text2loc_tpu_torch.ops import cuda_mha, mha
-
-    x, kv, wq, bq, wk, bk, wv, bv, wo, bo, g, be, mask = args
-    q, k, v = mha.mha_project_plain(x, kv, wq, bq, wk, bk, wv, bv, num_heads=4)
-    o = mha.mha_core_plain(q, k, v, mask, num_heads=4)
-    stages = [
-        ("project", lambda: cuda_mha.tiled_project_cuda(x, kv, wq, bq, wk, bk, wv, bv,
-                                                        num_heads=4), (q, k, v)),
-        ("core", lambda: (cuda_mha.tiled_core_cuda(q, k, v, mask, num_heads=4),), (o,)),
-        ("out_addln", lambda: (cuda_mha.tiled_out_addln_cuda(x, o, wo, bo, g, be),),
-         (mha.mha_out_addln_plain(x, o, wo, bo, g, be),)),
-    ]
+def _stage_checks(kname, name, dt, stages) -> None:
+    """Each stage of a tiled chain alone against its plain stage on the
+    plain stage's inputs (TOLERANCE x max|plain|), with its time. stages:
+    [(stage, fn returning a tuple of outputs, the plain outputs)]."""
     for stage, fn, wants in stages:
         err, ok, limit = 0.0, True, 0.0
         for got, want in zip(fn(), wants):
@@ -386,10 +384,64 @@ def _mha_tiled_stages(name, args, dt) -> None:
             ok = ok and bool(torch.isfinite(got).all()) and e <= lim
             if e >= err:
                 err, limit = e, lim
-        emit({"phase": "kernel_stage", "case": f"mha_addln_tiled {name}", "stage": stage,
+        emit({"phase": "kernel_stage", "case": f"{kname} {name}", "stage": stage,
               "dtype": str(dt).split(".")[-1], "max_abs_err": err, "bound": limit,
               "ms": cuda_ms(fn), "ok": ok})
-        check(ok, f"mha_addln_tiled {name} stage {stage}: error {err} above {limit}")
+        check(ok, f"{kname} {name} stage {stage}: error {err} above {limit}")
+
+
+def _mha_tiled_stages(name, args, dt) -> None:
+    """The attention chain's stages: (a) the projection GEMM, (b) the
+    attention core, (c)+(d) the out-projection GEMM with the residual and
+    the LayerNorm."""
+    from text2loc_tpu_torch.ops import cuda_mha, mha
+
+    x, kv, wq, bq, wk, bk, wv, bv, wo, bo, g, be, mask = args
+    q, k, v = mha.mha_project_plain(x, kv, wq, bq, wk, bk, wv, bv, num_heads=4)
+    o = mha.mha_core_plain(q, k, v, mask, num_heads=4)
+    _stage_checks("mha_addln_tiled", name, dt, [
+        ("project", lambda: cuda_mha.tiled_project_cuda(x, kv, wq, bq, wk, bk, wv, bv,
+                                                        num_heads=4), (q, k, v)),
+        ("core", lambda: (cuda_mha.tiled_core_cuda(q, k, v, mask, num_heads=4),), (o,)),
+        ("out_addln", lambda: (cuda_mha.tiled_out_addln_cuda(x, o, wo, bo, g, be),),
+         (mha.mha_out_addln_plain(x, o, wo, bo, g, be),)),
+    ])
+
+
+def _stock_ffn_fn(args, dt):
+    """The port's fused_ffn="0" block (models/transformer.py: stock
+    products with cuBLAS, relu, then the stock add + LayerNorm) with the
+    case's weights: a yardstick the port's fused route never calls."""
+    from text2loc_tpu_torch.models.transformer import Dropout, Gates, Projection, feed_forward
+
+    x, w1, b1, w2, b2, g, be = args
+    d, f = w1.shape
+    lin1, lin2 = Projection(d, f).to(x.device), Projection(f, d).to(x.device)
+    norm = torch.nn.LayerNorm(d).to(x.device)
+    with torch.no_grad():
+        for p, v in ((lin1.weight, w1), (lin1.bias, b1), (lin2.weight, w2), (lin2.bias, b2),
+                     (norm.weight, g), (norm.bias, be)):
+            p.copy_(v)
+    drop = Dropout(0.0).eval()
+
+    def run():
+        with torch.no_grad():
+            return feed_forward(x, lin1, lin2, norm, dt, drop, Gates(ffn="0"))
+    return run
+
+
+def _ffn_tiled_stages(name, args, dt) -> None:
+    """The feed-forward chain's stages: (a) the hidden GEMM with the relu
+    epilogue, (b)+(c) the residual GEMM (K = F) and the LayerNorm."""
+    from text2loc_tpu_torch.ops import cuda_ffn, cuda_mha, ffn
+
+    x, w1, b1, w2, b2, g, be = args
+    h = ffn.ffn_hidden_plain(x, w1, b1)
+    _stage_checks("ffn_addln_tiled", name, dt, [
+        ("hidden", lambda: (cuda_ffn.tiled_hidden_cuda(x, w1, b1),), (h,)),
+        ("out_addln", lambda: (cuda_mha.tiled_out_addln_cuda(x, h, w2, b2, g, be),),
+         (ffn.ffn_out_addln_plain(h, x, w2, b2, g, be),)),
+    ])
 
 
 def phase_kernels(dev) -> dict:
@@ -399,7 +451,7 @@ def phase_kernels(dev) -> dict:
 
     gen = torch.Generator().manual_seed(SEED)
     records = {k: KernelRecord() for k in ("fps", *SA_KERNELS, "mha_addln", "mha_addln_tiled",
-                                          "ffn_addln")}
+                                          "ffn_addln", "ffn_addln_tiled")}
 
     n, p = 64 * 28, 256
     pts = _clouds(gen, n, p, dev)
@@ -448,7 +500,7 @@ def phase_kernels(dev) -> dict:
                   mha.mha_addln_plain(*args, num_heads=4))],
                 lambda a=args: cuda_mha.mha_addln_cuda(*a, num_heads=4),
                 lambda a=args: mha.mha_addln_plain(*a, num_heads=4), work,
-                stock_fn=_stock_attention_fn(args, dt) if tiled_bf16 else None)
+                yardsticks={"stock_ms": _stock_attention_fn(args, dt)} if tiled_bf16 else None)
             if tiled_bf16:
                 check(ms < plain_ms and ms <= 3.0,
                       f"{kname} {name}: {ms} ms, plain {plain_ms} ms (limit: faster than "
@@ -456,7 +508,7 @@ def phase_kernels(dev) -> dict:
                 _mha_tiled_stages(name, args, dt)
 
     ffn_cases = [("cct", 640 * 16, 128, 512), ("obj_inter", 64 * 28, 256, 512),
-                 ("inter head", 64 * 6, 256, 1024)]
+                 ("inter head", 64 * 6, 256, 1024), ("intra E=1024", 1584 * 16, 1024, 4096)]
     for dt in (torch.bfloat16, torch.float32):
         for name, rows, d, f in ffn_cases:
             args = (_rand(gen, (rows, d), 1.0, dev).to(dt),
@@ -466,11 +518,23 @@ def phase_kernels(dev) -> dict:
             es = args[0].element_size()
             work = (4.0 * rows * d * f, 2 * rows * d * es + 2 * d * f * 4 + (f + 3 * d) * 4,
                     dt)
-            records["ffn_addln"].add(
-                f"ffn_addln {name} R={rows} D={d} F={f}", dt,
+            kname = "ffn_addln" if cuda_ffn.route(d, f, dt) == "fused" else "ffn_addln_tiled"
+            tiled_bf16 = kname == "ffn_addln_tiled" and dt == torch.bfloat16
+            # The bf16 chain's yardsticks: the port's stock block, and the
+            # fused kernel that d=1024 no longer routes to (its layout fits).
+            yardsticks = ({"stock_ms": _stock_ffn_fn(args, dt),
+                           "fused_ms": lambda a=args: cuda_ffn.fused_block_cuda(*a)}
+                          if tiled_bf16 else None)
+            ms, plain_ms = records[kname].add(
+                f"{kname} {name} R={rows} D={d} F={f}", dt,
                 [(cuda_ffn.ffn_addln_cuda(*args), ffn.ffn_addln_plain(*args))],
                 lambda a=args: cuda_ffn.ffn_addln_cuda(*a),
-                lambda a=args: ffn.ffn_addln_plain(*a), work)
+                lambda a=args: ffn.ffn_addln_plain(*a), work, yardsticks=yardsticks)
+            if tiled_bf16:
+                check(ms < plain_ms, f"{kname} {name}: {ms} ms, plain {plain_ms} ms (limit: "
+                      "faster than plain)")
+            if kname == "ffn_addln_tiled":
+                _ffn_tiled_stages(name, args, dt)
     torch.cuda.synchronize()
     return records
 
@@ -710,11 +774,11 @@ def _map(num_scenes: int, num_cells: int, cfg):
     ])
 
 
-def _models(cfg, gen):
+def _models(cfg, gen, **kw):
     from text2loc_tpu_torch.convert import build_model, init_weights
 
-    return (init_weights(build_model(cfg, "coarse"), gen),
-            init_weights(build_model(cfg, "fine"), gen))
+    return (init_weights(build_model(cfg, "coarse", **kw), gen),
+            init_weights(build_model(cfg, "fine", **kw), gen))
 
 
 def _check_result(res, data, b, k):
@@ -737,14 +801,18 @@ def _check_absent(counts: dict, absent, what: str) -> None:
     check(all(v == 0 for v in off.values()), f"{what}: an opt-in kernel launched: {off}")
 
 
-def phase_serve(dev, kernels, absent=()) -> dict:
+def phase_serve(dev, kernels, absent=(), options=None, phase="serve") -> dict:
+    """The cached serve at full Config() width (bf16), the models built
+    with build_model's `options`: build seconds, the median latency of
+    batches of 1, 8 and 64, and the launches of the build alone and of the
+    whole phase."""
     from text2loc_tpu_torch.config import Config
     from text2loc_tpu_torch.models.text_embedding import HintTextEmbedder
     from text2loc_tpu_torch.serving import Localizer
 
     cfg = Config()
     data = _map(2, 32, cfg)
-    coarse, fine = _models(cfg, torch.Generator().manual_seed(SEED))
+    coarse, fine = _models(cfg, torch.Generator().manual_seed(SEED), **(options or {}))
     emb = HintTextEmbedder.compositional(cfg.model.text_embed_dim,
                                          cfg.model.max_hint_tokens)
     for k in (*kernels, *absent):
@@ -753,6 +821,7 @@ def phase_serve(dev, kernels, absent=()) -> dict:
     loc = Localizer(data, coarse, fine, emb, cfg, top_k=10, device=dev)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
+    build_counts = {k.name: k.launches for k in (*kernels, *absent)}
     latency = {}
     for b in (1, 8, 64):
         q = np.arange(b) % data.num_poses
@@ -767,11 +836,12 @@ def phase_serve(dev, kernels, absent=()) -> dict:
             times.append((time.perf_counter() - t) * 1e3)
         latency[str(b)] = statistics.median(times)
     counts = {k.name: k.launches for k in (*kernels, *absent)}
-    emit({"phase": "serve", "config": "Config() bf16", "cells": data.num_cells,
-          "top_k": loc.top_k, "build_s": build_s, "median_ms_per_batch": latency,
+    emit({"phase": phase, "config": "Config() bf16", "options": options or {},
+          "cells": data.num_cells, "top_k": loc.top_k, "build_s": build_s,
+          "median_ms_per_batch": latency, "build_launches": build_counts,
           "launches": counts})
     check(all(counts[k.name] > 0 for k in kernels), f"a kernel never launched: {counts}")
-    _check_absent(counts, absent, "serve")
+    _check_absent(counts, absent, phase)
     return counts
 
 
@@ -912,18 +982,26 @@ def phase_pipeline(dev, kernels, absent=()) -> dict:
 
 # The opt-in evaluation paths, as build_model's options: the LN kernel at
 # every width with stock feed-forward blocks before it (mode first), the
-# row-gather kernel in mode off with stock attention blocks, and every
+# row-gather kernel in mode off with stock attention blocks, every
 # attention block on its kernel (fused_attn="all": in f32 the E=1024 stack
-# too, on the tiled chain).
+# too, on the tiled chain), every feed-forward block on its kernel
+# (fused_ffn="all": the E=1024 stack's on the tiled chain, bf16 and f32;
+# in f32 after stock attention), and both.
 PIPELINE_OPTIN = {
     "ln_all_ffn0": dict(sa_mode="first", fused_ln="all", fused_ffn="0"),
     "off_vmem_attn0": dict(sa_mode="off", vmem_gather=True, fused_attn="0"),
     "attn_all": dict(sa_mode="first", fused_attn="all"),
+    "ffn_all": dict(sa_mode="first", fused_ffn="all"),
+    "attn_ffn_all": dict(sa_mode="first", fused_attn="all", fused_ffn="all"),
 }
 # The kernels each path must launch besides FPS and its SA kernels.
 _OPTIN_KERNELS = {"ln_all_ffn0": ("mha_addln", "mha_addln_tiled", "add_ln"),
                   "off_vmem_attn0": ("ffn_addln", "add_ln", "gather_rows"),
-                  "attn_all": ("mha_addln", "mha_addln_tiled", "ffn_addln")}
+                  "attn_all": ("mha_addln", "mha_addln_tiled", "ffn_addln"),
+                  "ffn_all": ("mha_addln", "mha_addln_tiled", "ffn_addln",
+                              "ffn_addln_tiled"),
+                  "attn_ffn_all": ("mha_addln", "mha_addln_tiled", "ffn_addln",
+                                   "ffn_addln_tiled")}
 
 
 def phase_pipeline_optin(dev, kernels) -> dict:
@@ -1308,7 +1386,7 @@ def main() -> int:
     from text2loc_tpu_torch.ops import (cuda_ffn, cuda_fps, cuda_gather, cuda_ln, cuda_mha,
                                         cuda_pointconv, cuda_sa_train)
 
-    optin = [cuda_ln.KERNEL, cuda_gather.KERNEL]
+    optin = [cuda_ln.KERNEL, cuda_gather.KERNEL, cuda_ffn.KERNEL_TILED]
     serve_kernels = [cuda_fps.KERNEL, cuda_pointconv.KERNEL_FIRST, cuda_mha.KERNEL,
                      cuda_mha.KERNEL_TILED, cuda_ffn.KERNEL]
     train_kernels = [cuda_fps.KERNEL, cuda_sa_train.KERNEL_FWD, cuda_sa_train.KERNEL_BWD]
@@ -1331,6 +1409,8 @@ def main() -> int:
     counts.append(train_counts)
     phase_train_vs_cpu(dev)
     counts.append(phase_pipeline_optin(dev, pipeline_kernels + optin))
+    counts.append(phase_serve(dev, serve_kernels + [cuda_ffn.KERNEL_TILED],
+                              options=dict(fused_ffn="all"), phase="serve_optin"))
     phase_pipeline_vs_cpu(dev, PIPELINE_OPTIN, phase="pipeline_optin_vs_cpu")
     counts.append(phase_train_optin(dev, train_optin_kernels, f32_default))
     phase_train_vs_cpu(dev, fused_train=("e", "e", "e"), phase="train_optin_vs_cpu",

@@ -32,7 +32,8 @@ import torch
 
 from text2loc_tpu_torch.ops import (cuda_ffn, cuda_fps, cuda_gather, cuda_ln, cuda_mha,
                                     cuda_pointconv, cuda_sa_train)
-from text2loc_tpu_torch.ops.ffn import ffn_addln, ffn_addln_plain
+from text2loc_tpu_torch.ops.ffn import (ffn_addln, ffn_addln_plain, ffn_hidden_plain,
+                                        ffn_out_addln_plain)
 from text2loc_tpu_torch.ops.gather import (gather_rows, gather_rows_grad, gather_rows_plain,
                                            scatter_rows, scatter_rows_plain)
 from text2loc_tpu_torch.ops.ln import add_layernorm, add_layernorm_plain
@@ -272,18 +273,59 @@ def test_mha_route_layout_is_the_kernels(dev, dtype):
             lq, lk, d, 4, _cuda.DTYPE_CODE[dtype])
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("rows,d,f", [(37, 128, 512), (1030, 256, 1024)])
-def test_ffn_kernel(dev, dtype, rows, d, f):
-    rng = np.random.default_rng(3)
-    args = (_randn(rng, (rows, d), dev).to(dtype), _randn(rng, (d, f), dev, d ** -0.5),
+def _ffn_args(dev, dtype, rows, d, f, seed=3):
+    rng = np.random.default_rng(seed)
+    return (_randn(rng, (rows, d), dev).to(dtype), _randn(rng, (d, f), dev, d ** -0.5),
             _randn(rng, f, dev, 0.1), _randn(rng, (f, d), dev, f ** -0.5),
             _randn(rng, d, dev, 0.1), _randn(rng, d, dev, 0.1, 1.0),
             _randn(rng, d, dev, 0.1))
-    before = cuda_ffn.KERNEL.launches
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows,d,f", [(37, 128, 512), (1030, 256, 1024),
+                                      (592, 1024, 4096),   # the small GEMM tile
+                                      (39, 1024, 4096),    # rows past M in a tile
+                                      (23, 512, 2048)])
+def test_ffn_kernel(dev, dtype, rows, d, f):
+    """The fused kernel to d=256, the tiled chain above (bf16 and f32),
+    each counting one launch per block."""
+    args = _ffn_args(dev, dtype, rows, d, f)
+    routed = cuda_ffn.route(d, f, dtype)
+    assert routed == ("fused" if d <= 256 else "tiled")
+    kernel, other = ((cuda_ffn.KERNEL, cuda_ffn.KERNEL_TILED) if routed == "fused"
+                     else (cuda_ffn.KERNEL_TILED, cuda_ffn.KERNEL))
+    before, before_other = kernel.launches, other.launches
     got = ffn_addln(*args)
-    assert cuda_ffn.KERNEL.launches == before + 1
+    assert kernel.launches == before + 1 and other.launches == before_other
     _close(got, ffn_addln_plain(*args), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows,d,f", [(592, 1024, 4096), (39, 1024, 4096),
+                                      (25344, 1024, 4096)])
+def test_ffn_tiled_stages(dev, dtype, rows, d, f):
+    """Each stage of the tiled chain alone against its plain stage, on the
+    plain stage's inputs: the hidden GEMM with the relu epilogue, then the
+    residual GEMM (K = F) and the LayerNorm. The stage entry points launch
+    no counted block."""
+    x, w1, b1, w2, b2, g, be = _ffn_args(dev, dtype, rows, d, f, seed=4)
+    before = (cuda_ffn.KERNEL_TILED.launches, cuda_mha.KERNEL_TILED.launches)
+    _close(cuda_ffn.tiled_hidden_cuda(x, w1, b1), ffn_hidden_plain(x, w1, b1), dtype)
+    h = ffn_hidden_plain(x, w1, b1)
+    _close(cuda_mha.tiled_out_addln_cuda(x, h, w2, b2, g, be),
+           ffn_out_addln_plain(h, x, w2, b2, g, be), dtype)
+    assert (cuda_ffn.KERNEL_TILED.launches, cuda_mha.KERNEL_TILED.launches) == before
+
+
+def test_ffn_route_layout_is_the_kernels(dev):
+    """route's Python sum of the fused layout equals t2l_ffn_addln_smem."""
+    from text2loc_tpu_torch.ops import _cuda
+
+    lib = _cuda.library()
+    for dtype in DTYPES:
+        for d, f in [(128, 512), (256, 512), (256, 1024), (1024, 4096), (256, 8192)]:
+            assert cuda_ffn.fused_smem(d, f, dtype) == lib.t2l_ffn_addln_smem(
+                d, f, _cuda.DTYPE_CODE[dtype])
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
@@ -306,6 +348,15 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     long_kv = torch.rand(2, 512, 1024, device=dev)
     with pytest.raises(ValueError, match="232448"):
         cuda_mha.mha_addln_cuda(x, long_kv, w, v, w, v, w, v, w, v, v, v, num_heads=4)
+    # The feed-forward block: f32 at D=1024 runs the chain; off the 128 grid
+    # above d=256 it is refused, and the fused kernel refuses a layout
+    # beyond a block's shared memory.
+    args = _ffn_args(dev, torch.float32, 16, 1024, 4096)
+    _close(cuda_ffn.ffn_addln_cuda(*args), ffn_addln_plain(*args), torch.float32)
+    with pytest.raises(ValueError, match="232448"):
+        cuda_ffn.fused_block_cuda(*args)
+    with pytest.raises(ValueError, match="multiples of 128"):
+        cuda_ffn.ffn_addln_cuda(*_ffn_args(dev, torch.bfloat16, 16, 320, 1280))
 
 
 def _sa_train_inputs(rng, dev, n, p, s, k, h1, h2):

@@ -1,4 +1,5 @@
-// Row-tiled GEMMs of the port's transformer blocks:
+// Row-tiled GEMMs of the port's transformer blocks (mha_tiled.cu,
+// ffn_tiled.cu):
 //   C[M, N] = epilogue(A[M, K] . B[K, N]),
 // A and B row-major (the port keeps weights [in, out]), f32 sums.
 //
@@ -13,7 +14,7 @@
 // The ragged edge: rows of A at or past M are loaded as zeros (cp.async
 // with a zero source size) and their outputs are not stored. N must be a
 // multiple of the tile width (64 or 128) and K of 32 (bf16) or 8 (f32);
-// the attention block's D is a multiple of 128, as the TPU kernel asks.
+// the blocks' D and F are multiples of 128, as the TPU kernels ask.
 //
 // An epilogue is a functor called as epi(row, col, v0, v1) with the f32
 // sums of the two adjacent columns col, col + 1 of one row.
@@ -87,6 +88,20 @@ struct EpiBiasScale {
   __device__ __forceinline__ void operator()(int r, int col, float v0, float v1) const {
     const float s0 = col < nscale ? scale : 1.f, s1 = col + 1 < nscale ? scale : 1.f;
     store2<T>(c + (size_t)r * ldc + col, (v0 + bias[col]) * s0, (v1 + bias[col + 1]) * s1);
+  }
+};
+
+// C = round_T(relu(acc + bias[c])): the feed-forward hidden, relu'd in f32
+// and then rounded (a NaN stays NaN, as jnp.maximum keeps it).
+template <typename T>
+struct EpiBiasRelu {
+  T* c;
+  int ldc;
+  const float* bias;
+  __device__ __forceinline__ void operator()(int r, int col, float v0, float v1) const {
+    v0 += bias[col];
+    v1 += bias[col + 1];
+    store2<T>(c + (size_t)r * ldc + col, v0 < 0.f ? 0.f : v0, v1 < 0.f ? 0.f : v1);
   }
 };
 

@@ -32,17 +32,17 @@
 //   (b) per (sample, head): scores + key bias, f32 softmax rounded to T,
 //       o = round_T(p v), with q, k and v of the head in shared memory;
 //   (c) s2 = (f32(x) + o Wo) + bo, f32, the GEMM with a residual epilogue;
-//   (d) out = LayerNorm(s2) in T, one warp per row.
+//   (d) out = LayerNorm(s2) in T, one warp per row (layernorm_rows.cuh).
 // wgmma, TMA, persistent tiles and fusing (c) with (d) are later work.
 #include <math.h>
 
 #include "common.cuh"
 #include "gemm_tc.cuh"
+#include "layernorm_rows.cuh"
 
 namespace {
 
 constexpr int kCoreThreads = 256;
-constexpr int kLnWarps = 8;
 
 // Shared bytes of the attention core: q, k, v of one head in T, then the
 // [lq, lk] f32 probabilities.
@@ -121,17 +121,6 @@ __global__ void __launch_bounds__(kCoreThreads)
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kLnWarps * 32)
-    layernorm_rows_kernel(const float* __restrict__ s2, const float* __restrict__ gamma,
-                          const float* __restrict__ beta, float eps, T* __restrict__ out,
-                          int m, int d) {
-  const int row = blockIdx.x * kLnWarps + (threadIdx.x >> 5);
-  if (row >= m) return;  // whole warps
-  t2l::warp_layernorm_row<T>(s2 + (size_t)row * d, d, gamma, beta, eps,
-                             out + (size_t)row * d);
-}
-
-template <typename T>
 cudaError_t gemm(const void* a, int lda, const void* b, int ldb, const void* bias, void* c,
                  int ldc, const void* res, int ldr, int m, int n, int k, int nscale,
                  float scale, cudaStream_t st) {
@@ -169,16 +158,6 @@ cudaError_t core(const void* q, int ldq, const void* k, const void* v, int ldkv,
 }
 
 template <typename T>
-cudaError_t layernorm(const void* s2, const void* gamma, const void* beta, void* out, int m,
-                      int d, float eps, cudaStream_t st) {
-  if (m <= 0) return cudaSuccess;
-  layernorm_rows_kernel<T><<<(m + kLnWarps - 1) / kLnWarps, kLnWarps * 32, 0, st>>>(
-      static_cast<const float*>(s2), static_cast<const float*>(gamma),
-      static_cast<const float*>(beta), eps, static_cast<T*>(out), m, d);
-  return cudaGetLastError();
-}
-
-template <typename T>
 cudaError_t block(const void* x, const void* kv, const void* kbias, const void* wqkv,
                   const void* bqkv, const void* wo, const void* bo, const void* gamma,
                   const void* beta, void* out, void* qkv, void* o, void* s2, int b, int lq,
@@ -204,7 +183,7 @@ cudaError_t block(const void* x, const void* kv, const void* kbias, const void* 
   }
   if (e == cudaSuccess) e = core<T>(qp, ldq, kp, vp, ldkv, kbias, o, b, lq, lk, d, heads, st);
   if (e == cudaSuccess) e = gemm<T>(o, d, wo, d, bo, s2, d, x, d, m, d, d, 0, 1.f, st);
-  if (e == cudaSuccess) e = layernorm<T>(s2, gamma, beta, out, m, d, eps, st);
+  if (e == cudaSuccess) e = t2l::rows::layernorm<T>(s2, gamma, beta, out, m, d, eps, st);
   return e;
 }
 
@@ -264,8 +243,8 @@ int t2l_mha_tiled_ln(const void* s2, const void* gamma, const void* beta, void* 
                      int d, float eps, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == t2l::kBF16)
-    return (int)layernorm<__nv_bfloat16>(s2, gamma, beta, out, m, d, eps, st);
-  return (int)layernorm<float>(s2, gamma, beta, out, m, d, eps, st);
+    return (int)t2l::rows::layernorm<__nv_bfloat16>(s2, gamma, beta, out, m, d, eps, st);
+  return (int)t2l::rows::layernorm<float>(s2, gamma, beta, out, m, d, eps, st);
 }
 
 }  // extern "C"

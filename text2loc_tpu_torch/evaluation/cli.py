@@ -22,14 +22,14 @@ from text2loc_tpu_torch.config import Config
 
 # Flag -> the ROADMAP item the port's support of it waits for.
 _NOT_PORTED = {
-    "coarse_ckpt": "Orbax checkpoints (ROADMAP Queue 1 item 7)",
-    "fine_ckpt": "Orbax checkpoints (ROADMAP Queue 1 item 7)",
-    "base_path": "a port copy of data/ingest.py (ROADMAP Queue 1 item 5)",
-    "array_cache": "a port copy of data/ingest.py (ROADMAP Queue 1 item 5)",
-    "use_test_set": "a port copy of data/ingest.py (ROADMAP Queue 1 item 5)",
-    "styled_hints": "the online T5 encoder (ROADMAP Queue 1 item 9)",
-    "t5_snapshot": "the online T5 encoder (ROADMAP Queue 1 item 9)",
-    "plot_retrievals": "a port copy of evaluation/visualize.py (ROADMAP Queue 1 item 5)",
+    "coarse_ckpt": "Orbax checkpoints (ROADMAP Queue 1 item 3)",
+    "fine_ckpt": "Orbax checkpoints (ROADMAP Queue 1 item 3)",
+    "base_path": "a port copy of data/ingest.py (ROADMAP Queue 1 item 4)",
+    "array_cache": "a port copy of data/ingest.py (ROADMAP Queue 1 item 4)",
+    "use_test_set": "a port copy of data/ingest.py (ROADMAP Queue 1 item 4)",
+    "styled_hints": "the online T5 encoder (ROADMAP Queue 1 item 6)",
+    "t5_snapshot": "the online T5 encoder (ROADMAP Queue 1 item 6)",
+    "plot_retrievals": "a port copy of evaluation/visualize.py (ROADMAP Queue 1 item 8)",
 }
 
 

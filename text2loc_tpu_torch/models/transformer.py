@@ -17,9 +17,10 @@ the port takes them as constructor arguments (Gates), each "0" (off), "1"
   multiple of 128; "1": d_model <= 256; "all": every such d_model.
 
 A block whose gate is closed runs as stock tensor ops, what the JAX package
-leaves to XLA. A gate that is open runs the kernel, and on the card a
-kernel that cannot take the shape raises (the feed-forward block at
-d_model 1024) rather than falling back.
+leaves to XLA. A gate that is open runs the kernel (on the card the
+attention and feed-forward blocks each by their route: the fused kernel to
+d_model 256, the tiled chain above), and on the card a kernel that cannot
+take the shape raises rather than falling back.
 In training (module.train()) every fused gate closes and the stock ops run
 with dropout at the torch positions: the attention weights, the attention
 output, the feed-forward hidden after the ReLU and the feed-forward output.

@@ -231,17 +231,21 @@ def tiled_core_cuda(q, k, v, key_mask=None, *, num_heads: int):
 
 def tiled_out_addln_cuda(x, o, wo, bo, scale, bias, *, eps: float = 1e-5):
     """Stages (c) and (d): LayerNorm((f32(x) + o Wo) + bo) in x.dtype, as
-    mha_out_addln_plain."""
+    mha_out_addln_plain; x [..., D], o [..., K] and wo [K, D]. K = D here;
+    with the hidden h as o and K = F, the feed-forward chain's stages (b)
+    and (c), as ffn_out_addln_plain."""
     dt = x.dtype
-    b, lq, d = x.shape
+    d, k = x.shape[-1], o.shape[-1]
+    m = x.numel() // d
     _cuda.check(x, "x", dtype=dt)
-    _cuda.check(o, "o", dtype=dt, shape=x.shape)
+    _cuda.check(o, "o", dtype=dt, shape=(*x.shape[:-1], k))
     wo_, bo_, g, be = (wo.to(dt).contiguous(), bo.float().contiguous(),
                        scale.float().contiguous(), bias.float().contiguous())
-    s2 = torch.empty((b * lq, d), dtype=torch.float32, device=x.device)
-    _gemm(o.reshape(b * lq, d), wo_, bo_, s2, res=x.reshape(b * lq, d))
+    _cuda.check(wo_, "wo", shape=(k, d))
+    s2 = torch.empty((m, d), dtype=torch.float32, device=x.device)
+    _gemm(o.reshape(m, k), wo_, bo_, s2, res=x.reshape(m, d))
     out = torch.empty_like(x)
     _cuda.launch(KERNEL_TILED, "t2l_mha_tiled_ln", _cuda.ptr(s2), _cuda.ptr(g),
-                 _cuda.ptr(be), _cuda.ptr(out), b * lq, d, ctypes.c_float(eps),
+                 _cuda.ptr(be), _cuda.ptr(out), m, d, ctypes.c_float(eps),
                  _cuda.DTYPE_CODE[dt], count=False)
     return out
