@@ -25,7 +25,10 @@ toolkit. Phases, each printing one JSON line:
    block, and fused_ms, the fused kernel at that shape, on its line);
    then the training SA level (sa_train_fwd, sa_train_bwd)
    against its plain forward and hand-derived plain backward at the coarse
-   train step's three levels (896 clouds, K=32), f32 and bf16;
+   train step's three levels (896 clouds, K=32), f32 and bf16, each
+   backward case line with its passes alone (stages: ms of stats / mid /
+   in, reduces included) and per pass its tiles (count, mean filled rows),
+   blocks_per_sm, tile rows and whether W2 sits in shared memory;
 4. serve: the cached serve (Localizer.localize) at the full width of the
    default Config (bf16) over a 64-cell synthetic map with seeded random
    weights; batches of 1, 8 and 64 queries; every serve kernel's launch
@@ -204,7 +207,8 @@ class KernelRecord:
         return "operations" if self.op_s >= self.byte_s else "bytes"
 
     def add(self, name, dtype, pairs, kernel_fn, plain_fn, work, exact=False,
-            norm_floor=None, counts=None, limit_fn=None, library_fn=None, yardsticks=None):
+            norm_floor=None, counts=None, limit_fn=None, library_fn=None, yardsticks=None,
+            info=None):
         """pairs: [(kernel output, plain output)], each within TOLERANCE x
         max|plain| (0 when exact); work: (FLOPs, bytes, dtype of the products)
         of the case. With `norm_floor` the check is instead ||kernel - plain||
@@ -214,8 +218,8 @@ class KernelRecord:
         `library_fn`: one PyTorch call computing the same function, timed
         beside the kernel; `yardsticks`: {key: fn} timed onto the case line
         only (stock_ms: the port's stock-ops path for the same function;
-        fused_ms: a kernel that the route no longer takes there). Returns
-        the case's (ms, plain_ms)."""
+        fused_ms: a kernel that the route no longer takes there); `info`:
+        further keys of the case line. Returns the case's (ms, plain_ms)."""
         err, ok, limit, rels, ulps = 0.0, True, 0.0, [], None
         for got, want in pairs:
             got, want = got.float(), want.float()
@@ -244,7 +248,7 @@ class KernelRecord:
         emit({"phase": "kernel", "case": name, "dtype": str(dtype).split(".")[-1],
               "max_abs_err": err, "bound": limit, "ms": ms, "plain_ms": plain_ms,
               "bound_ms": bound_ms, "bound_by": "operations" if op_s >= byte_s else "bytes",
-              "library_ms": library_ms, **extra, "ok": ok,
+              "library_ms": library_ms, **extra, **(info or {}), "ok": ok,
               **({"rel_l2_errs": rels} if norm_floor is not None else {}),
               **({"max_ulps": ulps} if ulps is not None else {})})
         check(ok, f"{name} {dtype}: error {err} above {limit}")
@@ -552,6 +556,30 @@ def phase_kernels(dev) -> dict:
 SA_TRAIN_GRAD_FLOOR = 1e-3
 
 
+def _bwd_info(level, aux1, aux2, n1, dout) -> dict:
+    """The training backward's passes alone on the card: `stages`, ms of
+    stats / mid / in with their reduce launches (median of 10 by CUDA
+    events, each pass fed what the one before it gives), and per pass
+    `tiles` (tiles, mean filled rows), `blocks_per_sm` (what
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor gives the kernel), tile
+    `rows` and `resident` (W2 held in shared memory)."""
+    acc2 = level.bwd_stats(aux1, aux2, dout)
+    aux2b = aux2.clone()
+    aux2b[4], aux2b[5] = acc2[0] / n1, acc2[1] / n1
+    acc1 = level.bwd_mid(aux1, aux2b, dout)[0]
+    aux1b = aux1.clone()
+    aux1b[4], aux1b[5] = acc1[0] / n1, acc1[1] / n1
+    stages = {"stats": cuda_ms(lambda: level.bwd_stats(aux1, aux2, dout)),
+              "mid": cuda_ms(lambda: level.bwd_mid(aux1, aux2b, dout)),
+              "in": cuda_ms(lambda: level.bwd_in(aux1b, aux2b, dout))}
+    passes = (1, 2, 3)
+    return {"stages": stages,
+            "tiles": {str(p): level.bwd_tiles(p) for p in passes},
+            "blocks_per_sm": {str(p): level.bwd_plan(p)[3] for p in passes},
+            "rows": {str(p): level.bwd_plan(p)[0] for p in passes},
+            "resident": {str(p): level.bwd_plan(p)[1] for p in passes}}
+
+
 def phase_sa_train_kernels(dev) -> dict:
     """sa_train_fwd / sa_train_bwd against the plain forward and the plain
     hand-derived backward at the coarse train step's three levels: 896
@@ -615,7 +643,8 @@ def phase_sa_train_kernels(dev) -> dict:
                 (4.0 * edges * h1 * h2,
                  io_bytes + n * s * h2 * 4
                  + (n * p * h1 + n * s * h1 + h1 * h2 + 2 * h1 + 3 * h2) * 4, dt),
-                norm_floor=floor, counts=dt == torch.float32)
+                norm_floor=floor, counts=dt == torch.float32,
+                info=_bwd_info(level, aux1, aux2, n1, dout))
             _sa_train_e_cases(records, tag, dt, edges, io_bytes,
                               (u, sv, w2, b2, g1, be1, g2, be2, idx, maskm, maskf), dout)
         pos = ctr
@@ -662,7 +691,7 @@ def _sa_train_e_cases(records, tag, dt, edges, io_bytes, args, dout):
         (4.0 * edges * h1 * h2,
          io_bytes + n * s * h2 * 4
          + (n * u.shape[1] * h1 + n * s * h1 + h1 * h2 + 2 * h1 + 3 * h2) * 4, dt),
-        norm_floor=floor, counts=dt == bf16)
+        norm_floor=floor, counts=dt == bf16, info=_bwd_info(level, aux1, aux2, n1, dout))
 
 
 def _ulp_limit(dtype):

@@ -14,7 +14,11 @@ For each phase it prints one JSON line, per step, with the fields of
 scripts/profile_torch_serve.py (wall_ms, wall_ms_profiled, device_ms,
 busy_ms, idle_share, device_ops, top) and sa_train_ms / sa_train_share: the
 device time of the training SA kernels (csrc/sa_train_fwd.cu,
-csrc/sa_train_bwd.cu) and its share of device_ms. Batches are gathered on
+csrc/sa_train_bwd.cu) and its share of device_ms, and sa_train_bwd_ms: that
+of the backward passes alone (their reduce launches not counted), and
+sa_levels: per training SA level of one more step, its shape and its valid
+edges (maskm) and statistics edges (maskf), the work the sa_train kernels
+scale with. Batches are gathered on
 the host before the timing, as train_coarse times its steps. The
 profiler's full tables go to --out. It imports nothing of JAX.
 """
@@ -35,18 +39,40 @@ import profile_torch_serve as prof_lib
 
 REPO = prof_lib.REPO
 SEED = 0
-# The kernels of csrc/sa_train_fwd.cu and csrc/sa_train_bwd.cu.
-SA_TRAIN_KERNELS = ("sa_stats_kernel", "sa_out_kernel", "sa_reduce_kernel",
-                    "sa_bwd_stats_kernel", "sa_bwd_mid_kernel", "sa_bwd_in_kernel")
+# The kernels of csrc/sa_train_fwd.cu and csrc/sa_train_bwd.cu ("sa_bwd"
+# names every backward pass's kernel, of this design and the one before).
+SA_TRAIN_KERNELS = ("sa_stats_kernel", "sa_out_kernel", "sa_reduce_kernel", "sa_bwd")
 
 
-def sa_train_ms(prof, per: int) -> float:
-    """Device milliseconds of the training SA kernels, divided by `per`."""
+def sa_train_ms(prof, per: int, names=SA_TRAIN_KERNELS) -> float:
+    """Device milliseconds of the kernels whose names hold one of `names`,
+    divided by `per`."""
     total_us = 0.0
     for evt in prof.events():
-        if evt.device_type == DeviceType.CUDA and any(k in evt.name for k in SA_TRAIN_KERNELS):
+        if evt.device_type == DeviceType.CUDA and any(k in evt.name for k in names):
             total_us += evt.time_range.end - evt.time_range.start
     return total_us / 1e3 / per
+
+
+def level_edges(train_step) -> list:
+    """Shape and edge counts of every training SA level that one step of
+    `train_step` builds on the card (ops/cuda_sa_train.Level)."""
+    from text2loc_tpu_torch.ops import cuda_sa_train
+
+    seen, init = [], cuda_sa_train.Level.__init__
+
+    def record(self, u, sv, w2, idx, maskm, maskf, *rest, **kw):
+        init(self, u, sv, w2, idx, maskm, maskf, *rest, **kw)
+        seen.append({"clouds": self.n, "P": self.p, "S": self.s, "K": self.k,
+                     "H1": self.h1, "H2": self.h2, "edges": int(maskm.sum()),
+                     "edges_f": int(maskf.sum())})
+
+    cuda_sa_train.Level.__init__ = record
+    try:
+        train_step()
+    finally:
+        cuda_sa_train.Level.__init__ = init
+    return seen
 
 
 def main() -> int:
@@ -95,17 +121,19 @@ def main() -> int:
         train_step()                              # warm-up: allocator, cuBLAS handles
         wall = prof_lib.timed(train_step, args.reps)
         prof, wall_prof = prof_lib.profiled(train_step, args.reps)
-        phases.append((kind, wall, wall_prof, prof))
+        phases.append((kind, wall, wall_prof, prof, level_edges(train_step)))
 
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:
-        for name, wall, wall_prof, prof in phases:
+        for name, wall, wall_prof, prof, levels in phases:
             s = prof_lib.device_summary(prof, args.reps)
             sa = sa_train_ms(prof, args.reps)
             print(json.dumps({"phase": name, "per": "step", "wall_ms": wall,
                               "wall_ms_profiled": wall_prof,
                               "idle_share": 1.0 - s["busy_ms"] / wall,
-                              "sa_train_ms": sa, "sa_train_share": sa / s["device_ms"], **s}),
+                              "sa_train_ms": sa, "sa_train_share": sa / s["device_ms"],
+                              "sa_train_bwd_ms": sa_train_ms(prof, args.reps, ("sa_bwd",)),
+                              "sa_levels": levels, **s}),
                   flush=True)
             f.write(f"== {name} ({args.reps} steps)\n")
             f.write(prof.key_averages().table(sort_by="self_device_time_total",

@@ -49,7 +49,8 @@ from text2loc_tpu_torch.ops.pointconv import (
     set_abstraction,
     set_abstraction_plain,
 )
-from text2loc_tpu_torch.ops.sa_train import sa_train, sa_train_backward_plain, sa_train_plain
+from text2loc_tpu_torch.ops.sa_train import (backward_cuda, forward_cuda, sa_train,
+                                             sa_train_backward_plain, sa_train_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -368,13 +369,20 @@ def _sa_train_inputs(rng, dev, n, p, s, k, h1, h2):
     idx = torch.from_numpy(rng.integers(0, p, (n, s, k)).astype(np.int32)).to(dev)
     maskm = torch.from_numpy(rng.random((n, s, k)) < 0.7).to(dev)
     maskm[0, 0] = False                               # a row without valid slots
+    maskm[1 % n] = False                              # a cloud without a valid edge
     maskf = maskm.clone()
     maskf[-1] = False                                 # an object out of the statistics
     return (u, sv, w2, *vecs, idx, maskm, maskf)
 
 
+# (n, p, s, k, h1, h2): the coarse step's three level widths; K < 32 with
+# H1 > H2; K = 64 (one center fills a tile); more clouds than the
+# backward's persistent grid has blocks; widths that are not powers of two.
+# Every tile but a level's last can end ragged (whole centers only).
 SA_TRAIN_SHAPES = [(20, 256, 128, 32, 32, 64), (9, 128, 64, 32, 128, 128),
-                   (7, 64, 32, 32, 256, 256), (5, 40, 12, 5, 64, 32)]
+                   (7, 64, 32, 32, 256, 256), (5, 40, 12, 5, 64, 32),
+                   (3, 96, 48, 64, 64, 128), (600, 32, 16, 16, 32, 32),
+                   (4, 64, 24, 16, 96, 160)]
 
 
 def _check_sa_train(dev, dtype, n, p, s, k, h1, h2, cache_dtype=None):
@@ -427,32 +435,64 @@ def test_sa_train_bf16_cache_kernels(dev, dtype, n, p, s, k, h1, h2):
     _check_sa_train(dev, dtype, n, p, s, k, h1, h2, cache_dtype=torch.bfloat16)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows,resident",
+                         [(128, 1), (128, 0), (64, 1), (64, 0), (32, 1), (32, 0)])
+@pytest.mark.parametrize("cache_dtype", [None, torch.bfloat16])
+def test_sa_train_bwd_layouts(dev, dtype, rows, resident, cache_dtype):
+    """Each backward tile layout (tile height, W2 resident in shared memory
+    or streamed through the ring) against the plain backward, the forward's
+    aux rows given; a pass that the layout does not fit takes the usual
+    choice."""
+    rng = np.random.default_rng(5)
+    n, p, s, k, h1, h2 = 9, 128, 64, 32, 128, 128
+    u, sv, w2, b2, g1, be1, g2, be2, idx, maskm, maskf = _sa_train_inputs(rng, dev, n, p, s,
+                                                                          k, h1, h2)
+    dout = _randn(rng, (n, s, h2), dev)
+    level = cuda_sa_train.Level(u, sv, w2, idx, maskm, maskf, dtype, cache_dtype)
+    level.bwd_layouts = ((rows, resident),)
+    _, stats, aux1, aux2 = forward_cuda(level, b2, g1, be1, g2, be2, maskf, 1e-5)
+    got = backward_cuda(level, aux1, aux2, stats[4], dout)
+    want = sa_train_backward_plain(u, sv, w2, idx, maskm, maskf, aux1, aux2, stats[4], dout,
+                                   dtype, cache_dtype)
+    assert any(level.bwd_plan(pid)[:2] == (rows, resident) for pid in (1, 2, 3))
+    floor = 1e-3 * max(w.norm().item() for w in want)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        rel = ((g - w).norm() / max(w.norm().item(), floor)).item()
+        assert rel <= REL_L2[dtype], rel
+
+
 def test_sa_train_kernels_are_deterministic(dev):
+    """Two runs are bit-equal, in f32 and bf16, with more clouds than the
+    backward's persistent grid has blocks (each block walks several)."""
     rng = np.random.default_rng(6)
-    args = _sa_train_inputs(rng, dev, 30, 128, 64, 32, 128, 128)
-    dout = _randn(rng, (30, 64, 128), dev)
-    runs = []
-    for _ in range(2):
-        diff = [a.clone().requires_grad_() for a in args[:8]]
-        out, stats = sa_train(*diff, *args[8:])
-        (out * dout).sum().backward()
-        runs.append([out, *stats] + [d.grad for d in diff])
-    for a, b in zip(*runs):
-        assert torch.equal(a, b)
+    args = _sa_train_inputs(rng, dev, 300, 128, 64, 32, 128, 128)
+    dout = _randn(rng, (300, 64, 128), dev)
+    for dtype in DTYPES:
+        runs = []
+        for _ in range(2):
+            diff = [a.clone().requires_grad_() for a in args[:8]]
+            out, stats = sa_train(*diff, *args[8:], compute_dtype=dtype)
+            (out * dout).sum().backward()
+            runs.append([out, *stats] + [d.grad for d in diff])
+        for a, b in zip(*runs):
+            assert torch.equal(a, b)
 
 
 def test_sa_train_bf16_cache_is_deterministic_and_rounds_e(dev):
     rng = np.random.default_rng(7)
-    args = _sa_train_inputs(rng, dev, 12, 128, 64, 32, 128, 128)
-    runs = []
-    for cache in (torch.bfloat16, torch.bfloat16, None):
-        diff = [a.clone().requires_grad_() for a in args[:8]]
-        out, _ = sa_train(*diff, *args[8:], cache_dtype=cache)
-        out.square().sum().backward()
-        runs.append([out] + [d.grad for d in diff])
-    for a, b in zip(runs[0], runs[1]):
-        assert torch.equal(a, b)
-    assert not torch.equal(runs[0][0], runs[2][0])
+    args = _sa_train_inputs(rng, dev, 300, 128, 64, 32, 128, 128)
+    for dtype in DTYPES:
+        runs = []
+        for cache in (torch.bfloat16, torch.bfloat16, None):
+            diff = [a.clone().requires_grad_() for a in args[:8]]
+            out, _ = sa_train(*diff, *args[8:], compute_dtype=dtype, cache_dtype=cache)
+            out.square().sum().backward()
+            runs.append([out] + [d.grad for d in diff])
+        for a, b in zip(runs[0], runs[1]):
+            assert torch.equal(a, b)
+        assert not torch.equal(runs[0][0], runs[2][0])
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -14,46 +14,84 @@
 //   du[n, idx] += de,  dsv = -sum_k de,  dW2 = sum h1^T dz,  db2 = sum dz
 //   dgamma = B, dbeta = A
 // The correction sums run over ALL edges; only maskf edges receive them.
+// Pass 1 sums A2/B2 (z), pass 2 A1/B1, db2 and dW2 (z, dh1, dW2), pass 3
+// forms de and scatters it (z, dh1).
 //
-// What bounds it on the H100: the products, 2 * E * H1 * H2 FLOPs for each
-// of z (recomputed by all three passes), dh1 (two passes) and dW2, on the
-// FP32 pipes; bytes are a few hundred MB at the coarse step's shapes.
-// What the design does about it: as the forward, every edge quantity lives
-// only in shared memory and registers. Pass 1 sums A2/B2, pass 2 sums
-// A1/B1, db2 and dW2 (each block owns a [H1, H2] partial in device memory,
-// read-modified-written only by its own threads, so no atomics), pass 3
-// scatters de into the block's cloud's du held in shared memory: thread c
-// walks the tile's edges in index order, so the scatter is deterministic.
-// Partials are summed by t2l_sa_train_reduce (sa_train_fwd.cu) in a fixed
-// order.
+// What bounds it on the H100: the six products of 2 * E * H1 * H2 FLOPs
+// each (z in every pass, dh1 in two, dW2 in one) over the valid edges E;
+// the bytes (u, sv, indices, masks, dout, du, dsv: about 0.1 GB at the
+// coarse step's shapes) are far below that on the tensor cores. The design
+// before this one ran the products on the FP32 pipes with W2 read from L2
+// by every warp on every k-step, a read-modify-write of the block's whole
+// [H1, H2] dW2 partial after every tile, 8 warps per SM and a du scatter on
+// H1 threads; its time followed the tile count, not the edges.
+// What this design does about it (kernels in sa_train_bwd.cuh):
+// - the products run on mma.sync: bf16 m16n8k16 on the bf16 operands, f32
+//   as 3xTF32 (hi/lo split, three m16n8k8 TF32 products, f32 sums; no f32
+//   operand is rounded to TF32 alone);
+// - W2 and W2^T sit in shared memory for the whole kernel where they fit,
+//   else stream in 32-row chunks through a two-stage cp.async ring;
+// - a persistent grid (the blocks one wave of SMs holds) accumulates dW2
+//   in the mma fragments over all of a block's tiles and writes it once;
+//   at widths above 128 (256 x 256 would take the whole register file) the
+//   fragments are added into the block's partial after each tile, in
+//   chunks of 4 row tiles;
+// - the kernels are instantiated per width class, so a narrow level holds
+//   fewer accumulators, runs 2 blocks per SM and takes 128-row tiles;
+// - the neighbour max takes one thread per (center, column) over the
+//   tile's values in shared memory; the column sums reduce across a
+//   warp's lanes (a column lies in one warp); e is recomputed from u and
+//   sv where dh1's ReLU needs it;
+// - pass 3 spreads the du scatter over all 256 threads, each (point,
+//   column) owned by one thread that adds the tile's rows in row order.
+// Per-block partials are summed by t2l_sa_train_reduce (sa_train_fwd.cu) in
+// block order: two runs give bit-equal results, and no float atomics are
+// used. Measured on the H100 (PERF.md §5), the products no longer take most
+// of the time: the tile loads, the neighbour max and the e epilogue,
+// latency-bound between barriers at one block per SM for the wide levels,
+// and at H=256 the per-tile dW2 read-modify-write cost more.
 #include "sa_train_bwd.cuh"
 
 extern "C" {
 
-size_t t2l_sa_train_smem(int with_du, int p, int k, int h1, int h2, int rpt);
+// Dynamic shared memory of one block of a backward pass (1-3) at tile
+// height rows, with W2 resident (1) or streamed (0); dtype 0 f32, 1 bf16.
+// The largest size_t where the level's kernels take no such tile height.
+size_t t2l_sa_train_bwd_smem(int pass, int p, int h1, int h2, int rows, int resident,
+                             int dtype) {
+  if (rows > t2l::sab::max_rows(h1, h2)) return ~static_cast<size_t>(0);  // no such tile
+  return t2l::sab::bwd_layout(pass, p, h1, h2, rows, resident, dtype == t2l::kBF16 ? 2 : 4,
+                              nullptr, nullptr);
+}
 
 // pass 1: out0 [blocks, 2, h2] partial (sum dy2, sum dy2 * yhat2)
 // pass 2: out0 [blocks, 2, h1] partial (sum dy1, sum dy1 * yhat1),
 //         out1 [blocks, h1, h2] partial dW2, out2 [blocks, h2] partial db2
 // pass 3: out0 du [n, p, h1] f32, out1 dsv [n, s, h1] f32
-// The inputs as t2l_sa_train_fwd's, plus w2t [h2, h1] in the compute dtype
-// and dout [n, s, h2] f32; aux rows 4-5 hold the correction sums / n of
-// the passes before.
+// u [n,p,h1] f32, sv [n,s,h1] f32, idx [n,s,k] int32, mm/mf [n,s,k] bool,
+// w2 [h1,h2] and w2t [h2,h1] in the compute dtype, aux1 [8,h1], aux2
+// [8,h2] f32 (rows 4-5: the correction sums / n of the passes before),
+// dout [n,s,h2] f32. rows: the tile height (a multiple of 16 in [k, 128],
+// at most 64 where a width exceeds 128);
+// resident: W2 held in shared memory (else streamed).
 int t2l_sa_train_bwd(int pass, const void* u, const void* sv, const void* idx,
                      const void* mm, const void* mf, const void* w2, const void* w2t,
                      const void* aux1, const void* aux2, const void* dout, void* out0,
                      void* out1, void* out2, int n, int p, int s, int k, int h1, int h2,
-                     int rpt, int blocks, int dtype, void* stream) {
-  Args a{static_cast<const float*>(u), static_cast<const float*>(sv),
-         static_cast<const int*>(idx), static_cast<const uint8_t*>(mm),
-         static_cast<const uint8_t*>(mf), w2, w2t,
-         static_cast<const float*>(aux1), static_cast<const float*>(aux2),
-         static_cast<const float*>(dout), n, p, s, k, h1, h2, rpt};
-  const size_t smem = t2l_sa_train_smem(pass == 3, p, k, h1, h2, rpt);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == t2l::kBF16)
-    return backward_pass<__nv_bfloat16, false>(pass, a, out0, out1, out2, blocks, smem, st);
-  return backward_pass<float, false>(pass, a, out0, out1, out2, blocks, smem, st);
+                     int rows, int resident, int blocks, int dtype, void* stream) {
+  return t2l::sab::entry<false>(pass, u, sv, idx, mm, mf, w2, w2t, aux1, aux2, dout, out0,
+                                out1, out2, n, p, s, k, h1, h2, rows, resident, blocks,
+                                dtype, stream, nullptr);
 }
+
+// Blocks of the pass's kernel that one SM holds at once -> *out.
+int t2l_sa_train_bwd_occupancy(int pass, int p, int k, int h1, int h2, int rows,
+                               int resident, int dtype, void* out) {
+  return t2l::sab::entry<false>(pass, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                                nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                                nullptr, 0, p, 0, k, h1, h2, rows, resident, 0, dtype,
+                                nullptr, static_cast<int*>(out));
+}
+
 
 }  // extern "C"

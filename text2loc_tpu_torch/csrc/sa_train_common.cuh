@@ -1,6 +1,7 @@
-// Tile machinery shared by the training set-abstraction kernels
-// (sa_train_fwd.cu, sa_train_bwd.cu): one SA level's edge pipeline,
-// recomputed per tile of edges in shared memory.
+// Tile machinery of the training set-abstraction forward (sa_train_fwd.cu,
+// sa_train_e_fwd.cu): one SA level's edge pipeline, recomputed per tile of
+// edges in shared memory. (The backward has its own tensor-core tiles in
+// sa_train_bwd.cuh.)
 //
 // Edge pipeline (text2loc_tpu/ops/pallas_sa_train.py, module docstring):
 //   e[r]  = round(u[n, idx[r]]) - sv[n, s(r)]           [H1]
@@ -239,108 +240,6 @@ __device__ __forceinline__ void tile_pool(const Args& a, const Rows& rw, const C
     if (any_s != nullptr) any_s[q] = any;
   }
   __syncthreads();
-}
-
-// Forward through h2 and the neighbour max, then the max-backward: on
-// return z holds z and dy2 holds dout * eq / cnt * [y2 > 0] for the
-// thread's rows and columns (0 on padding rows). y2 = fmaf(z, a2, c2)
-// everywhere, so the filled values, the max and the ReLU mask agree.
-template <typename T, int CW>
-__device__ __forceinline__ void tile_dy2(const Args& a, int n, const Rows& rw,
-                                         const Centers& cs, const float* hs, float* ys,
-                                         float* mx_s, float* cnt_s, float (&z)[kMaxRpt][CW],
-                                         float (&dy2)[kMaxRpt][CW]) {
-  const int g = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int cw = a.h2 / 32;
-  tile_z<T>(a, hs, z);
-  const float* a2 = a.aux2 + kA * a.h2;
-  const float* c2 = a.aux2 + kC * a.h2;
-#pragma unroll
-  for (int i = 0; i < kMaxRpt; ++i)
-#pragma unroll
-    for (int j = 0; j < CW; ++j)
-      if (i < a.rpt && j < cw) {
-        const int r = g * a.rpt + i, c = lane + 32 * j;
-        const float y = fmaf(z[i][j], a2[c], c2[c]);
-        ys[(size_t)r * a.h2 + c] = rw.mm[r] > 0.f ? fmaxf(y, 0.f) : kNeg;
-      }
-  __syncthreads();
-  tile_pool(a, rw, cs, ys, mx_s, cnt_s, nullptr);
-#pragma unroll
-  for (int i = 0; i < kMaxRpt; ++i)
-#pragma unroll
-    for (int j = 0; j < CW; ++j)
-      if (i < a.rpt && j < cw) {
-        const int r = g * a.rpt + i, c = lane + 32 * j;
-        float d = 0.f;
-        if (rw.ok[r]) {
-          const int t = rw.ctr[r];
-          const float y = fmaf(z[i][j], a2[c], c2[c]);
-          const float eq = rw.mm[r] > 0.f && ys[(size_t)r * a.h2 + c] >= mx_s[t * a.h2 + c]
-                               ? 1.f : 0.f;
-          const float dh2 =
-              a.dout[((size_t)n * a.s + cs.sid[t]) * a.h2 + c] * eq / cnt_s[t * a.h2 + c];
-          d = y > 0.f ? dh2 : 0.f;
-        }
-        dy2[i][j] = d;
-      }
-  __syncthreads();  // ys is free again
-}
-
-// dz = a2 * (dy2 - mf * (A2/n + yhat2 * B2/n)), yhat2 = (z - m2) * inv2, in
-// place of dy2; db2 (per lane column) accumulates dz. The
-// compute-dtype rounding of dz goes to ys [rows][h2] (the operand of
-// dz @ W2^T and of h1^T dz), 0 on padding rows.
-template <typename T, int CW>
-__device__ __forceinline__ void tile_dz(const Args& a, const Rows& rw,
-                                        const float (&z)[kMaxRpt][CW],
-                                        float (&dz)[kMaxRpt][CW], float* ys, float (&db2)[CW]) {
-  const int g = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int cw = a.h2 / 32;
-  const float* x2 = a.aux2;
-#pragma unroll
-  for (int i = 0; i < kMaxRpt; ++i)
-#pragma unroll
-    for (int j = 0; j < CW; ++j)
-      if (i < a.rpt && j < cw) {
-        const int r = g * a.rpt + i, c = lane + 32 * j;
-        float v = 0.f;
-        if (rw.ok[r]) {
-          const float yhat = (z[i][j] - x2[kMean * a.h2 + c]) * x2[kInv * a.h2 + c];
-          const float corr = x2[kCorrA * a.h2 + c] + yhat * x2[kCorrB * a.h2 + c];
-          v = x2[kA * a.h2 + c] * (dz[i][j] - rw.mf[r] * corr);
-          db2[j] += v;
-        }
-        dz[i][j] = v;
-        ys[(size_t)r * a.h2 + c] = round_to<T>(v);
-      }
-  __syncthreads();
-}
-
-// dh1 = round(dz) @ round(W2)^T, then dy1 = dh1 * [e * a1 + c1 > 0] for the
-// thread's rows and H1 columns (0 on padding rows).
-template <typename T, int CW>
-__device__ __forceinline__ void tile_dy1(const Args& a, const Rows& rw, const float* es,
-                                         const float* ys, float (&dy1)[kMaxRpt][CW]) {
-  const int g = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int cw = a.h1 / 32;
-  tile_gemm(dy1, ys, a.h2, a.h2, static_cast<const T*>(a.w2t), a.h1, g * a.rpt, a.rpt, cw);
-  const float* a1 = a.aux1 + kA * a.h1;
-  const float* c1 = a.aux1 + kC * a.h1;
-#pragma unroll
-  for (int i = 0; i < kMaxRpt; ++i)
-#pragma unroll
-    for (int j = 0; j < CW; ++j)
-      if (i < a.rpt && j < cw) {
-        const int r = g * a.rpt + i, c = lane + 32 * j;
-        const float e = es[(size_t)r * a.h1 + c];
-        if (!(rw.ok[r] && fmaf(e, a1[c], c1[c]) > 0.f)) dy1[i][j] = 0.f;
-      }
-}
-
-// yhat1 = (e - m1) * inv1 of one element.
-__device__ __forceinline__ float yhat1_of(const Args& a, const float* es, int r, int c) {
-  return (es[(size_t)r * a.h1 + c] - a.aux1[kMean * a.h1 + c]) * a.aux1[kInv * a.h1 + c];
 }
 
 // Write the block's per-column sums (each lane's columns l + 32 j, summed

@@ -134,7 +134,9 @@ _SIGNATURES = {
     "t2l_ffn_tiled_gemm_relu": ([_P] * 4 + [_I] * 4 + [_P], _I),
     "t2l_sa_train_smem": ([_I] * 6, ctypes.c_size_t),
     **{f"t2l_sa_train{e}_fwd": ([_I] + [_P] * 9 + [_I] * 9 + [_P], _I) for e in ("", "_e")},
-    **{f"t2l_sa_train{e}_bwd": ([_I] + [_P] * 13 + [_I] * 9 + [_P], _I) for e in ("", "_e")},
+    "t2l_sa_train_bwd_smem": ([_I] * 7, ctypes.c_size_t),
+    **{f"t2l_sa_train{e}_bwd": ([_I] + [_P] * 13 + [_I] * 10 + [_P], _I) for e in ("", "_e")},
+    **{f"t2l_sa_train{e}_bwd_occupancy": ([_I] * 8 + [_P], _I) for e in ("", "_e")},
     "t2l_sa_train_reduce": ([_P, _I, _I, _P, _P], _I),
     "t2l_add_ln": ([_P] * 5 + [_I, _I, _F, _I, _P], _I),
     "t2l_gather_rows": ([_P] * 3 + [_I] * 5 + [_P], _I),

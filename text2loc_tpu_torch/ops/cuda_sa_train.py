@@ -7,6 +7,9 @@ JAX package."""
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from text2loc_tpu_torch.ops import _cuda
@@ -35,6 +38,44 @@ MAX_WIDTH = 256    # 8 columns per lane of a warp
 MAX_K = 64         # a center's K edges fit one tile of <= 64 rows
 _WARPS = 8
 _BLOCKS_PER_SM = 2
+# Backward tile layouts (tile rows, W2 resident in shared memory): a pass
+# takes, of those that hold a center's K edges and fit a block's shared
+# memory, the one with the most rows in flight on an SM (tile rows x blocks
+# per SM), then the most blocks, then the first in this order
+# (csrc/sa_train_bwd.cuh).
+BWD_LAYOUTS = ((128, 1), (128, 0), (64, 1), (64, 0), (32, 1), (32, 0), (16, 1), (16, 0))
+BWD_MAX_CENTERS = 16  # centers of a backward tile (kMaxCenters)
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_plan(sym: str, pass_id: int, p: int, k: int, h1: int, h2: int, dtype_code: int,
+              layouts: tuple):
+    """(tile rows, resident, dynamic shared memory, blocks per SM) of one
+    backward pass's kernel (`sym`: the C entry of the instantiation), of the
+    given layouts, else of BWD_LAYOUTS where none of them fits."""
+    lib = _cuda.library()
+    best = None
+    for rows, resident in layouts:
+        if rows < k:
+            continue
+        smem = int(lib.t2l_sa_train_bwd_smem(pass_id, p, h1, h2, rows, resident, dtype_code))
+        if smem > _cuda.SMEM_LIMIT:
+            continue
+        occ = ctypes.c_int(0)
+        err = getattr(lib, sym + "_occupancy")(pass_id, p, k, h1, h2, rows, resident,
+                                               dtype_code, ctypes.byref(occ))
+        if err:
+            raise RuntimeError(f"{sym} occupancy query failed: "
+                               f"{lib.t2l_error_string(err).decode()} ({err})")
+        if occ.value > 0 and (best is None or (rows * occ.value, occ.value)
+                              > (best[0] * best[3], best[3])):
+            best = (rows, resident, smem, occ.value)
+    if best is not None:
+        return best
+    if layouts != BWD_LAYOUTS:
+        return _bwd_plan(sym, pass_id, p, k, h1, h2, dtype_code, BWD_LAYOUTS)
+    raise ValueError(f"SA level P={p} K={k} H1={h1} H2={h2}: no backward tile layout fits "
+                     f"a block's shared memory ({_cuda.SMEM_LIMIT} bytes)")
 
 
 class Level:
@@ -79,24 +120,58 @@ class Level:
             self.kernel_fwd, self.kernel_bwd = KERNEL_E_FWD, KERNEL_E_BWD
             self.sym_fwd, self.sym_bwd = "t2l_sa_train_e_fwd", "t2l_sa_train_e_bwd"
         sms = torch.cuda.get_device_properties(u.device).multi_processor_count
+        self.sms = sms
         self.blocks = max(1, min(n, _BLOCKS_PER_SM * sms))
+        self.bwd_layouts = BWD_LAYOUTS
 
-    def rpt(self, with_du: bool) -> int:
-        """Rows per thread of a tile (tile height 8 x rpt): the largest that
-        holds a center's K edges and fits the block's shared memory."""
+    def rpt(self) -> int:
+        """Rows per thread of a forward tile (tile height 8 x rpt): the
+        largest that holds a center's K edges and fits the block's shared
+        memory."""
         lib = _cuda.library()
         for rpt in (8, 4, 2, 1):
             if _WARPS * rpt < self.k:
                 break
-            if lib.t2l_sa_train_smem(int(with_du), self.p, self.k, self.h1, self.h2,
+            if lib.t2l_sa_train_smem(0, self.p, self.k, self.h1, self.h2,
                                      rpt) <= _cuda.SMEM_LIMIT:
                 return rpt
         raise ValueError(f"SA level P={self.p} K={self.k} H1={self.h1} H2={self.h2} "
                          "does not fit a block's shared memory")
 
-    def _dims(self, with_du: bool, blocks: int):
-        return (self.n, self.p, self.s, self.k, self.h1, self.h2, self.rpt(with_du),
-                blocks, self.dtype_code)
+    def bwd_plan(self, pass_id: int):
+        """(tile rows, W2 resident, shared memory bytes, blocks per SM) of
+        the backward pass `pass_id` (1 stats, 2 mid, 3 in)."""
+        return _bwd_plan(self.sym_bwd, pass_id, self.p, self.k, self.h1, self.h2,
+                         self.dtype_code, tuple(self.bwd_layouts))
+
+    def bwd_blocks(self, pass_id: int) -> int:
+        """The backward pass's persistent grid: the blocks one wave of SMs
+        holds, at most one per cloud."""
+        return max(1, min(self.n, self.sms * self.bwd_plan(pass_id)[3]))
+
+    def bwd_tiles(self, pass_id: int):
+        """(tiles, mean filled rows per tile) of the backward pass: each
+        cloud's centers packed in order into tiles of its height and at most
+        BWD_MAX_CENTERS centers, an edge kept where it is valid in either
+        mask, as the kernels pack them (for the reports; not on the main
+        path)."""
+        rows = self.bwd_plan(pass_id)[0]
+        kept = (self.maskm | self.maskf).sum(-1)               # [N, S]
+        used = torch.zeros(self.n, dtype=kept.dtype, device=kept.device)
+        taken = torch.zeros_like(used)
+        tiles = torch.full_like(used, 1 if self.s else 0)
+        for j in range(self.s):
+            c = kept[:, j]
+            new = (used + c > rows) | (taken == BWD_MAX_CENTERS)
+            tiles += new.to(tiles.dtype)
+            used = torch.where(new, c, used + c)
+            taken = torch.where(new, torch.ones_like(taken), taken + 1)
+        total = int(tiles.sum())
+        return total, float(kept.sum()) / max(total, 1)
+
+    def _dims(self, blocks: int):
+        return (self.n, self.p, self.s, self.k, self.h1, self.h2, self.rpt(), blocks,
+                self.dtype_code)
 
     def _empty(self, *shape):
         return torch.empty(shape, dtype=torch.float32, device=self.u.device)
@@ -105,14 +180,16 @@ class Level:
         _cuda.launch(self.kernel_fwd, self.sym_fwd, pass_id,
                      *(_cuda.ptr(t) for t in (self.u, self.sv, self.idx, self.maskm,
                                              self.maskf, self.w2, aux1, aux2, out)),
-                     *self._dims(False, blocks))
+                     *self._dims(blocks))
 
-    def _bwd(self, pass_id, aux1, aux2, dout, outs, blocks):
+    def _bwd(self, pass_id, aux1, aux2, dout, outs):
+        rows, resident = self.bwd_plan(pass_id)[:2]
         _cuda.launch(self.kernel_bwd, self.sym_bwd, pass_id,
                      *(_cuda.ptr(t) for t in (self.u, self.sv, self.idx, self.maskm,
                                              self.maskf, self.w2, self.w2t, aux1, aux2,
                                              dout, *outs)),
-                     *self._dims(pass_id == 3, blocks))
+                     self.n, self.p, self.s, self.k, self.h1, self.h2, rows, resident,
+                     self.bwd_blocks(pass_id), self.dtype_code)
 
     def _reduce(self, kernel, part):
         """Sum [blocks, ...] partials over the blocks, in block order."""
@@ -149,8 +226,8 @@ class Level:
         """[2, H2]: (sum dy2, sum dy2 * yhat2) over all edges."""
         self._check_aux(aux1, aux2)
         _cuda.check(dout, "dout", dtype=torch.float32, shape=(self.n, self.s, self.h2))
-        part = self._empty(self.blocks, 2, self.h2)
-        self._bwd(1, aux1, aux2, dout, (part, part, part), self.blocks)
+        part = self._empty(self.bwd_blocks(1), 2, self.h2)
+        self._bwd(1, aux1, aux2, dout, (part, part, part))
         return self._reduce(self.kernel_bwd, part)
 
     def bwd_mid(self, aux1, aux2, dout):
@@ -158,10 +235,11 @@ class Level:
         aux2 rows 4-5 hold A2/n and B2/n."""
         self._check_aux(aux1, aux2)
         _cuda.check(dout, "dout", dtype=torch.float32, shape=(self.n, self.s, self.h2))
-        part_a = self._empty(self.blocks, 2, self.h1)
-        part_w = self._empty(self.blocks, self.h1, self.h2)
-        part_b = self._empty(self.blocks, self.h2)
-        self._bwd(2, aux1, aux2, dout, (part_a, part_w, part_b), self.blocks)
+        blocks = self.bwd_blocks(2)
+        part_a = self._empty(blocks, 2, self.h1)
+        part_w = self._empty(blocks, self.h1, self.h2)
+        part_b = self._empty(blocks, self.h2)
+        self._bwd(2, aux1, aux2, dout, (part_a, part_w, part_b))
         return (self._reduce(self.kernel_bwd, part_a), self._reduce(self.kernel_bwd, part_w),
                 self._reduce(self.kernel_bwd, part_b))
 
@@ -173,5 +251,5 @@ class Level:
         du = self._empty(self.n, self.p, self.h1)
         dsv = self._empty(self.n, self.s, self.h1)
         if self.n:
-            self._bwd(3, aux1, aux2, dout, (du, dsv, du), self.n)
+            self._bwd(3, aux1, aux2, dout, (du, dsv, du))
         return du, dsv
