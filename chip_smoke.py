@@ -14,10 +14,13 @@ toolkit. Phases, each printing one JSON line:
    the inference SA level in every selection (first, bisect, gather over
    the exact and the approximate ball query, exact, all) at the gallery's
    three levels; the attention block by its route (mha_addln, the fused
-   kernel, to d=256; mha_addln_tiled, the tiled chain, at the intra stack's
-   E=1024 in bf16 and f32, with each stage of the chain against its plain
-   stage and, as a yardstick the port never calls, stock_ms: the port's
-   fused_attn="0" path with cuBLAS products, on the bf16 case's line); the
+   kernel, to d=256, each line with kernel_ms, the kernel alone with the
+   host's dispatch off the measured span, and stock_ms, and the blocks of
+   a batch-1 serve request as lines of their own, not summed;
+   mha_addln_tiled, the tiled chain, at the intra stack's E=1024 in bf16
+   and f32, with each stage of the chain against its plain stage and, as a
+   yardstick the port never calls, stock_ms: the port's fused_attn="0" path
+   with cuBLAS products, on the bf16 case's line); the
    feed-forward block by its route (ffn_addln, the fused kernel, to d=256;
    ffn_addln_tiled, the tiled chain, at the E=1024 trunk's R=25,344 rows,
    D=1024, F=4096 in bf16 and f32, each stage against its plain stage, the
@@ -137,6 +140,26 @@ def cuda_ms(fn, reps: int = 10) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def kernel_ms(fn, reps: int = 10, launches: int = 50) -> float:
+    """Median milliseconds of one fn() on the card with the host's dispatch
+    off the measured span: `launches` calls queued behind a device sleep,
+    between two CUDA events, divided by `launches`."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(40_000_000)          # about 20 ms: the host queues every launch
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
     return statistics.median(times)
 
 
@@ -375,6 +398,32 @@ def _stock_attention_fn(args, dt):
     return run
 
 
+def _fused_attention_fn(args):
+    """The fused attention kernel alone (cuda_mha.launch_fused, no count):
+    what `kernel_ms` times beside the wrapper's `ms`."""
+    from text2loc_tpu_torch.ops import cuda_mha
+
+    x, kv, wq, bq, wk, bk, wv, bv, wo, bo, g, be, mask = args
+    out = torch.empty_like(x)
+    return lambda: cuda_mha.launch_fused(x, kv, (wq, wk, wv, wo), (bq, bk, bv, bo, g, be),
+                                         mask, out, num_heads=4, count=False)
+
+
+def _attention_args(gen, dev, dt, b, lq, lk, d, self_attn, empty):
+    """One attention case's inputs: activations in dt, f32 weights (as the
+    model holds its parameters), a bool key mask with a quarter padded."""
+    x = _rand(gen, (b, lq, d), 1.0, dev).to(dt)
+    kv = x if self_attn else _rand(gen, (b, lk, d), 1.0, dev).to(dt)
+    mats = [_rand(gen, (d, d), d ** -0.5, dev) for _ in range(4)]
+    vecs = [_rand(gen, d, 0.1, dev) for _ in range(4)]
+    mask = torch.rand(b, lk, generator=gen).to(dev) > 0.25
+    mask[:, 0] = True
+    if empty:
+        mask[0] = False   # attends uniformly over its own keys
+    return (x, kv, mats[0], vecs[0], mats[1], vecs[1], mats[2], vecs[2],
+            mats[3], vecs[3], _rand(gen, d, 0.1, dev, 1.0), _rand(gen, d, 0.1, dev), mask)
+
+
 def _stage_checks(kname, name, dt, stages) -> None:
     """Each stage of a tiled chain alone against its plain stage on the
     plain stage's inputs (TOLERANCE x max|plain|), with its time. stages:
@@ -478,33 +527,41 @@ def phase_kernels(dev) -> dict:
                   ("obj_inter", 64, 28, 28, 256, True, False),
                   ("inter head", 64, 6, 6, 256, True, False),
                   ("intra E=1024", 1584, 16, 16, 1024, True, False)]
+    # A batch-1 serve request's blocks (the coarse inter head and the layer-0
+    # hint block at B=1, the CCT over the top-10 cells at B=10): case lines
+    # of their own, not summed into the kernel's record, with inputs from a
+    # generator of their own (the other cases keep theirs).
+    gen_request = torch.Generator().manual_seed(SEED + 1)
+    request_cases = [("request inter head", 1, 6, 6, 256, True, False),
+                     ("request hint pre", 1, 6, 6, 128, True, False),
+                     ("request obj cross", 10, 16, 6, 128, False, False),
+                     ("request hint cross", 10, 6, 16, 128, False, False),
+                     ("request obj self", 10, 16, 16, 128, True, False),
+                     ("request hint self", 10, 6, 6, 128, True, False)]
     for dt in (torch.bfloat16, torch.float32):
-        for name, b, lq, lk, d, self_attn, empty in attn_cases:
-            x = _rand(gen, (b, lq, d), 1.0, dev).to(dt)
-            kv = x if self_attn else _rand(gen, (b, lk, d), 1.0, dev).to(dt)
-            mats = [_rand(gen, (d, d), d ** -0.5, dev) for _ in range(4)]
-            vecs = [_rand(gen, d, 0.1, dev) for _ in range(4)]
-            mask = torch.rand(b, lk, generator=gen).to(dev) > 0.25
-            mask[:, 0] = True
-            if empty:
-                mask[0] = False   # attends uniformly over its own keys
-            args = (x, kv, mats[0], vecs[0], mats[1], vecs[1], mats[2], vecs[2],
-                    mats[3], vecs[3], _rand(gen, d, 0.1, dev, 1.0),
-                    _rand(gen, d, 0.1, dev), mask)
-            es = x.element_size()
+        for (name, b, lq, lk, d, self_attn, empty), g in (
+                [(c, gen) for c in attn_cases] + [(c, gen_request) for c in request_cases]):
+            args = _attention_args(g, dev, dt, b, lq, lk, d, self_attn, empty)
+            es = args[0].element_size()
             work = (2.0 * (2 * b * lq * d * d + 2 * b * lk * d * d + 2 * b * lq * lk * d),
                     2 * b * lq * d * es + (0 if self_attn else b * lk * d * es)
                     + 4 * d * d * 4 + 6 * d * 4 + b * lk, dt)
             kname = ("mha_addln" if cuda_mha.route(lq, lk, d, 4, dt, self_attn=self_attn)
                      == "fused" else "mha_addln_tiled")
+            fused = kname == "mha_addln"
             tiled_bf16 = kname == "mha_addln_tiled" and dt == torch.bfloat16
+            # The fused lines: kernel_ms (the kernel alone, no host dispatch)
+            # and stock_ms; the tiled chain's bf16 line: stock_ms.
             ms, plain_ms = records[kname].add(
                 f"{kname} {name} B={b} Lq={lq} Lk={lk} D={d}", dt,
                 [(cuda_mha.mha_addln_cuda(*args, num_heads=4),
                   mha.mha_addln_plain(*args, num_heads=4))],
                 lambda a=args: cuda_mha.mha_addln_cuda(*a, num_heads=4),
                 lambda a=args: mha.mha_addln_plain(*a, num_heads=4), work,
-                yardsticks={"stock_ms": _stock_attention_fn(args, dt)} if tiled_bf16 else None)
+                counts=False if name.startswith("request") else None,
+                yardsticks=({"stock_ms": _stock_attention_fn(args, dt)}
+                            if fused or tiled_bf16 else None),
+                info={"kernel_ms": kernel_ms(_fused_attention_fn(args))} if fused else None)
             if tiled_bf16:
                 check(ms < plain_ms and ms <= 3.0,
                       f"{kname} {name}: {ms} ms, plain {plain_ms} ms (limit: faster than "

@@ -213,20 +213,32 @@ def _mha_args(dev, dtype, b, lq, lk, d, self_attn, seed=2):
             vecs[3], _randn(rng, d, dev, 0.1, 1.0), _randn(rng, d, dev, 0.1), mask)
 
 
+# d <= 256 shapes that the fused block does not take: 48 keys (past its
+# 32), and f32 cross-attention of 64 queries over 32 keys at D=256, whose
+# one-block layout exceeds a block's shared memory (a cluster of one block
+# per head would fit at B = 1, but not at B = 64 on 132 SMs).
+TILED_TO_D256 = {(48, 48, 128, torch.bfloat16), (48, 48, 128, torch.float32),
+                 (64, 32, 256, torch.float32)}
+
+
 @pytest.mark.parametrize("dtype,b,lq,lk,d,self_attn", [
     (dt, *case) for dt in DTYPES for case in ((33, 16, 6, 128, False),
                                               (9, 28, 28, 256, True),
-                                              (5, 16, 16, 1024, True))
+                                              (5, 16, 16, 1024, True),
+                                              (9, 48, 48, 128, True),
+                                              (64, 64, 32, 256, False))
 ] + [(torch.bfloat16, 37, 16, 16, 1024, True),    # M = 592: the small GEMM tile
      (torch.bfloat16, 7, 16, 6, 512, False),      # cross-attention above d=256
      (torch.bfloat16, 3, 13, 13, 1024, True),     # M = 39: rows past M in a tile
      (torch.float32, 3, 13, 5, 512, False)])
 def test_mha_kernel(dev, dtype, b, lq, lk, d, self_attn):
-    """The fused kernel to d=256, the tiled chain above (bf16 and f32),
-    each counting one launch per block."""
+    """The fused kernel to d=256 where it takes the shape, the tiled chain
+    above and where it does not (bf16 and f32), each counting one launch
+    per block."""
     args = _mha_args(dev, dtype, b, lq, lk, d, self_attn)
     routed = cuda_mha.route(lq, lk, d, 4, dtype, self_attn=self_attn)
-    assert routed == ("fused" if d <= 256 else "tiled")
+    assert routed == ("fused" if d <= 256 and (lq, lk, d, dtype) not in TILED_TO_D256
+                      else "tiled")
     kernel, other = ((cuda_mha.KERNEL, cuda_mha.KERNEL_TILED) if routed == "fused"
                      else (cuda_mha.KERNEL_TILED, cuda_mha.KERNEL))
     before, before_other = kernel.launches, other.launches
@@ -262,16 +274,112 @@ def test_mha_tiled_stages(dev, dtype, b, lq, lk, d, self_attn):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_mha_route_layout_is_the_kernels(dev, dtype):
-    """route's Python sum of the fused layout equals t2l_mha_addln_smem."""
+    """The shared bytes of fused_plan's layouts equal t2l_mha_addln_layout's
+    for every G and cluster the kernel takes, and the kernel refuses (0)
+    where they exceed a block's shared memory; at every B the plan of a
+    fused route is one the kernel takes; core_smem equals
+    t2l_mha_tiled_core_smem."""
     from text2loc_tpu_torch.ops import _cuda
 
     lib = _cuda.library()
+    code, t = _cuda.DTYPE_CODE[dtype], 2 if dtype == torch.bfloat16 else 4
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for lq, lk, d, self_attn in [(16, 6, 128, False), (6, 16, 128, False), (16, 16, 128, True),
-                                 (28, 28, 256, True), (5, 3, 256, False), (64, 64, 256, True)]:
-        assert cuda_mha.fused_smem(lq, lk, d, 4, self_attn, dtype) == lib.t2l_mha_addln_smem(
-            lq, lk, d, 4, int(self_attn), _cuda.DTYPE_CODE[dtype])
+                                 (28, 28, 256, True), (5, 3, 256, False), (64, 64, 256, True),
+                                 (6, 6, 256, True), (64, 32, 256, False), (33, 40, 128, False)]:
+        for g in range(1, 80 // max(lq, lk) + 1):
+            for c in (1, 4):
+                want = cuda_mha._fused_layout(g, c, lq, lk, d, self_attn, t).smem
+                got = lib.t2l_mha_addln_layout(g, c, lq, lk, d, 4, int(self_attn), code)
+                takes = lk <= cuda_mha.FUSED_MAX_KEYS and want <= _cuda.SMEM_LIMIT
+                assert got == (want if takes else 0)
+        for b in (0, 1, 10, 33, 34, 64, 263, 264, 640, 641, 5000):
+            plan = cuda_mha.fused_plan(b, lq, lk, d, 4, dtype, self_attn=self_attn, sms=sms)
+            if cuda_mha.route(lq, lk, d, 4, dtype, self_attn=self_attn) == "fused":
+                assert plan.smem == lib.t2l_mha_addln_layout(
+                    plan.samples, plan.cluster, lq, lk, d, 4, int(self_attn), code) > 0
+            else:
+                assert plan is None
         assert cuda_mha.core_smem(lq, lk, d, 4, dtype) == lib.t2l_mha_tiled_core_smem(
-            lq, lk, d, 4, _cuda.DTYPE_CODE[dtype])
+            lq, lk, d, 4, code)
+
+
+# (Lq, Lk, D, self-attention) of the smoke's fused cases, and the B of a
+# block's sample count G at B = 640 (G - 1, G + 1), a last block holding
+# one sample (641), and a request's B = 1.
+FUSED_SHAPES = [(16, 16, 128, True), (16, 6, 128, False), (6, 16, 128, False),
+                (6, 6, 128, True), (28, 28, 256, True), (6, 6, 256, True)]
+
+
+def _fused_batches(lq, lk, d, self_attn, dtype):
+    g = cuda_mha.fused_plan(640, lq, lk, d, 4, dtype, self_attn=self_attn,
+                            sms=torch.cuda.get_device_properties(0).multi_processor_count).samples
+    return sorted({1, max(g - 1, 1), g + 1, 640, 641})
+
+
+def _fused_args(dev, dtype, b, lq, lk, d, self_attn, masked, seed=5):
+    rng = np.random.default_rng(seed)
+    x = _randn(rng, (b, lq, d), dev).to(dtype)
+    kv = x if self_attn else _randn(rng, (b, lk, d), dev).to(dtype)
+    mats = [_randn(rng, (d, d), dev, 1 / math.sqrt(d)) for _ in range(4)]
+    vecs = [_randn(rng, d, dev, 0.1) for _ in range(4)]
+    mask = None
+    if masked:
+        mask = torch.from_numpy(rng.random((b, lk)) > 0.3).to(dev)
+        mask[:, 0] = True
+        mask[b // 2] = False                          # an all-masked sample
+    return (x, kv, mats[0], vecs[0], mats[1], vecs[1], mats[2], vecs[2], mats[3],
+            vecs[3], _randn(rng, d, dev, 0.1, 1.0), _randn(rng, d, dev, 0.1), mask)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("lq,lk,d,self_attn", FUSED_SHAPES)
+def test_mha_fused_kernel_batches(dev, lq, lk, d, self_attn, dtype, masked):
+    """The fused kernel against the plain version at B = 1, G - 1, G + 1,
+    640 and 641 (a last block with one sample), with key_mask None or with
+    an all-masked sample; one counted launch per call."""
+    for b in _fused_batches(lq, lk, d, self_attn, dtype):
+        args = _fused_args(dev, dtype, b, lq, lk, d, self_attn, masked)
+        before = cuda_mha.KERNEL.launches
+        got = mha_addln(*args, num_heads=4)
+        assert cuda_mha.KERNEL.launches == before + 1
+        _close(got, mha_addln_plain(*args, num_heads=4), dtype)
+
+
+@pytest.mark.parametrize("lq,lk,d,self_attn", FUSED_SHAPES)
+def test_mha_fused_reads_f32_weights_as_cast_ones(dev, lq, lk, d, self_attn):
+    """bf16 activations with the f32 weights give the same bits as the call
+    with the weights cast to bf16 beforehand: the kernel rounds them as
+    Tensor.to does."""
+    for b in (1, 37, 640):
+        args = list(_fused_args(dev, torch.bfloat16, b, lq, lk, d, self_attn, True))
+        got = mha_addln(*args, num_heads=4)
+        for i in (2, 4, 6, 8):
+            args[i] = args[i].to(torch.bfloat16)
+        assert torch.equal(got, mha_addln(*args, num_heads=4))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_mha_fused_call_is_one_device_op(dev, dtype):
+    """A fused call on the serve's operands (activations in the dtype, f32
+    parameters, a bool mask) issues one device op, the kernel, and counts
+    one launch; so does a call without a mask."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for lq, lk, d, self_attn in FUSED_SHAPES:
+        for masked in (True, False):
+            args = _fused_args(dev, dtype, 10, lq, lk, d, self_attn, masked)
+            mha_addln(*args, num_heads=4)
+            torch.cuda.synchronize()
+            before = cuda_mha.KERNEL.launches
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                mha_addln(*args, num_heads=4)
+                torch.cuda.synchronize()
+            ops = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+            assert len(ops) == 1 and "mha_addln_kernel" in ops[0], ops
+            assert cuda_mha.KERNEL.launches == before + 1
 
 
 def _ffn_args(dev, dtype, rows, d, f, seed=3):

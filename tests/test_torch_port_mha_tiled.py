@@ -131,6 +131,8 @@ def test_plain_stages_match_jnp_steps(b, lq, lk, d, self_attn):
     _close_rel(y, jy)
 
 
+# The SMs of an H100 SXM, the card the plans below are written for.
+SMS = 132
 # (Lq, Lk, D, self-attention) of chip_smoke.py's fused cases.
 SMOKE_FUSED = [(16, 6, 128, False), (6, 16, 128, False), (16, 16, 128, True),
                (6, 6, 128, True), (28, 28, 256, True), (6, 6, 256, True)]
@@ -148,13 +150,104 @@ def test_route_takes_the_fused_kernel_to_d256_and_the_tiled_chain_above(dtype):
 
 
 def test_fused_smem_is_make_layouts_sum():
-    """The Python sum of make_layout (csrc/mha_addln.cu) at a self and a
-    cross shape, by hand: x, (kv,) q, k, v, probabilities, pre-norm rows."""
-    assert cuda_mha.fused_smem(16, 16, 128, 4, True, torch.bfloat16) == (
-        2 * 16 * 128 * 4 + 4 * 4 * 16 * 16 + 4 * 16 * 128)
-    assert cuda_mha.fused_smem(5, 3, 128, 4, False, torch.float32) == (
-        4 * 5 * 128 + 4 * 3 * 128 + 4 * 5 * 128 + 2 * 4 * 3 * 128
-        + 16 * ((4 * 4 * 5 * 3 + 15) // 16) + 4 * 5 * 128)
+    """fused_plan's shared bytes are layout() of csrc/mha_addln.cu, summed
+    by hand (rows padded by 16 bytes; the ring of 3 weight chunks of 16 x
+    (3 * 64 + 4) f32). B = 1: a cluster of 4 blocks, one per head, each
+    with 16 rows of x and of every head's o [D + pad], its head's q, k, v
+    [dh + pad], the f32 pre-norm rows [dh + 4] (over k, v where smaller)
+    and two f32 row statistics. B = 1320: one block a group of 5 samples
+    (Lq = 6, Lk = 16: 32 query and 80 key rows), q (over the kv rows), k, v
+    over all D columns."""
+    ring = 3 * 16 * 196 * 4
+    p = cuda_mha.fused_plan(1, 16, 16, 128, 4, torch.bfloat16, self_attn=True, sms=SMS)
+    assert (p.samples, p.rows, p.key_rows, p.blocks, p.cluster) == (1, 16, 16, 1, 4)
+    assert p.smem == (2 * (2 * 16 * 136) + 2 * 16 * 40 + max(2 * (2 * 16 * 40), 4 * 16 * 36)
+                      + 8 * 16 + ring)
+    p = cuda_mha.fused_plan(1, 5, 3, 128, 4, torch.float32, sms=SMS)
+    assert p.smem == (2 * (4 * 16 * 132) + 4 * 16 * 36 + max(2 * (4 * 16 * 36), 4 * 16 * 36)
+                      + 8 * 16 + ring)
+    p = cuda_mha.fused_plan(1320, 6, 16, 128, 4, torch.bfloat16, sms=SMS)
+    assert (p.samples, p.rows, p.key_rows, p.blocks, p.cluster) == (5, 32, 80, 264, 1)
+    assert p.smem == (2 * 32 * 136 + 2 * 80 * 136 + max(2 * (2 * 80 * 136), 4 * 32 * 132)
+                      + 8 * 32 + ring)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_plan_fits_and_covers_the_batch(dtype):
+    """Every d <= 256 attention shape of Config()'s models (the JAX gate
+    sends each to the fused Pallas kernel) at every pair of the config's
+    sequence lengths gets a fused plan within a block's shared memory whose
+    blocks cover B exactly, at the serve's and the smoke's batch sizes; at
+    B = 640 a group packs min(80 // max(Lq, Lk), 5) samples (one wave of
+    blocks), at B <= 132 one; a cluster of one block per head where those
+    blocks fit the SMs."""
+    from text2loc_tpu_torch.ops import _cuda
+
+    cfg = Config()
+    m = cfg.model
+    lengths = sorted({m.max_hint_tokens, m.num_mentioned, m.object_size, m.pad_size})
+    with torch.device("meta"):
+        blocks = {(mod.query.weight.shape[0], mod.num_heads)
+                  for kind in ("coarse", "fine") for mod in build_model(cfg, kind).modules()
+                  if isinstance(mod, MultiheadAttentionParams)}
+    small = {(d, h) for d, h in blocks if d <= cuda_mha.FUSED_MAX_D}
+    assert {d for d, _ in small} == {128, 256}
+    for d, heads in small:
+        for lq in lengths:
+            for lk in lengths:
+                for self_attn in ((True, False) if lq == lk else (False,)):
+                    assert cuda_mha.route(lq, lk, d, heads, dtype, self_attn=self_attn) == "fused"
+                    for b in (0, 1, 5, 10, 33, 37, 64, 131, 132, 264, 640, 1000):
+                        p = cuda_mha.fused_plan(b, lq, lk, d, heads, dtype,
+                                                self_attn=self_attn, sms=SMS)
+                        assert p is not None and 0 < p.smem <= _cuda.SMEM_LIMIT
+                        assert p.blocks * p.samples >= b > (p.blocks - 1) * p.samples or (
+                            b == 0 and p.blocks == 0)
+                        assert p.rows == -(-p.samples * lq // 16) * 16 <= 80
+                        assert p.key_rows == (p.rows if self_attn
+                                              else -(-p.samples * lk // 16) * 16) <= 80
+                        want_g = max(1, min(80 // max(lq, lk), -(-b // SMS)))
+                        assert p.samples <= want_g
+                        assert p.cluster == (heads if p.blocks * heads <= SMS else 1)
+                        if b <= 132:
+                            assert p.samples == 1
+                    if dtype == torch.bfloat16:
+                        assert cuda_mha.fused_plan(640, lq, lk, d, heads, dtype,
+                                                   self_attn=self_attn, sms=SMS).samples == min(
+                            80 // max(lq, lk), 5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_a_fused_route_has_a_plan_at_every_batch(dtype):
+    """Wherever route says "fused", fused_plan gives a plan within a block's
+    shared memory at every B and on cards of 132 or 114 SMs, and None
+    wherever it says "tiled": the launch plans at the call's B, the route
+    at none. f32 cross-attention at D=256 with Lq=64, Lk=32 fits a cluster
+    of one block per head at B=1 but not one block at B=640, so it takes
+    the tiled chain at every B."""
+    from text2loc_tpu_torch.ops import _cuda
+
+    fused = 0
+    for d, heads in ((64, 1), (128, 4), (128, 8), (256, 4), (256, 8), (256, 16)):
+        for lq in (1, 5, 6, 16, 28, 32, 33, 48, 49, 64, 80, 81):
+            for lk in (1, 6, 16, 28, 32, 33, 48):
+                for self_attn in ((True, False) if lq == lk else (False,)):
+                    routed = cuda_mha.route(lq, lk, d, heads, dtype, self_attn=self_attn)
+                    fused += routed == "fused"
+                    for sms in (132, 114):
+                        for b in (0, 1, 33, 34, 64, 114, 132, 133, 640, 5000):
+                            p = cuda_mha.fused_plan(b, lq, lk, d, heads, dtype,
+                                                    self_attn=self_attn, sms=sms)
+                            assert (p is not None) == (routed == "fused")
+                            if p is not None:
+                                assert 0 < p.smem <= _cuda.SMEM_LIMIT
+                                assert p.samples * p.blocks >= b
+                                assert p.cluster in (1, heads)
+                                assert p.blocks * p.cluster <= sms or p.cluster == 1
+    assert fused > 100
+    assert cuda_mha.route(64, 32, 256, 4, torch.float32) == "tiled"
+    assert cuda_mha.route(64, 32, 256, 4, torch.bfloat16) == "fused"
+    cuda_mha.check_tiled(64, 32, 256, 4, torch.float32)
 
 
 def test_check_tiled_names_its_limit():

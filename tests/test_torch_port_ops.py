@@ -151,6 +151,13 @@ def _mha_inputs(seed, b, lq, lk, d, heads, self_attn):
 @pytest.mark.parametrize("b,lq,lk,d,self_attn", [
     (5, 16, 6, 128, False),     # the CCT's cross block; B not a group multiple
     (3, 16, 16, 1024, True),    # the intra stack's lane-aligned branch
+    # chip_smoke.py's fused (d <= 256) shapes at small B, each with the
+    # all-masked sample of _mha_inputs:
+    (3, 6, 16, 128, False),     # CCT hint cross
+    (2, 16, 16, 128, True),     # CCT object self
+    (7, 6, 6, 128, True),       # CCT hint self
+    (2, 28, 28, 256, True),     # obj_inter
+    (4, 6, 6, 256, True),       # the coarse inter head
 ])
 def test_mha_plain_matches_pallas_kernel(b, lq, lk, d, self_attn):
     jax_args, port_args, mask = _mha_inputs(5, b, lq, lk, d, 4, self_attn)

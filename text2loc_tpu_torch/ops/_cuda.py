@@ -121,8 +121,8 @@ _SIGNATURES = {
     "t2l_sa_level_smem": ([_I] * 4, ctypes.c_size_t),
     **{f"t2l_sa_level_{sel}": ([_P] * 11 + [_I] * 7 + [_F] + [_I] * 4 + [_P], _I)
        for sel in ("first", "bisect", "gather", "exact", "all")},
-    "t2l_mha_addln_smem": ([_I] * 6, ctypes.c_size_t),
-    "t2l_mha_addln": ([_P] * 14 + [_I] * 5 + [_F, _F, _I, _I, _P], _I),
+    "t2l_mha_addln_layout": ([_I] * 8, ctypes.c_size_t),
+    "t2l_mha_addln": ([_P] * 14 + [_I] * 5 + [_F, _F] + [_I] * 5 + [_P], _I),
     "t2l_mha_tiled_core_smem": ([_I] * 5, ctypes.c_size_t),
     "t2l_mha_addln_tiled": ([_P] * 13 + [_I] * 5 + [_F, _F, _I, _I, _P], _I),
     "t2l_mha_tiled_gemm": ([_P, _I, _P, _I, _P, _P, _I, _P] + [_I] * 5 + [_F, _I, _P], _I),

@@ -1,13 +1,15 @@
-"""Wrappers of the attention block's two CUDA kernels: the fused block, one
-CUDA block per sample (csrc/mha_addln.cu), up to d=256; the tiled chain
-over all rows (csrc/mha_tiled.cu: tensor-core GEMMs, an attention core, a
-row LayerNorm) above it and wherever the fused block's layout does not fit
-in shared memory. `route` picks one; there is no fallback."""
+"""Wrappers of the attention block's two CUDA kernels: the fused block to
+d=256 (csrc/mha_addln.cu: groups of samples, each on one CUDA block or on a
+cluster of one block per head, as fused_plan says); the tiled chain over
+all rows (csrc/mha_tiled.cu: tensor-core GEMMs, an attention core, a row
+LayerNorm) above it and wherever the fused block does not take the shape.
+`route` picks one; there is no fallback."""
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -24,7 +26,15 @@ KERNEL_TILED = _cuda.Kernel(
     replaces="text2loc_tpu/ops/pallas_mha.py:137",
 )
 
-FUSED_MAX_D = 256   # above it the fused block reads its weights once per sample
+# The fused block's limits (checked() in csrc/mha_addln.cu, which refuses a
+# plan past them). The plan itself is fused_plan's alone: the launch passes
+# its samples and cluster to the kernel.
+FUSED_MAX_D = 256     # above it the tiled chain, whose GEMMs share the weights over all rows
+FUSED_MAX_ROWS = 80   # query rows, and key rows, of one CUDA block
+FUSED_MAX_KEYS = 32   # keys of a sample (four n8 score tiles)
+FUSED_MAX_DH = 64     # head width (eight n8 output tiles)
+FUSED_MAX_HEADS = 8   # a cluster of one block per head: the portable cluster size
+RING_BYTES = 3 * 16 * (3 * FUSED_MAX_DH + 4) * 4   # 3 weight chunks of 16 f32 rows
 
 
 def _tsize(dtype) -> int:
@@ -35,18 +45,69 @@ def _align16(n: int) -> int:
     return (n + 15) & ~15
 
 
-def fused_smem(lq: int, lk: int, d: int, heads: int, self_attn: bool, dtype) -> int:
-    """Shared bytes of the fused block: the sum of make_layout
-    (csrc/mha_addln.cu) — x (and kv), q, k, v in the dtype, the f32
-    [heads, lq, lk] probabilities and the f32 [lq, d] pre-norm rows."""
+class FusedPlan(NamedTuple):
+    samples: int    # samples per group (G)
+    rows: int       # query rows per block, G * Lq padded to 16
+    key_rows: int   # key rows per block (the query rows in self-attention)
+    blocks: int     # groups, ceil(B / G): one cluster each
+    cluster: int    # blocks per cluster: one per head, or 1
+    smem: int       # dynamic shared bytes per block
+
+
+def _fused_layout(g, c, lq, lk, d, self_attn, t) -> FusedPlan:
+    """layout() of csrc/mha_addln.cu for G = g and a cluster of c blocks, w
+    = d / c columns a block: x rows; in a cluster, every head's o; the
+    block's q (with c = 1 first the kv rows of cross-attention), k, v; the
+    f32 pre-norm rows of its columns over the k, v region; two f32 row
+    statistics; the ring of weight chunks. Rows in the dtype, padded by 16
+    bytes."""
+    rows = _align16(g * lq)
+    krows = rows if self_attn else _align16(g * lk)
+    pad = 8 if t == 2 else 4
+    w = d // c
+    ldx, ldw = d + pad, w + pad
+    orows = max(rows, krows)
+    kbytes = _align16(t * krows * ldw)
+    smem = (_align16(t * rows * ldx) + (_align16(t * orows * ldx) if c > 1 else 0)
+            + _align16(t * (rows if c > 1 else orows) * ldw)
+            + max(2 * kbytes, _align16(4 * rows * (w + 4))) + _align16(8 * rows) + RING_BYTES)
+    return FusedPlan(g, rows, krows, 0, c, smem)
+
+
+def route(lq: int, lk: int, d: int, heads: int, dtype, *, self_attn: bool = False) -> str:
+    """"fused" where the fused block takes the shape at every B: within its
+    limits (d <= 256, at most 8 heads, dh a multiple of 16 up to 64, Lq <=
+    80, Lk <= 32), with one block of one sample, the plan fused_plan falls
+    back to last, within a block's shared memory; else "tiled". Without
+    `self_attn` the cross layout is assumed."""
+    dh = d // heads if heads >= 1 else 0
+    if (lq < 1 or lk < 1 or lq > FUSED_MAX_ROWS or lk > FUSED_MAX_KEYS or d < 32
+            or d > FUSED_MAX_D or heads < 1 or heads > FUSED_MAX_HEADS or d % heads
+            or (self_attn and lq != lk) or dh % 16 or dh > FUSED_MAX_DH):
+        return "tiled"
+    one = _fused_layout(1, 1, lq, lk, d, self_attn, _tsize(dtype))
+    return "fused" if one.smem <= _cuda.SMEM_LIMIT else "tiled"
+
+
+def fused_plan(b: int, lq: int, lk: int, d: int, heads: int, dtype, *,
+               self_attn: bool = False, sms: int) -> Optional[FusedPlan]:
+    """The fused block's plan of a call on a card of `sms` SMs, or None
+    where `route` does not send the shape to it: G = min(80 // max(Lq, Lk),
+    ceil(B / sms)) samples a group (one wave of blocks), lowered until the
+    layout fits a block's shared memory; at each G a cluster of one block
+    per head where those blocks fit the SMs and their layout fits, else one
+    block a group. One block of one sample fits wherever route says
+    "fused", so such a shape has a plan at every B."""
+    if route(lq, lk, d, heads, dtype, self_attn=self_attn) != "fused":
+        return None
     t = _tsize(dtype)
-    off = _align16(t * lq * d)
-    if not self_attn:
-        off = _align16(off + t * lk * d)
-    for rows in (lq, lk, lk):
-        off = _align16(off + t * rows * d)
-    off = _align16(off + 4 * heads * lq * lk)
-    return _align16(off + 4 * lq * d)
+    for g in range(min(FUSED_MAX_ROWS // max(lq, lk), max(1, -(-b // sms))), 0, -1):
+        groups = -(-b // g)
+        for c in ((heads, 1) if heads > 1 and groups * heads <= sms else (1,)):
+            p = _fused_layout(g, c, lq, lk, d, self_attn, t)
+            if p.smem <= _cuda.SMEM_LIMIT:
+                return p._replace(blocks=groups)
+    raise AssertionError("unreachable: route checked one block of one sample")
 
 
 def core_smem(lq: int, lk: int, d: int, heads: int, dtype) -> int:
@@ -54,15 +115,6 @@ def core_smem(lq: int, lk: int, d: int, heads: int, dtype) -> int:
     and head): q, k, v of the head in the dtype, then the f32 [lq, lk]
     probabilities (core_smem in csrc/mha_tiled.cu)."""
     return _align16(_tsize(dtype) * (lq + 2 * lk) * (d // heads)) + 4 * lq * lk
-
-
-def route(lq: int, lk: int, d: int, heads: int, dtype, *, self_attn: bool = False) -> str:
-    """"fused" where d <= 256 and the fused block's layout fits a block's
-    shared memory, else "tiled". Without `self_attn` the cross layout
-    (x and kv both on chip) is assumed."""
-    if d <= FUSED_MAX_D and fused_smem(lq, lk, d, heads, self_attn, dtype) <= _cuda.SMEM_LIMIT:
-        return "fused"
-    return "tiled"
 
 
 def check_tiled(lq: int, lk: int, d: int, heads: int, dtype) -> None:
@@ -106,31 +158,74 @@ def mha_addln_cuda(x, kv, wq, bq, wk, bk, wv, bv, wo, bo, scale, bias,
                    key_mask=None, *, num_heads: int, eps: float = 1e-5):
     """[B, Lq, D] in x.dtype; the arguments as mha_addln_plain's. `kv is x`
     selects the self-attention layout (one copy of the rows, one
-    projection GEMM). The fused kernel or the tiled chain, by `route`."""
+    projection pass). The fused kernel or the tiled chain, by `route`."""
     from text2loc_tpu_torch.ops.mha import key_bias
 
     dt = x.dtype
     self_attn = kv is x
+    if x.ndim == 3 and kv.ndim == 3 and route(x.shape[1], kv.shape[1], x.shape[2], num_heads,
+                                              dt, self_attn=self_attn) == "fused":
+        out = torch.empty_like(x)
+        launch_fused(x, kv, (wq, wk, wv, wo), (bq, bk, bv, bo, scale, bias), key_mask, out,
+                     num_heads=num_heads, eps=eps)
+        return out
     mats = [t.to(dt).contiguous() for t in (wq, wk, wv, wo)]
     vecs = [t.float().contiguous() for t in (bq, bk, bv, bo, scale, bias)]
     b, lq, lk, d = _check_block(x, kv, mats, vecs, num_heads)
+    check_tiled(lq, lk, d, num_heads, dt)
     kb = key_bias(key_mask, b, lk, x.device).contiguous()
-    if route(lq, lk, d, num_heads, dt, self_attn=self_attn) == "tiled":
-        check_tiled(lq, lk, d, num_heads, dt)
-        return _tiled_block(x, kv, kb, mats, vecs, num_heads, eps, self_attn)
-    out = torch.empty_like(x)
-    wq_, wk_, wv_, wo_ = mats
-    bq_, bk_, bv_, bo_, g_, be_ = vecs
-    if b:
-        _cuda.launch(
-            KERNEL, "t2l_mha_addln",
-            *(_cuda.ptr(t) for t in (x, kv, kb, wq_, bq_, wk_, bk_, wv_, bv_,
-                                     wo_, bo_, g_, be_, out)),
-            b, lq, lk, d, num_heads,
-            ctypes.c_float(1.0 / math.sqrt(d // num_heads)), ctypes.c_float(eps),
-            int(self_attn), _cuda.DTYPE_CODE[dt],
-        )
-    return out
+    return _tiled_block(x, kv, kb, mats, vecs, num_heads, eps, self_attn)
+
+
+def _as_given(t, dtype):
+    """t itself where the fused kernel reads it as it is (this dtype,
+    contiguous), else a converted copy (one device op)."""
+    return t if t.dtype == dtype and t.is_contiguous() else t.to(dtype).contiguous()
+
+
+def launch_fused(x, kv, mats, vecs, key_mask, out, *, num_heads: int, eps: float = 1e-5,
+                 count: bool = True) -> None:
+    """One launch of t2l_mha_addln into `out` (x's shape and dtype) with
+    fused_plan's groups and cluster for this card, for a shape that `route`
+    sends to the fused block (ValueError for any other): mats (wq, wk, wv,
+    wo) [D, D] read as given where all four are f32 or all x.dtype (rounded
+    to x.dtype in the kernel), vecs (bq, bk, bv, bo, scale, bias) [D] f32,
+    key_mask [B, Lk] bool or None. On the
+    model's tensors (contiguous, f32 parameters, a bool mask) this issues
+    the kernel and no other device op. `count=False`: a launch that is not
+    the main path's (a probe timing the kernel alone)."""
+    dt = x.dtype
+    wdt = torch.float32 if all(t.dtype == torch.float32 for t in mats) else dt
+    mats = [_as_given(t, wdt) for t in mats]
+    vecs = [_as_given(t, torch.float32) for t in vecs]
+    b, lq, lk, d = _check_block(x, kv, mats, vecs, num_heads)
+    mask = None
+    if key_mask is not None:
+        mask = _as_given(key_mask, torch.bool)
+        _cuda.check(mask, "key_mask", shape=(b, lk))
+    _cuda.check(out, "out", dtype=dt, shape=tuple(x.shape))
+    for name, t in (("x", x), ("kv", kv), ("wq", mats[0]), ("wk", mats[1]), ("wv", mats[2]),
+                    ("wo", mats[3]), ("out", out)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: the fused kernel loads 16-byte vectors; the data "
+                             "must start on a 16-byte boundary")
+    plan = fused_plan(b, lq, lk, d, num_heads, dt, self_attn=kv is x,
+                      sms=torch.cuda.get_device_properties(x.device).multi_processor_count)
+    if plan is None:
+        raise ValueError(f"the fused attention block does not take Lq={lq}, Lk={lk}, D={d}, "
+                         f"{num_heads} heads, {dt}: route gives the tiled chain")
+    if b == 0:
+        return
+    _cuda.launch(
+        KERNEL, "t2l_mha_addln", _cuda.ptr(x), _cuda.ptr(kv),
+        None if mask is None else _cuda.ptr(mask),
+        *(_cuda.ptr(t) for t in (mats[0], vecs[0], mats[1], vecs[1], mats[2], vecs[2],
+                                 mats[3], vecs[3], vecs[4], vecs[5], out)),
+        b, lq, lk, d, num_heads,
+        ctypes.c_float(1.0 / math.sqrt(d // num_heads)), ctypes.c_float(eps),
+        int(kv is x), _cuda.DTYPE_CODE[dt], _cuda.DTYPE_CODE[wdt], plan.samples, plan.cluster,
+        count=count,
+    )
 
 
 def _packed_qkv(wq, bq, wk, bk, wv, bv, dt):
