@@ -20,7 +20,10 @@ toolkit. Phases, each printing one JSON line:
    mha_addln_tiled, the tiled chain, at the intra stack's E=1024 in bf16
    and f32, with each stage of the chain against its plain stage and, as a
    yardstick the port never calls, stock_ms: the port's fused_attn="0" path
-   with cuBLAS products, on the bf16 case's line); the
+   with cuBLAS products, on the bf16 case's line; and at two lengths whose
+   head exceeds the one-block attention core's shared memory, self 128x128
+   and cross 16x600 at E=1024, which take the key-tiled core: lines of
+   their own, not summed, each stage against its plain stage); the
    feed-forward block by its route (ffn_addln, the fused kernel, to d=256;
    ffn_addln_tiled, the tiled chain, at the E=1024 trunk's R=25,344 rows,
    D=1024, F=4096 in bf16 and f32, each stage against its plain stage, the
@@ -28,10 +31,11 @@ toolkit. Phases, each printing one JSON line:
    block, and fused_ms, the fused kernel at that shape, on its line);
    then the training SA level (sa_train_fwd, sa_train_bwd)
    against its plain forward and hand-derived plain backward at the coarse
-   train step's three levels (896 clouds, K=32), f32 and bf16, each
-   backward case line with its passes alone (stages: ms of stats / mid /
-   in, reduces included) and per pass its tiles (count, mean filled rows),
-   blocks_per_sm, tile rows and whether W2 sits in shared memory;
+   train step's three levels (896 clouds, K=32), f32 and bf16, each case
+   line with its passes alone (stages: ms of stats1 / stats2 / out for the
+   forward, of stats / mid / in for the backward, reduces included) and its
+   tiles (count, mean filled rows), blocks_per_sm, tile rows and whether W2
+   sits in shared memory (per pass for the backward);
 4. serve: the cached serve (Localizer.localize) at the full width of the
    default Config (bf16) over a 64-cell synthetic map with seeded random
    weights; batches of 1, 8 and 64 queries; every serve kernel's launch
@@ -538,9 +542,17 @@ def phase_kernels(dev) -> dict:
                      ("request hint cross", 10, 6, 16, 128, False, False),
                      ("request obj self", 10, 16, 16, 128, True, False),
                      ("request hint self", 10, 6, 6, 128, True, False)]
+    # Lengths whose head exceeds the one-block core's shared memory at E=1024
+    # (from 117 in bf16, 70 in f32): the key-tiled core. No Config() shape
+    # reaches it; lines of their own, not summed, each with one sample whose
+    # keys are all masked.
+    gen_long = torch.Generator().manual_seed(SEED + 10)
+    long_cases = [("long self", 16, 128, 128, 1024, True, True),
+                  ("long cross", 16, 16, 600, 1024, False, True)]
     for dt in (torch.bfloat16, torch.float32):
         for (name, b, lq, lk, d, self_attn, empty), g in (
-                [(c, gen) for c in attn_cases] + [(c, gen_request) for c in request_cases]):
+                [(c, gen) for c in attn_cases] + [(c, gen_request) for c in request_cases]
+                + [(c, gen_long) for c in long_cases]):
             args = _attention_args(g, dev, dt, b, lq, lk, d, self_attn, empty)
             es = args[0].element_size()
             work = (2.0 * (2 * b * lq * d * d + 2 * b * lk * d * d + 2 * b * lq * lk * d),
@@ -549,7 +561,8 @@ def phase_kernels(dev) -> dict:
             kname = ("mha_addln" if cuda_mha.route(lq, lk, d, 4, dt, self_attn=self_attn)
                      == "fused" else "mha_addln_tiled")
             fused = kname == "mha_addln"
-            tiled_bf16 = kname == "mha_addln_tiled" and dt == torch.bfloat16
+            long = name.startswith("long")
+            tiled_bf16 = kname == "mha_addln_tiled" and dt == torch.bfloat16 and not long
             # The fused lines: kernel_ms (the kernel alone, no host dispatch)
             # and stock_ms; the tiled chain's bf16 line: stock_ms.
             ms, plain_ms = records[kname].add(
@@ -558,7 +571,7 @@ def phase_kernels(dev) -> dict:
                   mha.mha_addln_plain(*args, num_heads=4))],
                 lambda a=args: cuda_mha.mha_addln_cuda(*a, num_heads=4),
                 lambda a=args: mha.mha_addln_plain(*a, num_heads=4), work,
-                counts=False if name.startswith("request") else None,
+                counts=False if name.startswith(("request", "long")) else None,
                 yardsticks=({"stock_ms": _stock_attention_fn(args, dt)}
                             if fused or tiled_bf16 else None),
                 info={"kernel_ms": kernel_ms(_fused_attention_fn(args))} if fused else None)
@@ -566,6 +579,10 @@ def phase_kernels(dev) -> dict:
                 check(ms < plain_ms and ms <= 3.0,
                       f"{kname} {name}: {ms} ms, plain {plain_ms} ms (limit: faster than "
                       "plain and at most 3 ms)")
+                _mha_tiled_stages(name, args, dt)
+            if long:
+                check(cuda_mha.core_layout(lq, lk, d, 4, dt).kind == "keys",
+                      f"{name}: the key-tiled core")
                 _mha_tiled_stages(name, args, dt)
 
     ffn_cases = [("cct", 640 * 16, 128, 512), ("obj_inter", 64 * 28, 256, 512),
@@ -637,6 +654,23 @@ def _bwd_info(level, aux1, aux2, n1, dout) -> dict:
             "resident": {str(p): level.bwd_plan(p)[1] for p in passes}}
 
 
+def _fwd_info(level, aux1, aux2) -> dict:
+    """The training forward's passes alone on the card: `stages`, ms of
+    stats1 / stats2 / out with their reduce launches (median of 10 by CUDA
+    events, each fed the forward's aux rows), and the layout its three
+    passes share: `tiles` (tiles, mean filled rows), tile `rows`, the grid
+    (`blocks`, `blocks_per_sm`) and `resident` (0: W2 is read from device
+    memory, not held in shared memory)."""
+    from text2loc_tpu_torch.ops import cuda_sa_train
+
+    stages = {"stats1": cuda_ms(lambda: level.stats(1, aux1, aux2)),
+              "stats2": cuda_ms(lambda: level.stats(2, aux1, aux2)),
+              "out": cuda_ms(lambda: level.out(aux1, aux2))}
+    return {"stages": stages, "tiles": level.fwd_tiles(), "rows": 8 * level.rpt(),
+            "blocks": level.blocks, "blocks_per_sm": cuda_sa_train.FWD_BLOCKS_PER_SM,
+            "resident": 0}
+
+
 def phase_sa_train_kernels(dev) -> dict:
     """sa_train_fwd / sa_train_bwd against the plain forward and the plain
     hand-derived backward at the coarse train step's three levels: 896
@@ -678,14 +712,14 @@ def phase_sa_train_kernels(dev) -> dict:
             out, stats, aux1, aux2 = fwd()
             want_out, want_stats = sa_train.sa_train_plain(
                 u, sv, w2, b2, g1, be1, g2, be2, idx, maskm, maskf, compute_dtype=dt)
+            level = cuda_sa_train.Level(u, sv, w2, idx, maskm, maskf, dt)
             records["sa_train_fwd"].add(
                 f"sa_train_fwd {tag}", dt,
                 [(out, want_out)] + list(zip(stats, want_stats)), fwd,
                 lambda dt=dt: sa_train.sa_train_plain(
                     u, sv, w2, b2, g1, be1, g2, be2, idx, maskm, maskf, compute_dtype=dt),
                 (2.0 * edges * h1 * h2, io_bytes + n * s * h2 * 4, dt),
-                counts=dt == torch.float32)
-            level = cuda_sa_train.Level(u, sv, w2, idx, maskm, maskf, dt)
+                counts=dt == torch.float32, info=_fwd_info(level, aux1, aux2))
             n1 = stats[4]
             got = sa_train.backward_cuda(level, aux1, aux2, n1, dout)
             want = sa_train.sa_train_backward_plain(u, sv, w2, idx, maskm, maskf, aux1,
@@ -734,7 +768,7 @@ def _sa_train_e_cases(records, tag, dt, edges, io_bytes, args, dout):
     records["sa_train_e_fwd"].add(
         f"sa_train_e_fwd {tag}", dt, [(out, want_out)] + list(zip(stats, want_stats)), fwd,
         plain, (2.0 * edges * h1 * h2, io_bytes + n * s * h2 * 4, dt),
-        counts=dt == bf16)
+        counts=dt == bf16, info=_fwd_info(level, aux1, aux2))
     n1 = stats[4]
     got = sa_train.backward_cuda(level, aux1, aux2, n1, dout)
     want = sa_train.sa_train_backward_plain(u, sv, w2, idx, maskm, maskf, aux1, aux2, n1,

@@ -14,8 +14,9 @@ For each phase it prints one JSON line, per step, with the fields of
 scripts/profile_torch_serve.py (wall_ms, wall_ms_profiled, device_ms,
 busy_ms, idle_share, device_ops, top) and sa_train_ms / sa_train_share: the
 device time of the training SA kernels (csrc/sa_train_fwd.cu,
-csrc/sa_train_bwd.cu) and its share of device_ms, and sa_train_bwd_ms: that
-of the backward passes alone (their reduce launches not counted), and
+csrc/sa_train_bwd.cu) and its share of device_ms, sa_train_fwd_ms and
+sa_train_bwd_ms: that of the forward and the backward passes alone (their
+reduce launches not counted), and
 sa_levels: per training SA level of one more step, its shape and its valid
 edges (maskm) and statistics edges (maskf), the work the sa_train kernels
 scale with. Batches are gathered on
@@ -41,7 +42,8 @@ REPO = prof_lib.REPO
 SEED = 0
 # The kernels of csrc/sa_train_fwd.cu and csrc/sa_train_bwd.cu ("sa_bwd"
 # names every backward pass's kernel, of this design and the one before).
-SA_TRAIN_KERNELS = ("sa_stats_kernel", "sa_out_kernel", "sa_reduce_kernel", "sa_bwd")
+SA_TRAIN_FWD_KERNELS = ("sa_stats_kernel", "sa_out_kernel")
+SA_TRAIN_KERNELS = SA_TRAIN_FWD_KERNELS + ("sa_reduce_kernel", "sa_bwd")
 
 
 def sa_train_ms(prof, per: int, names=SA_TRAIN_KERNELS) -> float:
@@ -132,6 +134,8 @@ def main() -> int:
                               "wall_ms_profiled": wall_prof,
                               "idle_share": 1.0 - s["busy_ms"] / wall,
                               "sa_train_ms": sa, "sa_train_share": sa / s["device_ms"],
+                              "sa_train_fwd_ms": sa_train_ms(prof, args.reps,
+                                                             SA_TRAIN_FWD_KERNELS),
                               "sa_train_bwd_ms": sa_train_ms(prof, args.reps, ("sa_bwd",)),
                               "sa_levels": levels, **s}),
                   flush=True)

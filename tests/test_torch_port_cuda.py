@@ -230,7 +230,9 @@ TILED_TO_D256 = {(48, 48, 128, torch.bfloat16), (48, 48, 128, torch.float32),
 ] + [(torch.bfloat16, 37, 16, 16, 1024, True),    # M = 592: the small GEMM tile
      (torch.bfloat16, 7, 16, 6, 512, False),      # cross-attention above d=256
      (torch.bfloat16, 3, 13, 13, 1024, True),     # M = 39: rows past M in a tile
-     (torch.float32, 3, 13, 5, 512, False)])
+     (torch.float32, 3, 13, 5, 512, False)]
+   + [(dt, *case) for dt in DTYPES for case in ((2, 128, 128, 1024, True),    # key-tiled core
+                                                (3, 16, 600, 1024, False))])
 def test_mha_kernel(dev, dtype, b, lq, lk, d, self_attn):
     """The fused kernel to d=256 where it takes the shape, the tiled chain
     above and where it does not (bf16 and f32), each counting one launch
@@ -250,7 +252,9 @@ def test_mha_kernel(dev, dtype, b, lq, lk, d, self_attn):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("b,lq,lk,d,self_attn", [(37, 16, 16, 1024, True),
                                                  (7, 16, 6, 512, False),
-                                                 (1584, 16, 16, 1024, True)])
+                                                 (1584, 16, 16, 1024, True),
+                                                 (2, 128, 128, 1024, True),
+                                                 (3, 16, 600, 1024, False)])
 def test_mha_tiled_stages(dev, dtype, b, lq, lk, d, self_attn):
     """Each stage of the tiled chain alone against its plain stage, on the
     plain stage's inputs: the projection GEMM(s), the attention core, the
@@ -277,8 +281,10 @@ def test_mha_route_layout_is_the_kernels(dev, dtype):
     """The shared bytes of fused_plan's layouts equal t2l_mha_addln_layout's
     for every G and cluster the kernel takes, and the kernel refuses (0)
     where they exceed a block's shared memory; at every B the plan of a
-    fused route is one the kernel takes; core_smem equals
-    t2l_mha_tiled_core_smem."""
+    fused route is one the kernel takes; the core layout that core_layout
+    plans has t2l_mha_tiled_core_smem's shared bytes, the one-block core's
+    and the key-tiled core's alike, and the kernels refuse the one-block
+    core where core_layout takes the key-tiled one."""
     from text2loc_tpu_torch.ops import _cuda
 
     lib = _cuda.library()
@@ -300,8 +306,29 @@ def test_mha_route_layout_is_the_kernels(dev, dtype):
                     plan.samples, plan.cluster, lq, lk, d, 4, int(self_attn), code) > 0
             else:
                 assert plan is None
-        assert cuda_mha.core_smem(lq, lk, d, 4, dtype) == lib.t2l_mha_tiled_core_smem(
-            lq, lk, d, 4, code)
+        assert_core_layout_is_the_kernels(lib, lq, lk, d, 4, dtype)
+    for lq, lk, d, heads in [(16, 16, 1024, 4), (116, 116, 1024, 4), (117, 117, 1024, 4),
+                             (128, 128, 1024, 4), (16, 600, 1024, 4), (69, 69, 1024, 4),
+                             (70, 70, 1024, 4), (512, 512, 1024, 1), (64, 64, 1280, 1)]:
+        assert_core_layout_is_the_kernels(lib, lq, lk, d, heads, dtype)
+
+
+def assert_core_layout_is_the_kernels(lib, lq, lk, d, heads, dtype):
+    """The kernels take cuda_mha.core_layout's plan with its shared bytes
+    (t2l_mha_tiled_core_smem); they refuse (0) the one-block core where the
+    plan is key-tiled, and the smallest key tile where no plan fits."""
+    from text2loc_tpu_torch.ops import _cuda
+
+    code = _cuda.DTYPE_CODE[dtype]
+    want = cuda_mha.core_layout(lq, lk, d, heads, dtype)
+    if want is None:
+        assert lib.t2l_mha_tiled_core_smem(lq, lk, d, heads, *cuda_mha.KEY_TILES[-1], code) == 0
+        return
+    assert want.smem == lib.t2l_mha_tiled_core_smem(lq, lk, d, heads, want.rows, want.chunk,
+                                                    code)
+    assert (want.kind == "block") == (want.rows == 0)
+    if want.kind == "keys":
+        assert lib.t2l_mha_tiled_core_smem(lq, lk, d, heads, 0, 0, code) == 0
 
 
 # (Lq, Lk, D, self-attention) of the smoke's fused cases, and the B of a
@@ -446,7 +473,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         cuda_fps.farthest_point_sampling_cuda(pts.cpu(), 8)
     # f32 at d=1024 (a fused block too big for shared memory) runs the tiled
-    # chain; a sample beyond the attention core's shared memory is refused.
+    # chain, a long sample too (the key-tiled core); a head too wide for the
+    # key-tiled core's smallest tile in shared memory is refused.
     x = torch.rand(2, 16, 1024, device=dev)
     kv = torch.rand(2, 16, 1024, device=dev)
     w = torch.rand(1024, 1024, device=dev) / 32
@@ -455,8 +483,14 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     _close(cuda_mha.mha_addln_cuda(*args, num_heads=4),
            mha_addln_plain(*args, num_heads=4), torch.float32)
     long_kv = torch.rand(2, 512, 1024, device=dev)
+    args = (x, long_kv, w, v, w, v, w, v, w, v, v, v)
+    _close(cuda_mha.mha_addln_cuda(*args, num_heads=4),
+           mha_addln_plain(*args, num_heads=4), torch.float32)
+    wide = torch.rand(1, 16, 1280, device=dev)
+    w = torch.rand(1280, 1280, device=dev) / 36
+    v = torch.rand(1280, device=dev)
     with pytest.raises(ValueError, match="232448"):
-        cuda_mha.mha_addln_cuda(x, long_kv, w, v, w, v, w, v, w, v, v, v, num_heads=4)
+        cuda_mha.mha_addln_cuda(wide, wide, w, v, w, v, w, v, w, v, v, v, num_heads=1)
     # The feed-forward block: f32 at D=1024 runs the chain; off the 128 grid
     # above d=256 it is refused, and the fused kernel refuses a layout
     # beyond a block's shared memory.
@@ -485,12 +519,12 @@ def _sa_train_inputs(rng, dev, n, p, s, k, h1, h2):
 
 # (n, p, s, k, h1, h2): the coarse step's three level widths; K < 32 with
 # H1 > H2; K = 64 (one center fills a tile); more clouds than the
-# backward's persistent grid has blocks; widths that are not powers of two.
-# Every tile but a level's last can end ragged (whole centers only).
+# backward's persistent grid has blocks; widths that are not powers of two;
+# K = 1. Every tile but a level's last can end ragged (whole centers only).
 SA_TRAIN_SHAPES = [(20, 256, 128, 32, 32, 64), (9, 128, 64, 32, 128, 128),
                    (7, 64, 32, 32, 256, 256), (5, 40, 12, 5, 64, 32),
                    (3, 96, 48, 64, 64, 128), (600, 32, 16, 16, 32, 32),
-                   (4, 64, 24, 16, 96, 160)]
+                   (4, 64, 24, 16, 96, 160), (6, 48, 20, 1, 32, 32)]
 
 
 def _check_sa_train(dev, dtype, n, p, s, k, h1, h2, cache_dtype=None):
@@ -569,6 +603,49 @@ def test_sa_train_bwd_layouts(dev, dtype, rows, resident, cache_dtype):
         assert torch.isfinite(g).all()
         rel = ((g - w).norm() / max(w.norm().item(), floor)).item()
         assert rel <= REL_L2[dtype], rel
+
+
+def test_sa_train_fwd_passes_are_bit_equal(dev):
+    """Each forward pass run twice gives bit-equal results, in both kernels
+    and dtypes, with more clouds than the forward's grid has blocks (each
+    block walks several)."""
+    rng = np.random.default_rng(8)
+    n = 1200
+    u, sv, w2, b2, g1, be1, g2, be2, idx, maskm, maskf = _sa_train_inputs(
+        rng, dev, n, 128, 64, 32, 128, 128)
+    for dtype in DTYPES:
+        for cache in (None, torch.bfloat16):
+            level = cuda_sa_train.Level(u, sv, w2, idx, maskm, maskf, dtype, cache)
+            assert n > level.blocks
+            _, _, aux1, aux2 = forward_cuda(level, b2, g1, be1, g2, be2, maskf, 1e-5)
+            for run in (lambda: level.stats(1, aux1, aux2), lambda: level.stats(2, aux1, aux2),
+                        lambda: level.out(aux1, aux2)):
+                assert torch.equal(run(), run())
+
+
+def test_sa_train_kernels_take_no_clouds(dev):
+    """N = 0: the forward gives an empty output and the plain version's
+    statistics, the backward empty gradients of the inputs."""
+    rng = np.random.default_rng(9)
+    n, p, s, k, h1, h2 = 0, 32, 16, 8, 64, 64
+    u, sv, w2 = _randn(rng, (n, p, h1), dev), _randn(rng, (n, s, h1), dev), _randn(
+        rng, (h1, h2), dev, h1 ** -0.5)
+    vecs = [_randn(rng, h, dev, 0.1, mean) for h, mean in
+            ((h2, 0.0), (h1, 1.0), (h1, 0.0), (h2, 1.0), (h2, 0.0))]
+    idx = torch.zeros((n, s, k), dtype=torch.int32, device=dev)
+    mask = torch.zeros((n, s, k), dtype=torch.bool, device=dev)
+    args = (u, sv, w2, *vecs, idx, mask, mask)
+    for dtype in DTYPES:
+        for cache in (None, torch.bfloat16):
+            diff = [a.clone().requires_grad_() for a in args[:8]]
+            out, stats = sa_train(*diff, *args[8:], compute_dtype=dtype, cache_dtype=cache)
+            want_out, want_stats = sa_train_plain(*args, compute_dtype=dtype,
+                                                  cache_dtype=cache)
+            assert out.shape == want_out.shape == (0, s, h2)
+            for g, w in zip(stats, want_stats):
+                assert torch.equal(g, w)
+            out.sum().backward()
+            assert diff[0].grad.shape == (0, p, h1) and diff[1].grad.shape == (0, s, h1)
 
 
 def test_sa_train_kernels_are_deterministic(dev):

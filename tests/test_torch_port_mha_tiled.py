@@ -251,10 +251,138 @@ def test_a_fused_route_has_a_plan_at_every_batch(dtype):
 
 
 def test_check_tiled_names_its_limit():
+    """The tiled chain refuses D off the multiples of 128 and a head too wide
+    for the key-tiled core's smallest tile (dh = 1280 in f32), naming the
+    shared-memory limit; no length is refused."""
     with pytest.raises(ValueError, match="232448"):
-        cuda_mha.check_tiled(512, 512, 1024, 4, torch.float32)
+        cuda_mha.check_tiled(512, 512, 1280, 1, torch.float32)
     with pytest.raises(ValueError, match="multiple of 128"):
         cuda_mha.check_tiled(16, 16, 320, 4, torch.bfloat16)
+    cuda_mha.check_tiled(512, 512, 1024, 4, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("length", [117, 128, 512])
+def test_check_tiled_takes_every_length(dtype, length):
+    """At E=1024 with 4 heads the one-block core's layout exceeds a block's
+    shared memory from Lq = Lk = 117 in bf16 (70 in f32); the chain takes
+    such lengths with the key-tiled core, whose shared memory does not grow
+    with Lq or Lk, self- and cross-attention alike."""
+    layout = cuda_mha.check_tiled(length, length, 1024, 4, dtype)
+    cuda_mha.check_tiled(16, length, 1024, 4, dtype)
+    assert layout == cuda_mha.core_layout(length, length, 1024, 4, dtype)
+    assert cuda_mha.core_smem(length, length, 1024, 4, dtype) > 232448
+    assert layout.kind == "keys" and 0 < layout.smem <= 232448
+    assert layout == cuda_mha.core_layout(4 * length, 3 * length, 1024, 4, dtype)
+    assert layout.smem == cuda_mha.keys_smem(layout.rows, layout.chunk, 256, dtype)
+
+
+def test_config_shapes_keep_the_one_block_core():
+    """Every attention shape of Config()'s models that takes the tiled chain
+    (at every pair of the config's sequence lengths, both dtypes, fused_attn
+    "all") still gets the one-block core, the one the smoke measures; the
+    key-tiled core starts where that layout stops fitting (Lq = Lk = 117 in
+    bf16, 70 in f32, at E=1024)."""
+    cfg = Config()
+    m = cfg.model
+    lengths = sorted({m.max_hint_tokens, m.num_mentioned, m.object_size, m.pad_size})
+    with torch.device("meta"):
+        blocks = {(mod.query.weight.shape[0], mod.num_heads)
+                  for kind in ("coarse", "fine") for mod in build_model(cfg, kind).modules()
+                  if isinstance(mod, MultiheadAttentionParams)}
+    seen = 0
+    for d, heads in blocks:
+        for dtype in (torch.float32, torch.bfloat16):
+            for lq in lengths:
+                for lk in lengths:
+                    for self_attn in ((True, False) if lq == lk else (False,)):
+                        if cuda_mha.route(lq, lk, d, heads, dtype, self_attn=self_attn) == "tiled":
+                            assert cuda_mha.core_layout(lq, lk, d, heads, dtype).kind == "block"
+                            seen += 1
+    assert seen > 0
+    for dtype, first in ((torch.bfloat16, 117), (torch.float32, 70)):
+        assert cuda_mha.core_layout(first - 1, first - 1, 1024, 4, dtype).kind == "block"
+        assert cuda_mha.core_layout(first, first, 1024, 4, dtype).kind == "keys"
+
+
+def _one_block_core(s, v, dt):
+    """The one-block core's arithmetic on f32 scores s [Lq, Lk] (key bias
+    added) and v [Lk, dh]: the row max; the sum of exp(s - max) in key
+    order; p = round_T(exp(s - max) / sum); o sums p v in key order."""
+    m = s.amax(dim=1)
+    e = torch.exp(s - m[:, None])
+    total = torch.zeros_like(m)
+    for j in range(s.shape[1]):
+        total = total + e[:, j]
+    p = (e / total[:, None]).to(dt).float()
+    o = torch.zeros(s.shape[0], v.shape[1])
+    for j in range(s.shape[1]):
+        o = o + p[:, j:j + 1] * v[j]
+    return p, o
+
+
+def _key_tiled_core(q, k, v, bias, dt, rq, ck):
+    """The key-tiled core's arithmetic (csrc/mha_tiled.cu): per tile of rq
+    query rows, three sweeps over key chunks of ck rows, each recomputing
+    the chunk's scores: the rows' max; their sum of exp(s - max) in key
+    order; p = round_T(exp(s - max) / sum) and the output sums carried from
+    chunk to chunk. Returns (p [Lq, Lk], o [Lq, dh])."""
+    lq, lk = q.shape[0], k.shape[0]
+    p_all = torch.zeros(lq, lk)
+    o_all = torch.zeros(lq, v.shape[1])
+    for q0 in range(0, lq, rq):
+        qt = q[q0:q0 + rq]
+        m = torch.full((qt.shape[0],), -math.inf)
+        total = torch.zeros(qt.shape[0])
+        acc = torch.zeros(qt.shape[0], v.shape[1])
+        for sweep in range(3):
+            for c0 in range(0, lk, ck):
+                s = qt @ k[c0:c0 + ck].t() + bias[c0:c0 + ck]
+                if sweep == 0:
+                    m = torch.maximum(m, s.amax(dim=1))
+                elif sweep == 1:
+                    e = torch.exp(s - m[:, None])
+                    for j in range(s.shape[1]):
+                        total = total + e[:, j]
+                else:
+                    p = (torch.exp(s - m[:, None]) / total[:, None]).to(dt).float()
+                    p_all[q0:q0 + rq, c0:c0 + ck] = p
+                    for j in range(s.shape[1]):
+                        acc = acc + p[:, j:j + 1] * v[c0 + j]
+        o_all[q0:q0 + rq] = acc
+    return p_all, o_all
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_key_tiled_softmax_matches_the_one_block_core(dt):
+    """The key-tiled core's two-pass chunked softmax (max, then the sum of
+    exponentials, then normalised p) against the one-block core's softmax:
+    in f32 p and o within 1e-6 of it, in bf16 the same rounded p, for a
+    sample with a whole chunk of masked keys and an all-masked sample
+    (which attends uniformly over its own keys); both within 1e-5 (f32) of
+    the plain core, whose softmax is torch's."""
+    rng = np.random.default_rng(11)
+    lq, lk, dh, rq, ck = 70, 100, 64, 32, 16
+    q, k, v = (torch.from_numpy((rng.normal(size=(2, n, dh)) * scale).astype(np.float32))
+               .to(dt).float() for n, scale in ((lq, dh ** -0.5), (lk, 1.0), (lk, 1.0)))
+    mask = torch.from_numpy(rng.random((2, lk)) > 0.3)
+    mask[0, 16:32] = False                            # a chunk of masked keys
+    mask[1] = False                                   # an all-masked sample
+    bias = torch.where(mask, 0.0, -1e9).float()
+    plain = mha_core_plain(q.to(dt), k.to(dt), v.to(dt), mask, num_heads=1).float()
+    for b in range(2):
+        p_one, o_one = _one_block_core(q[b] @ k[b].t() + bias[b], v[b], dt)
+        p_key, o_key = _key_tiled_core(q[b], k[b], v[b], bias[b], dt, rq, ck)
+        if dt == torch.float32:
+            assert (p_key - p_one).abs().max() <= 1e-6
+            assert (o_key - o_one).abs().max() <= 1e-6 * o_one.abs().max()
+            assert (o_key - plain[b]).abs().max() <= 1e-5 * plain[b].abs().max()
+        else:
+            assert torch.equal(p_key, p_one)
+        if b == 0:
+            assert (p_key[:, ~mask[0]] == 0).all()
+        else:
+            assert torch.allclose(p_key, torch.full_like(p_key, 1.0 / lk), rtol=1e-2)
 
 
 @pytest.mark.parametrize("value", ["1", "all"])

@@ -123,10 +123,10 @@ _SIGNATURES = {
        for sel in ("first", "bisect", "gather", "exact", "all")},
     "t2l_mha_addln_layout": ([_I] * 8, ctypes.c_size_t),
     "t2l_mha_addln": ([_P] * 14 + [_I] * 5 + [_F, _F] + [_I] * 5 + [_P], _I),
-    "t2l_mha_tiled_core_smem": ([_I] * 5, ctypes.c_size_t),
-    "t2l_mha_addln_tiled": ([_P] * 13 + [_I] * 5 + [_F, _F, _I, _I, _P], _I),
+    "t2l_mha_tiled_core_smem": ([_I] * 7, ctypes.c_size_t),
+    "t2l_mha_addln_tiled": ([_P] * 13 + [_I] * 7 + [_F, _F, _I, _I, _P], _I),
     "t2l_mha_tiled_gemm": ([_P, _I, _P, _I, _P, _P, _I, _P] + [_I] * 5 + [_F, _I, _P], _I),
-    "t2l_mha_tiled_core": ([_P, _I, _P, _P, _I, _P, _P] + [_I] * 6 + [_P], _I),
+    "t2l_mha_tiled_core": ([_P, _I, _P, _P, _I, _P, _P] + [_I] * 8 + [_P], _I),
     "t2l_mha_tiled_ln": ([_P] * 4 + [_I, _I, _F, _I, _P], _I),
     "t2l_ffn_addln_smem": ([_I] * 3, ctypes.c_size_t),
     "t2l_ffn_addln": ([_P] * 8 + [_I] * 3 + [_F, _I, _P], _I),

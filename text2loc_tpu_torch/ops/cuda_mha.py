@@ -111,25 +111,64 @@ def fused_plan(b: int, lq: int, lk: int, d: int, heads: int, dtype, *,
 
 
 def core_smem(lq: int, lk: int, d: int, heads: int, dtype) -> int:
-    """Shared bytes of the tiled chain's attention core (one block per sample
-    and head): q, k, v of the head in the dtype, then the f32 [lq, lk]
-    probabilities (core_smem in csrc/mha_tiled.cu)."""
+    """Shared bytes of the tiled chain's one-block attention core (one block
+    per sample and head): q, k, v of the head in the dtype, then the f32
+    [lq, lk] probabilities (core_smem in csrc/mha_tiled.cu)."""
     return _align16(_tsize(dtype) * (lq + 2 * lk) * (d // heads)) + 4 * lq * lk
 
 
-def check_tiled(lq: int, lk: int, d: int, heads: int, dtype) -> None:
-    """Raise ValueError where the tiled chain cannot take the shape: D a
-    multiple of 128 (the GEMM tiles; the TPU kernel asks the same), and the
-    attention core's q, k, v of one head plus its probabilities within a
-    block's shared memory."""
+def keys_smem(rq: int, ck: int, dh: int, dtype) -> int:
+    """Shared bytes of the key-tiled core for rq query rows and key chunks
+    of ck rows (keys_layout in csrc/mha_tiled.cu): q [rq][dh], a chunk of k
+    and of v [ck][dh] in the dtype; the chunk's f32 scores [rq][ck], the f32
+    output sums [rq][dh], each row's max and sum."""
+    t = _tsize(dtype)
+    return (_align16(t * rq * dh) + 2 * _align16(t * ck * dh) + _align16(4 * rq * ck)
+            + _align16(4 * rq * dh) + 2 * _align16(4 * rq))
+
+
+KEY_TILES = ((32, 64), (32, 32), (32, 16), (16, 16), (8, 16))   # (rq, ck), first that fits
+
+
+class CoreLayout(NamedTuple):
+    kind: str       # "block": one block per (sample, head); "keys": key-tiled
+    rows: int       # query rows per block of the key-tiled core (0 for "block")
+    chunk: int      # keys per chunk of the key-tiled core (0 for "block")
+    smem: int       # dynamic shared bytes per block
+
+
+def core_layout(lq: int, lk: int, d: int, heads: int, dtype) -> Optional[CoreLayout]:
+    """The attention core the tiled chain launches, passed to the kernels
+    as (rows, chunk), which only check it (t2l_mha_tiled_core_smem): the
+    one-block core where a head's q, k, v and probabilities fit a block's
+    shared memory, else the key-tiled core with the first of KEY_TILES that
+    fits, whose shared memory does not grow with Lq or Lk; None where
+    neither fits (a head far wider than any model's)."""
+    one = core_smem(lq, lk, d, heads, dtype)
+    if one <= _cuda.SMEM_LIMIT:
+        return CoreLayout("block", 0, 0, one)
+    for rq, ck in KEY_TILES:
+        need = keys_smem(rq, ck, d // heads, dtype)
+        if need <= _cuda.SMEM_LIMIT:
+            return CoreLayout("keys", rq, ck, need)
+    return None
+
+
+def check_tiled(lq: int, lk: int, d: int, heads: int, dtype) -> CoreLayout:
+    """The attention core's layout of the tiled chain at this shape;
+    ValueError where the chain cannot take it: D a multiple of 128 (the GEMM
+    tiles; the TPU kernel asks the same), and a head's q rows and key chunks
+    within a block's shared memory (any Lq and Lk: the key-tiled core
+    streams the keys)."""
     if d % 128:
         raise ValueError(f"the tiled attention block takes D a multiple of 128, not {d}")
-    need = core_smem(lq, lk, d, heads, dtype)
-    if need > _cuda.SMEM_LIMIT:
+    layout = core_layout(lq, lk, d, heads, dtype)
+    if layout is None:
+        dh = d // heads
         raise ValueError(
-            f"the tiled attention core needs (Lq + 2 Lk) * dh * {_tsize(dtype)} + 4 Lq Lk = "
-            f"{need} B of shared memory (Lq={lq}, Lk={lk}, dh={d // heads}, {dtype}); "
-            f"the limit is {_cuda.SMEM_LIMIT} B")
+            f"the key-tiled attention core needs at least {keys_smem(*KEY_TILES[-1], dh, dtype)} "
+            f"B of shared memory at dh={dh} ({dtype}); the limit is {_cuda.SMEM_LIMIT} B")
+    return layout
 
 
 def _check_block(x, kv, mats, vecs, num_heads):
@@ -172,9 +211,9 @@ def mha_addln_cuda(x, kv, wq, bq, wk, bk, wv, bv, wo, bo, scale, bias,
     mats = [t.to(dt).contiguous() for t in (wq, wk, wv, wo)]
     vecs = [t.float().contiguous() for t in (bq, bk, bv, bo, scale, bias)]
     b, lq, lk, d = _check_block(x, kv, mats, vecs, num_heads)
-    check_tiled(lq, lk, d, num_heads, dt)
+    layout = check_tiled(lq, lk, d, num_heads, dt)
     kb = key_bias(key_mask, b, lk, x.device).contiguous()
-    return _tiled_block(x, kv, kb, mats, vecs, num_heads, eps, self_attn)
+    return _tiled_block(x, kv, kb, mats, vecs, num_heads, eps, self_attn, layout)
 
 
 def _as_given(t, dtype):
@@ -235,9 +274,10 @@ def _packed_qkv(wq, bq, wk, bk, wv, bv, dt):
             torch.cat([t.float() for t in (bq, bk, bv)]))
 
 
-def _tiled_block(x, kv, kb, mats, vecs, num_heads, eps, self_attn):
-    """One call of t2l_mha_addln_tiled: the projection GEMM(s), the core,
-    the out-projection GEMM with the residual, the LayerNorm. Scratch
+def _tiled_block(x, kv, kb, mats, vecs, num_heads, eps, self_attn, layout):
+    """One call of t2l_mha_addln_tiled: the projection GEMM(s), the core
+    (of `layout`), the out-projection GEMM with the residual, the
+    LayerNorm. Scratch
     from torch.empty: q/k/v and o in the dtype, the pre-norm rows in f32."""
     dt = x.dtype
     b, lq, d = x.shape
@@ -256,7 +296,7 @@ def _tiled_block(x, kv, kb, mats, vecs, num_heads, eps, self_attn):
             KERNEL_TILED, "t2l_mha_addln_tiled",
             *(_cuda.ptr(t) for t in (x, kv, kb, wqkv, bqkv, wo, bo, g, be, out, qkv,
                                      o, s2)),
-            b, lq, lk, d, num_heads,
+            b, lq, lk, d, num_heads, layout.rows, layout.chunk,
             ctypes.c_float(1.0 / math.sqrt(d // num_heads)), ctypes.c_float(eps),
             int(self_attn), _cuda.DTYPE_CODE[dt],
         )
@@ -313,14 +353,14 @@ def tiled_core_cuda(q, k, v, key_mask=None, *, num_heads: int):
     dt = q.dtype
     b, lq, d = q.shape
     lk = k.shape[1]
-    check_tiled(lq, lk, d, num_heads, dt)
+    layout = check_tiled(lq, lk, d, num_heads, dt)
     for name, t in (("q", q), ("k", k), ("v", v)):
         _cuda.check(t, name, dtype=dt)
     kb = key_bias(key_mask, b, lk, q.device).contiguous()
     o = torch.empty_like(q)
     _cuda.launch(KERNEL_TILED, "t2l_mha_tiled_core", _cuda.ptr(q), d, _cuda.ptr(k),
                  _cuda.ptr(v), d, _cuda.ptr(kb), _cuda.ptr(o), b, lq, lk, d, num_heads,
-                 _cuda.DTYPE_CODE[dt], count=False)
+                 layout.rows, layout.chunk, _cuda.DTYPE_CODE[dt], count=False)
     return o
 
 

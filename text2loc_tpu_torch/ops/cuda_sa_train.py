@@ -37,7 +37,8 @@ KERNEL_E_BWD = _cuda.Kernel(
 MAX_WIDTH = 256    # 8 columns per lane of a warp
 MAX_K = 64         # a center's K edges fit one tile of <= 64 rows
 _WARPS = 8
-_BLOCKS_PER_SM = 2
+FWD_BLOCKS_PER_SM = 2   # the forward's grid: this many blocks per SM
+FWD_MAX_CENTERS = 8     # centers of a forward tile (kMaxCenters, csrc/sa_train_common.cuh)
 # Backward tile layouts (tile rows, W2 resident in shared memory): a pass
 # takes, of those that hold a center's K edges and fit a block's shared
 # memory, the one with the most rows in flight on an SM (tile rows x blocks
@@ -121,7 +122,7 @@ class Level:
             self.sym_fwd, self.sym_bwd = "t2l_sa_train_e_fwd", "t2l_sa_train_e_bwd"
         sms = torch.cuda.get_device_properties(u.device).multi_processor_count
         self.sms = sms
-        self.blocks = max(1, min(n, _BLOCKS_PER_SM * sms))
+        self.blocks = max(1, min(n, FWD_BLOCKS_PER_SM * sms))
         self.bwd_layouts = BWD_LAYOUTS
 
     def rpt(self) -> int:
@@ -149,20 +150,28 @@ class Level:
         holds, at most one per cloud."""
         return max(1, min(self.n, self.sms * self.bwd_plan(pass_id)[3]))
 
+    def fwd_tiles(self):
+        """(tiles, mean filled rows per tile) of each forward pass: tiles of
+        8 x rpt rows and at most FWD_MAX_CENTERS centers (see _tiles)."""
+        return self._tiles(_WARPS * self.rpt(), FWD_MAX_CENTERS)
+
     def bwd_tiles(self, pass_id: int):
-        """(tiles, mean filled rows per tile) of the backward pass: each
-        cloud's centers packed in order into tiles of its height and at most
-        BWD_MAX_CENTERS centers, an edge kept where it is valid in either
-        mask, as the kernels pack them (for the reports; not on the main
-        path)."""
-        rows = self.bwd_plan(pass_id)[0]
+        """(tiles, mean filled rows per tile) of the backward pass: tiles of
+        its height and at most BWD_MAX_CENTERS centers (see _tiles)."""
+        return self._tiles(self.bwd_plan(pass_id)[0], BWD_MAX_CENTERS)
+
+    def _tiles(self, rows: int, max_centers: int):
+        """(tiles, mean filled rows per tile): each cloud's centers packed in
+        order into tiles of `rows` edge rows and at most `max_centers`
+        centers, an edge kept where it is valid in either mask, as the
+        kernels pack them (for the reports; not on the main path)."""
         kept = (self.maskm | self.maskf).sum(-1)               # [N, S]
         used = torch.zeros(self.n, dtype=kept.dtype, device=kept.device)
         taken = torch.zeros_like(used)
         tiles = torch.full_like(used, 1 if self.s else 0)
         for j in range(self.s):
             c = kept[:, j]
-            new = (used + c > rows) | (taken == BWD_MAX_CENTERS)
+            new = (used + c > rows) | (taken == max_centers)
             tiles += new.to(tiles.dtype)
             used = torch.where(new, c, used + c)
             taken = torch.where(new, torch.ones_like(taken), taken + 1)
