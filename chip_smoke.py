@@ -33,9 +33,12 @@ toolkit. Phases, each printing one JSON line:
    against its plain forward and hand-derived plain backward at the coarse
    train step's three levels (896 clouds, K=32), f32 and bf16, each case
    line with its passes alone (stages: ms of stats1 / stats2 / out for the
-   forward, of stats / mid / in for the backward, reduces included) and its
-   tiles (count, mean filled rows), blocks_per_sm, tile rows and whether W2
-   sits in shared memory (per pass for the backward);
+   forward, of stats / mid / in for the backward, reduces included) and per
+   pass its tiles (count, mean filled rows), blocks_per_sm, tile rows and
+   whether W2 sits in shared memory; the backward fed dout with zeros at
+   the level's near-ties of the neighbour max (ops/sa_train.near_ties), at
+   most 1e-5 of its (cloud, center, column) pairs, with near_ties,
+   near_tie_share and the unmasked errors rel_l2_errs_full on its line;
 4. serve: the cached serve (Localizer.localize) at the full width of the
    default Config (bf16) over a 64-cell synthetic map with seeded random
    weights; batches of 1, 8 and 64 queries; every serve kernel's launch
@@ -618,16 +621,23 @@ def phase_kernels(dev) -> dict:
 
 
 # The training SA level's gradients are checked by relative L2 error, not
-# by the largest element: the backward of the neighbour max and of the
-# ReLUs is discontinuous, and the kernel's z differs from the plain
-# version's in the last bits (another order of sums), so at a few of the
-# millions of (center, channel) pairs a near-tie picks another winning
-# edge, or a pre-activation within an ulp of 0 falls on the other side;
-# each such flip moves O(1) of gradient between edges, and neither side is
-# the more exact one at such a tie. Gradients whose exact value is
-# near zero (db2, BN shift invariance) are sums of cancelling terms: their
-# norm is floored at 1e-3 x the largest gradient norm of the case.
+# by the largest element: the backward of the ReLUs is discontinuous, and
+# the kernel's z differs from the plain version's in the last bits (another
+# order of sums). Gradients whose exact value is near zero (db2, BN shift
+# invariance) are sums of cancelling terms: their norm is floored at 1e-3 x
+# the largest gradient norm of the case. The neighbour max moves the whole
+# dout of a (center, column) to its winning edge: where two edges tie
+# within f32 rounding, or the winner's pre-activation lies within rounding
+# of the ReLU's kink, the kernel and the plain version can pick otherwise,
+# each as exact as the other, and that one pair moves O(1) of gradient (a
+# rel-L2 of about 1e-3 at the smoke's levels, which the limit's pass or
+# fail would then leave to where such pairs fall). So both backwards take
+# dout with zeros at the pairs sa_train.near_ties marks, where the gradient
+# is not defined to within rounding (exact ties already split evenly), at
+# the unchanged limits; the marked pairs may be at most NEAR_TIE_SHARE of a
+# level's, and the unmasked errors are reported beside (rel_l2_errs_full).
 SA_TRAIN_GRAD_FLOOR = 1e-3
+NEAR_TIE_SHARE = 1e-5
 
 
 def _bwd_info(level, aux1, aux2, n1, dout) -> dict:
@@ -657,18 +667,52 @@ def _bwd_info(level, aux1, aux2, n1, dout) -> dict:
 def _fwd_info(level, aux1, aux2) -> dict:
     """The training forward's passes alone on the card: `stages`, ms of
     stats1 / stats2 / out with their reduce launches (median of 10 by CUDA
-    events, each fed the forward's aux rows), and the layout its three
-    passes share: `tiles` (tiles, mean filled rows), tile `rows`, the grid
-    (`blocks`, `blocks_per_sm`) and `resident` (0: W2 is read from device
-    memory, not held in shared memory)."""
-    from text2loc_tpu_torch.ops import cuda_sa_train
-
+    events, each fed the forward's aux rows), and per pass the plan:
+    `blocks_per_sm` (what cudaOccupancyMaxActiveBlocksPerMultiprocessor
+    gives the kernel), the grid `blocks`, tile `rows` and `resident` (W2
+    held in shared memory; stats1 takes no tiles: 0, 0), and for the two
+    passes that form z `tiles` (tiles, mean filled rows)."""
     stages = {"stats1": cuda_ms(lambda: level.stats(1, aux1, aux2)),
               "stats2": cuda_ms(lambda: level.stats(2, aux1, aux2)),
               "out": cuda_ms(lambda: level.out(aux1, aux2))}
-    return {"stages": stages, "tiles": level.fwd_tiles(), "rows": 8 * level.rpt(),
-            "blocks": level.blocks, "blocks_per_sm": cuda_sa_train.FWD_BLOCKS_PER_SM,
-            "resident": 0}
+    passes = (1, 2, 3)
+    return {"stages": stages,
+            "tiles": {str(p): level.fwd_tiles(p) for p in (2, 3)},
+            "blocks_per_sm": {str(p): level.fwd_plan(p)[3] for p in passes},
+            "blocks": {str(p): level.fwd_blocks(p) for p in passes},
+            "rows": {str(p): level.fwd_plan(p)[0] for p in passes},
+            "resident": {str(p): level.fwd_plan(p)[1] for p in passes}}
+
+
+def _sa_train_bwd_case(record, name, dt, level, aux1, aux2, n1, dout, plain, cache_dtype,
+                       args, work, counts):
+    """One backward case line: backward_cuda at the forward's aux rows
+    against `plain(dout)` (the hand-derived plain backward at the same
+    rows), both fed dout with zeros at the level's near-ties (see
+    SA_TRAIN_GRAD_FLOOR), with `near_ties`, `near_tie_share` and the
+    unmasked errors `rel_l2_errs_full` on the line."""
+    from text2loc_tpu_torch.ops import sa_train
+
+    u, sv, w2, idx, maskm = args
+    ties = sa_train.near_ties(u, sv, w2, idx, maskm, aux1, aux2, dt, cache_dtype)
+    count = int(ties.sum().item())
+    share = count / max(ties.numel(), 1)
+    full_want = plain(dout)
+    full_floor = SA_TRAIN_GRAD_FLOOR * max(w.norm().item() for w in full_want)
+    full = [((g - w).norm() / max(w.norm().item(), full_floor)).item() for g, w in
+            zip(sa_train.backward_cuda(level, aux1, aux2, n1, dout), full_want)]
+    dout_m = dout.masked_fill(ties, 0.0)
+    want = plain(dout_m)
+    floor = SA_TRAIN_GRAD_FLOOR * max(w.norm().item() for w in want)
+    record.add(
+        name, dt, list(zip(sa_train.backward_cuda(level, aux1, aux2, n1, dout_m), want)),
+        lambda: sa_train.backward_cuda(level, aux1, aux2, n1, dout_m),
+        lambda: plain(dout_m), work, norm_floor=floor, counts=counts,
+        info={**_bwd_info(level, aux1, aux2, n1, dout_m), "near_ties": count,
+              "near_tie_share": share, "rel_l2_errs_full": full})
+    check(share <= NEAR_TIE_SHARE,
+          f"{name} {dt}: near-ties {count} of {ties.numel()} pairs (limit: a share of "
+          f"{NEAR_TIE_SHARE})")
 
 
 def phase_sa_train_kernels(dev) -> dict:
@@ -721,21 +765,16 @@ def phase_sa_train_kernels(dev) -> dict:
                 (2.0 * edges * h1 * h2, io_bytes + n * s * h2 * 4, dt),
                 counts=dt == torch.float32, info=_fwd_info(level, aux1, aux2))
             n1 = stats[4]
-            got = sa_train.backward_cuda(level, aux1, aux2, n1, dout)
-            want = sa_train.sa_train_backward_plain(u, sv, w2, idx, maskm, maskf, aux1,
-                                                    aux2, n1, dout, dt)
-            floor = SA_TRAIN_GRAD_FLOOR * max(w.norm().item() for w in want)
-            records["sa_train_bwd"].add(
-                f"sa_train_bwd {tag}", dt, list(zip(got, want)),
-                lambda lv=level, a1=aux1, a2=aux2, c=n1: sa_train.backward_cuda(
-                    lv, a1, a2, c, dout),
-                lambda dt=dt, a1=aux1, a2=aux2, c=n1: sa_train.sa_train_backward_plain(
-                    u, sv, w2, idx, maskm, maskf, a1, a2, c, dout, dt),
+            _sa_train_bwd_case(
+                records["sa_train_bwd"], f"sa_train_bwd {tag}", dt, level, aux1, aux2, n1,
+                dout,
+                lambda d, dt=dt, a1=aux1, a2=aux2, c=n1: sa_train.sa_train_backward_plain(
+                    u, sv, w2, idx, maskm, maskf, a1, a2, c, d, dt),
+                None, (u, sv, w2, idx, maskm),
                 (4.0 * edges * h1 * h2,
                  io_bytes + n * s * h2 * 4
                  + (n * p * h1 + n * s * h1 + h1 * h2 + 2 * h1 + 3 * h2) * 4, dt),
-                norm_floor=floor, counts=dt == torch.float32,
-                info=_bwd_info(level, aux1, aux2, n1, dout))
+                dt == torch.float32)
             _sa_train_e_cases(records, tag, dt, edges, io_bytes,
                               (u, sv, w2, b2, g1, be1, g2, be2, idx, maskm, maskf), dout)
         pos = ctr
@@ -770,19 +809,15 @@ def _sa_train_e_cases(records, tag, dt, edges, io_bytes, args, dout):
         plain, (2.0 * edges * h1 * h2, io_bytes + n * s * h2 * 4, dt),
         counts=dt == bf16, info=_fwd_info(level, aux1, aux2))
     n1 = stats[4]
-    got = sa_train.backward_cuda(level, aux1, aux2, n1, dout)
-    want = sa_train.sa_train_backward_plain(u, sv, w2, idx, maskm, maskf, aux1, aux2, n1,
-                                            dout, dt, bf16)
-    floor = SA_TRAIN_GRAD_FLOOR * max(w.norm().item() for w in want)
-    records["sa_train_e_bwd"].add(
-        f"sa_train_e_bwd {tag}", dt, list(zip(got, want)),
-        lambda: sa_train.backward_cuda(level, aux1, aux2, n1, dout),
-        lambda: sa_train.sa_train_backward_plain(u, sv, w2, idx, maskm, maskf, aux1, aux2,
-                                                 n1, dout, dt, bf16),
+    _sa_train_bwd_case(
+        records["sa_train_e_bwd"], f"sa_train_e_bwd {tag}", dt, level, aux1, aux2, n1, dout,
+        lambda d: sa_train.sa_train_backward_plain(u, sv, w2, idx, maskm, maskf, aux1, aux2,
+                                                   n1, d, dt, bf16),
+        bf16, (u, sv, w2, idx, maskm),
         (4.0 * edges * h1 * h2,
          io_bytes + n * s * h2 * 4
          + (n * u.shape[1] * h1 + n * s * h1 + h1 * h2 + 2 * h1 + 3 * h2) * 4, dt),
-        norm_floor=floor, counts=dt == bf16, info=_bwd_info(level, aux1, aux2, n1, dout))
+        dt == bf16)
 
 
 def _ulp_limit(dtype):

@@ -15,11 +15,12 @@ JSON line:
   finalization between them; `plain_ms`: the plain forward;
 - `stages`: ms of each pass alone with its reduce launch (`stats1`,
   `stats2`, `out`) and of the two reduce launches alone (`reduce`);
-- the layout the three passes share: `rows`, the tile height (8 x rpt);
-  `tiles`, `mean_rows`, the tiles of edge rows a pass walks and their mean
-  count of filled rows (Level.fwd_tiles: from the masks, as the kernels
-  pack the edges); `blocks`, the grid, `blocks_per_sm` blocks per SM (W2
-  is read from device memory, not held in shared memory).
+- each pass's plan (Level.fwd_plan, "1" "2" "3"): `rows`, the tile
+  height (stats1 takes no tiles: 0), `resident` (W2 held in shared memory),
+  `blocks_per_sm` (the occupancy query's), `blocks` (the grid), and for the
+  two passes that form z `tiles`: (tiles, mean filled rows), from the
+  masks, as the kernels pack the edges. A checkout from before the plan
+  (`--root`) gives its one layout of 8 x rpt rows and 2 blocks per SM.
 
 Each time is the median of `--reps` by CUDA events after a warm-up. The
 first line is the card's nvidia-smi name and power limit.
@@ -103,8 +104,21 @@ def main() -> int:
                 plain_ms = cuda_ms(lambda: sa_train.sa_train_plain(
                     u, sv, w2, b2, g1, be1, g2, be2, idx, maskm, maskf, compute_dtype=dt,
                     cache_dtype=cache), args.reps)
-                tiles, mean_rows = level.fwd_tiles()
-                parts = [torch.zeros(level.blocks, 2, h, device=dev) for h in (h1, h2)]
+                if hasattr(level, "fwd_plan"):
+                    passes = (1, 2, 3)
+                    plan = {str(i): level.fwd_plan(i) for i in passes}
+                    grid = {i: level.fwd_blocks(i) for i in passes}
+                    layout = {"rows": {i: v[0] for i, v in plan.items()},
+                              "resident": {i: v[1] for i, v in plan.items()},
+                              "blocks_per_sm": {i: v[3] for i, v in plan.items()},
+                              "blocks": {str(i): grid[i] for i in passes},
+                              "tiles": {str(i): level.fwd_tiles(i) for i in (2, 3)}}
+                else:
+                    grid = {1: level.blocks, 2: level.blocks}
+                    layout = {"rows": 8 * level.rpt(), "resident": 0,
+                              "blocks_per_sm": cuda_sa_train.FWD_BLOCKS_PER_SM,
+                              "blocks": level.blocks, "tiles": level.fwd_tiles()}
+                parts = [torch.zeros(grid[i], 2, h, device=dev) for i, h in ((1, h1), (2, h2))]
                 stages = {
                     "stats1": cuda_ms(lambda: level.stats(1, aux1, aux2), args.reps),
                     "stats2": cuda_ms(lambda: level.stats(2, aux1, aux2), args.reps),
@@ -115,10 +129,8 @@ def main() -> int:
                 print(json.dumps({
                     "root": root, "kernel": name, "level": f"P={p} S={s} H={h1}->{h2}",
                     "edges": int(maskm.sum().item()), "dtype": str(dt).split(".")[-1],
-                    "fwd_ms": fwd_ms, "plain_ms": plain_ms, "stages": stages,
-                    "rows": 8 * level.rpt(), "tiles": tiles, "mean_rows": mean_rows,
-                    "blocks": level.blocks,
-                    "blocks_per_sm": cuda_sa_train.FWD_BLOCKS_PER_SM}), flush=True)
+                    "fwd_ms": fwd_ms, "plain_ms": plain_ms, "stages": stages, **layout}),
+                    flush=True)
         pos = ctr
     return 0
 

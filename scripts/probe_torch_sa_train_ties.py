@@ -5,25 +5,34 @@ neighbour max, on the card.
 
 chip_smoke.py's phase 3 holds sa_train_bwd against sa_train_backward_plain
 at the kernel forward's BN statistics, by relative L2 error (1e-3 in f32,
-floored at SA_TRAIN_GRAD_FLOOR x the largest gradient norm). Where two
-edges of a center tie within rounding in a column, the kernel's z and the
-plain version's (cuBLAS) z can pick different winners of the neighbour
-max, which moves O(1) of gradient between the two edges. This script
-measures that at the coarse step's three levels with chip_smoke.py's
-inputs, in f32, and prints one JSON line per level:
+floored at SA_TRAIN_GRAD_FLOOR x the largest gradient norm), both fed dout
+with zeros at the pairs ops/sa_train.near_ties marks. Where two edges of a
+center tie within rounding in a column, the kernel's z and the plain
+version's (cuBLAS) z can pick different winners of the neighbour max,
+which moves O(1) of gradient between the two edges. This script measures
+that at the coarse step's three levels with chip_smoke.py's inputs, in
+f32, and prints one JSON line per level:
 
 - `fwd_err_kernel`, `fwd_err_plain`: max |out - out64| / max |out64| of the
   forward kernel's output and of the same function in f32 plain torch,
   both at the kernel forward's statistics; out64 is the function in f64;
 - `rel_l2_kernel_stats`, `rel_l2_plain_stats`: the check's worst relative
-  L2 error over the eight gradients, the backward fed the kernel forward's
-  statistics (as the smoke feeds it) and the plain forward's;
+  L2 error over the eight gradients, unmasked, the backward fed the kernel
+  forward's statistics (as the smoke feeds it) and the plain forward's;
+  `rel_l2_masked_kernel_stats`, `rel_l2_masked_plain_stats`: the same with
+  dout zero at the near-ties (the smoke's form);
+- `near_ties`, `near_tie_share`: the pairs near_ties marks at the kernel
+  forward's statistics, and their share of the level's pairs (the smoke's
+  limit: 1e-5); `tie_counts`: the count at limits 2^-17 .. 2^-21 of the
+  scale (TIE_RTOL is one of them);
 - `winners_differ`: every (center, column) where the plain f32 z and the
-  f64 z put different edges first, with both edges' f64 and f32 values and
-  the kernel forward's max there;
-- `fail_share`: the share of `--draws` draws of relative noise 1e-6 on the
-  plain forward's statistics for which the check's worst error exceeds
-  its limit.
+  f64 z put different edges first, with both edges' f64 and f32 values,
+  the kernel forward's max there and the f64 gap over the pair's scale
+  (`gap_over_scale`); `widest_flip`: the largest of those gaps;
+- `fail_share`, `fail_share_masked`: the share of `--draws` draws of
+  relative noise 1e-6 on the plain forward's statistics for which the
+  check's worst error exceeds its limit, unmasked and masked (near-ties
+  marked anew at each draw's statistics).
 
 The first line is the card's nvidia-smi name and power limit. It imports
 nothing of JAX.
@@ -48,9 +57,9 @@ def rel_l2(got, want, floor_frac):
 
 
 def forward64(u, sv, w2, idx, maskm, aux1, aux2):
-    """y2 [N, S, K, H2] and the masked relu values in f64 (and in f32),
-    at the given statistics: h1 = relu(e * a1 + c1), z = h1 W2 + b2, y2 =
-    z * a2 + c2."""
+    """The masked relu values of y2 [N, S, K, H2] in f64 and in f32, and
+    the scale |a2| (sum_k |h1_k w2_kc| + |b2|) in f64, at the given
+    statistics: h1 = relu(e * a1 + c1), z = h1 W2 + b2, y2 = z * a2 + c2."""
     n, p, h1w = u.shape
     s, k = idx.shape[1:]
     flat = idx.reshape(n, s * k, 1).long().expand(n, s * k, h1w)
@@ -63,7 +72,9 @@ def forward64(u, sv, w2, idx, maskm, aux1, aux2):
         y2 = z * aux2[0].to(dt) + aux2[1].to(dt)
         out[dt] = torch.where(maskm[..., None], torch.relu(y2),
                               torch.full((), -1e30, dtype=dt, device=u.device))
-    return out[torch.float64], out[torch.float32]
+        if dt == torch.float64:
+            scale = aux2[0].to(dt).abs() * (h1 @ w2.to(dt).abs() + aux2[6].to(dt).abs())
+    return out[torch.float64], out[torch.float32], scale
 
 
 def main() -> int:
@@ -112,15 +123,19 @@ def main() -> int:
         _, pstats, paux1, paux2 = sa_train._forward_plain(u, sv, w2, b2, g1, be1, g2, be2, idx,
                                                           maskm, maskf, 1e-5, f32, None)
 
-        def check(a1, a2, n1):
-            got = sa_train.backward_cuda(level, a1, a2, n1, dout)
+        def check(a1, a2, n1, masked):
+            d = dout
+            if masked:
+                d = dout.masked_fill(sa_train.near_ties(u, sv, w2, idx, maskm, a1, a2, f32),
+                                     0.0)
+            got = sa_train.backward_cuda(level, a1, a2, n1, d)
             want = sa_train.sa_train_backward_plain(u, sv, w2, idx, maskm, maskf, a1, a2, n1,
-                                                    dout, f32)
+                                                    d, f32)
             return rel_l2(got, want, cs.SA_TRAIN_GRAD_FLOOR)
 
-        f64, f32v = forward64(u, sv, w2, idx, maskm, kaux1, kaux2)
+        f64, f32v, scale = forward64(u, sv, w2, idx, maskm, kaux1, kaux2)
         out64 = f64.max(dim=2).values.clamp(min=0.0)
-        scale = out64.abs().max().item()
+        peak = out64.abs().max().item()
         pout = f32v.max(dim=2).values.clamp(min=0.0)
         differ = (f32v.argmax(dim=2) != f64.argmax(dim=2)) & (out64 > 0)
         winners = []
@@ -130,21 +145,36 @@ def main() -> int:
             winners.append({"cloud": nn, "center": ss, "column": cc, "edges": [a, b],
                              "f64": vals.tolist(),
                              "plain_f32": [f32v[nn, ss, a, cc].item(), f32v[nn, ss, b, cc].item()],
-                             "kernel_max": kout[nn, ss, cc].item()})
-        fails = 0
+                             "kernel_max": kout[nn, ss, cc].item(),
+                             "gap_over_scale": (vals[0] - vals[1]).item()
+                             / scale[nn, ss, a, cc].item()})
+        del f64, f32v, scale
+        ties = sa_train.near_ties(u, sv, w2, idx, maskm, kaux1, kaux2, f32)
+        counts = {f"2^-{e}": int(sa_train.near_ties(u, sv, w2, idx, maskm, kaux1, kaux2, f32,
+                                                    rtol=2.0 ** -e).sum().item())
+                  for e in range(17, 22)}
+        fails = fails_masked = 0
         for _ in range(args.draws):
             a1, a2 = paux1.clone(), paux2.clone()
             for aux in (a1, a2):
                 aux[:4] *= 1 + 1e-6 * torch.randn(aux[:4].shape, generator=noise, device=dev)
-            fails += check(a1, a2, pstats[4]) > limit
+            fails += check(a1, a2, pstats[4], False) > limit
+            fails_masked += check(a1, a2, pstats[4], True) > limit
         print(json.dumps({
             "level": f"P={p} S={s} H={h1}->{h2}", "pairs": n * s * h2,
-            "fwd_err_kernel": (kout.double() - out64).abs().max().item() / scale,
-            "fwd_err_plain": (pout.double() - out64).abs().max().item() / scale,
-            "rel_l2_kernel_stats": check(kaux1, kaux2, kstats[4]),
-            "rel_l2_plain_stats": check(paux1, paux2, pstats[4]),
-            "limit": limit, "winners_differ": winners,
-            "fail_share": fails / max(args.draws, 1)}), flush=True)
+            "fwd_err_kernel": (kout.double() - out64).abs().max().item() / peak,
+            "fwd_err_plain": (pout.double() - out64).abs().max().item() / peak,
+            "rel_l2_kernel_stats": check(kaux1, kaux2, kstats[4], False),
+            "rel_l2_plain_stats": check(paux1, paux2, pstats[4], False),
+            "rel_l2_masked_kernel_stats": check(kaux1, kaux2, kstats[4], True),
+            "rel_l2_masked_plain_stats": check(paux1, paux2, pstats[4], True),
+            "limit": limit, "near_ties": int(ties.sum().item()),
+            "near_tie_share": ties.sum().item() / ties.numel(),
+            "tie_rtol": sa_train.TIE_RTOL, "tie_counts": counts,
+            "winners_differ": winners,
+            "widest_flip": max((w["gap_over_scale"] for w in winners), default=None),
+            "fail_share": fails / max(args.draws, 1),
+            "fail_share_masked": fails_masked / max(args.draws, 1)}), flush=True)
     return 0
 
 

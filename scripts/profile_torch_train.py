@@ -41,8 +41,10 @@ import profile_torch_serve as prof_lib
 REPO = prof_lib.REPO
 SEED = 0
 # The kernels of csrc/sa_train_fwd.cu and csrc/sa_train_bwd.cu ("sa_bwd"
-# names every backward pass's kernel, of this design and the one before).
-SA_TRAIN_FWD_KERNELS = ("sa_stats_kernel", "sa_out_kernel")
+# names every backward pass's kernel, of this design and the one before;
+# "sa_stats1_kernel" and "sa_fwd" the forward's, "sa_stats_kernel" and
+# "sa_out_kernel" the forward's of the design before).
+SA_TRAIN_FWD_KERNELS = ("sa_stats_kernel", "sa_out_kernel", "sa_stats1_kernel", "sa_fwd")
 SA_TRAIN_KERNELS = SA_TRAIN_FWD_KERNELS + ("sa_reduce_kernel", "sa_bwd")
 
 

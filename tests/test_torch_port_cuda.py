@@ -9,12 +9,15 @@ suite's conftest (which imports jax):
 Tolerances: FPS bit-equal; the others at 1e-4 x max|plain| in f32 and
 2e-2 x max|plain| in bf16 (sums in another order, bf16 rounding points of
 the kernel's own). The training SA level's gradients are held by relative
-L2 error (1e-3 f32, 2e-2 bf16): the neighbour max and the ReLUs have
-discontinuous backwards, and z differs from the plain version's in the last
-bits, so a near-tie can pick another winning edge and move O(1) of gradient
-between edges; norms are floored at 1e-3 x the largest gradient norm of the
-level, since db2 and the BN shift gradients are near zero by BN shift
-invariance (sums of cancelling terms). The add+LN kernel: f32 within 1e-6
+L2 error (1e-3 f32, 2e-2 bf16): the ReLUs have discontinuous backwards, and
+z differs from the plain version's in the last bits; norms are floored at
+1e-3 x the largest gradient norm of the level, since db2 and the BN shift
+gradients are near zero by BN shift invariance (sums of cancelling terms).
+The neighbour max moves a (center, column)'s whole dout to its winning
+edge, so where two edges tie within f32 rounding (or the winner sits at
+the ReLU's kink) either side may pick another winner and move O(1) of
+gradient: both backwards take dout with zeros at the pairs
+ops/sa_train.near_ties marks, as chip_smoke.py's check does. The add+LN kernel: f32 within 1e-6
 x max|plain| (the same two-pass formulas, sums in another order), bf16
 within one bf16 ulp per element (an f32 difference in the last bit can
 round the other way; the ulp of max(|plain|, 2^-8): a smaller output is a
@@ -49,8 +52,9 @@ from text2loc_tpu_torch.ops.pointconv import (
     set_abstraction,
     set_abstraction_plain,
 )
-from text2loc_tpu_torch.ops.sa_train import (backward_cuda, forward_cuda, sa_train,
-                                             sa_train_backward_plain, sa_train_plain)
+from text2loc_tpu_torch.ops.sa_train import (_forward_plain, backward_cuda, forward_cuda,
+                                             near_ties, sa_train, sa_train_backward_plain,
+                                             sa_train_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -527,12 +531,30 @@ SA_TRAIN_SHAPES = [(20, 256, 128, 32, 32, 64), (9, 128, 64, 32, 128, 128),
                    (4, 64, 24, 16, 96, 160), (6, 48, 20, 1, 32, 32)]
 
 
+def _assert_grads_close(got, want, dtype):
+    floor = 1e-3 * max(w.norm().item() for w in want)
+    for g, w in zip(got, want):
+        g, w = g.float().cpu(), w.float().cpu()
+        assert torch.isfinite(g).all()
+        rel = ((g - w).norm() / max(w.norm().item(), floor)).item()
+        assert rel <= REL_L2[dtype], rel
+
+
 def _check_sa_train(dev, dtype, n, p, s, k, h1, h2, cache_dtype=None):
     """The level's forward, statistics and gradients on the card against
-    the plain forward and the hand-derived plain backward."""
+    the plain forward and the hand-derived plain backward (at the plain
+    forward's statistics), dout zero at the near-ties of either forward's
+    statistics."""
     rng = np.random.default_rng(4)
     args = _sa_train_inputs(rng, dev, n, p, s, k, h1, h2)
+    u, sv, w2, b2, g1, be1, g2, be2, idx, maskm, maskf = args
     dout = _randn(rng, (n, s, h2), dev)
+    want_out, want_stats, aux1, aux2 = _forward_plain(*args, 1e-5, dtype, cache_dtype)
+    level = cuda_sa_train.Level(u, sv, w2, idx, maskm, maskf, dtype, cache_dtype)
+    _, _, kaux1, kaux2 = forward_cuda(level, b2, g1, be1, g2, be2, maskf, 1e-5)
+    ties = (near_ties(u, sv, w2, idx, maskm, aux1, aux2, dtype, cache_dtype)
+            | near_ties(u, sv, w2, idx, maskm, kaux1, kaux2, dtype, cache_dtype))
+    dout = dout.masked_fill(ties, 0.0)
     diff = [a.clone().requires_grad_() for a in args[:8]]
     fwd, bwd = ((cuda_sa_train.KERNEL_FWD, cuda_sa_train.KERNEL_BWD) if cache_dtype is None
                 else (cuda_sa_train.KERNEL_E_FWD, cuda_sa_train.KERNEL_E_BWD))
@@ -541,27 +563,13 @@ def _check_sa_train(dev, dtype, n, p, s, k, h1, h2, cache_dtype=None):
     (out * dout).sum().backward()
     assert fwd.launches > before[0]
     assert bwd.launches > before[1]
-    want_out, want_stats = sa_train_plain(*args, compute_dtype=dtype, cache_dtype=cache_dtype)
     _close(out, want_out, dtype)
     for g, w in zip(stats, want_stats):
         _close(g, w, dtype)
     assert (out[0, 0] == 0).all()
-    m1, v1, m2, v2, n1 = want_stats
-    aux1 = torch.zeros(8, h1, device=dev)
-    aux2 = torch.zeros(8, h2, device=dev)
-    for aux, m, v, g, be in ((aux1, m1, v1, args[4], args[5]),
-                             (aux2, m2, v2, args[6], args[7])):
-        inv = torch.rsqrt(v + 1e-5)
-        aux[0], aux[1], aux[2], aux[3] = g * inv, be - m * g * inv, m, inv
-    aux2[6] = args[3]
-    want = sa_train_backward_plain(args[0], args[1], args[2], args[8], args[9], args[10],
-                                   aux1, aux2, n1, dout, dtype, cache_dtype)
-    floor = 1e-3 * max(w.norm().item() for w in want)
-    for d, w in zip(diff, want):
-        got, w = d.grad.float().cpu(), w.float().cpu()
-        assert torch.isfinite(got).all()
-        rel = ((got - w).norm() / max(w.norm().item(), floor)).item()
-        assert rel <= REL_L2[dtype], rel
+    want = sa_train_backward_plain(u, sv, w2, idx, maskm, maskf, aux1, aux2, want_stats[4],
+                                   dout, dtype, cache_dtype)
+    _assert_grads_close([d.grad for d in diff], want, dtype)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -594,15 +602,79 @@ def test_sa_train_bwd_layouts(dev, dtype, rows, resident, cache_dtype):
     level = cuda_sa_train.Level(u, sv, w2, idx, maskm, maskf, dtype, cache_dtype)
     level.bwd_layouts = ((rows, resident),)
     _, stats, aux1, aux2 = forward_cuda(level, b2, g1, be1, g2, be2, maskf, 1e-5)
+    dout = dout.masked_fill(near_ties(u, sv, w2, idx, maskm, aux1, aux2, dtype, cache_dtype),
+                            0.0)
     got = backward_cuda(level, aux1, aux2, stats[4], dout)
     want = sa_train_backward_plain(u, sv, w2, idx, maskm, maskf, aux1, aux2, stats[4], dout,
                                    dtype, cache_dtype)
     assert any(level.bwd_plan(pid)[:2] == (rows, resident) for pid in (1, 2, 3))
-    floor = 1e-3 * max(w.norm().item() for w in want)
-    for g, w in zip(got, want):
-        assert torch.isfinite(g).all()
-        rel = ((g - w).norm() / max(w.norm().item(), floor)).item()
-        assert rel <= REL_L2[dtype], rel
+    _assert_grads_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows,resident", list(cuda_sa_train.LAYOUTS))
+@pytest.mark.parametrize("cache_dtype", [None, torch.bfloat16])
+def test_sa_train_fwd_layouts(dev, dtype, rows, resident, cache_dtype):
+    """Each forward tile layout of the two passes that form z (tile height,
+    W2 resident in shared memory or streamed through the ring) against the
+    plain forward: output and statistics. K = 16 admits every tile height;
+    both passes fit every layout at H = 128."""
+    rng = np.random.default_rng(10)
+    n, p, s, k, h1, h2 = 9, 128, 64, 16, 128, 128
+    args = _sa_train_inputs(rng, dev, n, p, s, k, h1, h2)
+    u, sv, w2, b2, g1, be1, g2, be2, idx, maskm, maskf = args
+    level = cuda_sa_train.Level(u, sv, w2, idx, maskm, maskf, dtype, cache_dtype)
+    level.fwd_layouts = ((rows, resident),)
+    out, stats, _, _ = forward_cuda(level, b2, g1, be1, g2, be2, maskf, 1e-5)
+    assert all(level.fwd_plan(pid)[:2] == (rows, resident) for pid in (2, 3))
+    assert level.fwd_plan(1)[:3] == (0, 0, 0)
+    want_out, want_stats = sa_train_plain(*args, compute_dtype=dtype, cache_dtype=cache_dtype)
+    _close(out, want_out, dtype)
+    for g, w in zip(stats, want_stats):
+        _close(g, w, dtype)
+
+
+@pytest.mark.parametrize("cache_dtype", [None, torch.bfloat16])
+@pytest.mark.parametrize("n,p,s,k,h1,h2", SA_TRAIN_SHAPES[:3])
+def test_sa_train_plan_is_the_occupancy_querys(dev, n, p, s, k, h1, h2, cache_dtype):
+    """Each pass's plan, forward and backward, is the layout the rule picks
+    from the C side's shared-memory sizes and occupancy queries: the most
+    tile rows in flight on an SM, then the most blocks per SM, then the
+    first in LAYOUTS order; and the grid is the blocks one wave holds."""
+    import ctypes
+
+    from text2loc_tpu_torch.ops import _cuda
+
+    lib = _cuda.library()
+    rng = np.random.default_rng(11)
+    u, sv, w2, _, _, _, _, _, idx, maskm, maskf = _sa_train_inputs(rng, dev, n, p, s, k, h1,
+                                                                   h2)
+    for dtype in DTYPES:
+        level = cuda_sa_train.Level(u, sv, w2, idx, maskm, maskf, dtype, cache_dtype)
+        for direction, sym, plan, blocks in (("fwd", level.sym_fwd, level.fwd_plan,
+                                              level.fwd_blocks),
+                                             ("bwd", level.sym_bwd, level.bwd_plan,
+                                              level.bwd_blocks)):
+            for pid in (1, 2, 3):
+                layouts = ((0, 0),) if (direction, pid) == ("fwd", 1) else cuda_sa_train.LAYOUTS
+                best = None
+                for rows, resident in layouts:
+                    if rows and rows < k:
+                        continue
+                    smem = getattr(lib, f"t2l_sa_train_{direction}_smem")(
+                        pid, p, h1, h2, rows, resident, level.dtype_code)
+                    if smem > _cuda.SMEM_LIMIT:
+                        continue
+                    occ = ctypes.c_int(0)
+                    assert getattr(lib, sym + "_occupancy")(
+                        pid, p, k, h1, h2, rows, resident, level.dtype_code,
+                        ctypes.byref(occ)) == 0
+                    key = (rows * occ.value, occ.value)
+                    if occ.value > 0 and (best is None or key > best[0]):
+                        best = (key, (rows, resident, smem, occ.value))
+                assert plan(pid) == best[1], (direction, pid, dtype)
+                sms = torch.cuda.get_device_properties(dev).multi_processor_count
+                assert blocks(pid) == max(1, min(n, sms * best[1][3]))
 
 
 def test_sa_train_fwd_passes_are_bit_equal(dev):
@@ -616,7 +688,7 @@ def test_sa_train_fwd_passes_are_bit_equal(dev):
     for dtype in DTYPES:
         for cache in (None, torch.bfloat16):
             level = cuda_sa_train.Level(u, sv, w2, idx, maskm, maskf, dtype, cache)
-            assert n > level.blocks
+            assert n > max(level.fwd_blocks(pid) for pid in (1, 2, 3))
             _, _, aux1, aux2 = forward_cuda(level, b2, g1, be1, g2, be2, maskf, 1e-5)
             for run in (lambda: level.stats(1, aux1, aux2), lambda: level.stats(2, aux1, aux2),
                         lambda: level.out(aux1, aux2)):

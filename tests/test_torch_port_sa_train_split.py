@@ -14,7 +14,9 @@ where every gradient must lie far inside the card's f32 limit (rel-L2 1e-3
 of the plain norm, floored at 1e-3 x the largest gradient norm): within
 1e-4, and within twice the plain f32 backward's own error. Products on
 TF32 alone (operands rounded, no lo terms) miss the limit: the near-ties of
-the neighbour max and the ReLUs flip.
+the neighbour max and the ReLUs flip. The forward's z (csrc/sa_train_fwd.cuh
+forms it with the same product) is held within 1e-6 of f64 in the card's
+order of sums: per k8 step a zeroed partial, then the accumulator.
 """
 
 import numpy as np
@@ -39,6 +41,19 @@ def split_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     a_hi, b_hi = tf32_rna(a), tf32_rna(b)
     a_lo, b_lo = tf32_rna(a - a_hi), tf32_rna(b - b_hi)
     return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def split_mm_k8(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in the card's order (csrc/sa_train_tiles.cuh mma_step): per k8
+    step the three TF32 products summed into a zeroed f32 partial, which is
+    then added to the f32 accumulator, steps in k order."""
+    acc = torch.zeros(a.shape[0], b.shape[1])
+    for k0 in range(0, a.shape[1], 8):
+        a8, b8 = a[:, k0:k0 + 8].contiguous(), b[k0:k0 + 8].contiguous()
+        a_hi, b_hi = tf32_rna(a8), tf32_rna(b8)
+        a_lo, b_lo = tf32_rna(a8 - a_hi), tf32_rna(b8 - b_hi)
+        acc = acc + (a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi)
+    return acc
 
 
 def backward(u, sv, w2, idx, maskm, maskf, aux1, aux2, n1, dout, mm):
@@ -151,3 +166,22 @@ def test_split_backward_lies_far_inside_the_f32_limit(seed):
     for r_split, r_plain in zip(rel_split, rel_plain):
         assert r_split <= 2 * r_plain + 1e-7, (rel_split, rel_plain)
     assert max(_rel_l2(tf32, ref)) > REL_L2_F32
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_split_forward_z_lies_within_1e_6_of_f64(seed):
+    """The forward's z = h1 W2 + b2 (csrc/sa_train_fwd.cuh, the backward's
+    product) in the card's 3xTF32 order, at the third level's width, within
+    1e-6 x max|z| of z in f64; on TF32 alone it is not."""
+    u, sv, w2, idx, maskm, _, aux1, aux2, _, _ = _level(seed)
+    n, _, h1w = u.shape
+    s, k = idx.shape[1:]
+    flat = idx.reshape(n, s * k, 1).long().expand(n, s * k, h1w)
+    e = torch.gather(u, 1, flat) - sv.repeat_interleave(k, dim=1)
+    h1 = torch.relu(e * aux1[0] + aux1[1]).reshape(-1, h1w)[maskm.reshape(-1)]
+    z64 = h1.double() @ w2.double() + aux2[6].double()
+    peak = z64.abs().max().item()
+    err = ((split_mm_k8(h1, w2) + aux2[6]).double() - z64).abs().max().item()
+    assert err <= 1e-6 * peak, err / peak
+    tf32 = ((tf32_rna(h1) @ tf32_rna(w2) + aux2[6]).double() - z64).abs().max().item()
+    assert tf32 > 1e-4 * peak

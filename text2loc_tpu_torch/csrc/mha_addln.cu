@@ -28,7 +28,7 @@
 //   Else one block takes a group (B = 640 on 132 SMs: 128 blocks of 5).
 // - Projections on the tensor cores: bf16 as mma.sync.m16n8k16 with f32
 //   sums; f32 as 3xTF32 m16n8k8 products with per-k8 partials
-//   (t2l::sab::Mma<float> of sa_train_bwd.cuh), never TF32 alone. The
+//   (t2l::sat::Mma<float> of sa_train_tiles.cuh), never TF32 alone. The
 //   weights stream through a cp.async ring in chunks of 16 rows of k.
 // - The core per (sample, head) on one warp from shared memory: the scores
 //   (mma in bf16), the softmax on the score fragments (each row on a quad of
@@ -47,7 +47,7 @@
 
 #include "common.cuh"
 #include "gemm_tc.cuh"
-#include "sa_train_bwd.cuh"
+#include "sa_train_tiles.cuh"
 
 namespace {
 
@@ -57,8 +57,8 @@ using t2l::gemm::ldmatrix_x4;
 using t2l::gemm::ldmatrix_x4_trans;
 using t2l::gemm::mma_bf16;
 using t2l::gemm::store2;
-using t2l::sab::ldmatrix_x2_trans;
-using F32Mma = t2l::sab::Mma<float>;
+using t2l::sat::ldmatrix_x2_trans;
+using F32Mma = t2l::sat::Mma<float>;
 
 constexpr int kThreads = 256, kWarps = 8;
 constexpr int kMaxRows = 80;    // query rows (and key rows) of a block
@@ -280,7 +280,7 @@ __device__ void project(const T* a, int lda, int rows, const Cols<TW> w, int d, 
       }
     } else if (warp < ntiles) {
       // f32 on the tensor cores as 3xTF32, each k8 half summed into a
-      // zeroed partial (t2l::sab::mma_step): never TF32 alone.
+      // zeroed partial (t2l::sat::mma_step): never TF32 alone.
       const int nq = (ntiles - warp + kWarps - 1) / kWarps;
       F32Mma::B bf[3];
 #pragma unroll
@@ -291,7 +291,7 @@ __device__ void project(const T* a, int lda, int rows, const Cols<TW> w, int d, 
         if (i < mtiles) {
           F32Mma::A af;
           F32Mma::load_a_row(af, a, lda, i * 16, k0);
-          t2l::sab::mma_step<float, 3>(acc[i], af, bf, nq);
+          t2l::sat::mma_step<float, 3>(acc[i], af, bf, nq);
         }
       }
     }

@@ -59,8 +59,8 @@ extern "C" {
 // The largest size_t where the level's kernels take no such tile height.
 size_t t2l_sa_train_bwd_smem(int pass, int p, int h1, int h2, int rows, int resident,
                              int dtype) {
-  if (rows > t2l::sab::max_rows(h1, h2)) return ~static_cast<size_t>(0);  // no such tile
-  return t2l::sab::bwd_layout(pass, p, h1, h2, rows, resident, dtype == t2l::kBF16 ? 2 : 4,
+  if (rows > t2l::sat::max_rows(h1, h2)) return ~static_cast<size_t>(0);  // no such tile
+  return t2l::sat::bwd_layout(pass, p, h1, h2, rows, resident, dtype == t2l::kBF16 ? 2 : 4,
                               nullptr, nullptr);
 }
 
@@ -79,7 +79,7 @@ int t2l_sa_train_bwd(int pass, const void* u, const void* sv, const void* idx,
                      const void* aux1, const void* aux2, const void* dout, void* out0,
                      void* out1, void* out2, int n, int p, int s, int k, int h1, int h2,
                      int rows, int resident, int blocks, int dtype, void* stream) {
-  return t2l::sab::entry<false>(pass, u, sv, idx, mm, mf, w2, w2t, aux1, aux2, dout, out0,
+  return t2l::sat::entry<false>(pass, u, sv, idx, mm, mf, w2, w2t, aux1, aux2, dout, out0,
                                 out1, out2, n, p, s, k, h1, h2, rows, resident, blocks,
                                 dtype, stream, nullptr);
 }
@@ -87,7 +87,7 @@ int t2l_sa_train_bwd(int pass, const void* u, const void* sv, const void* idx,
 // Blocks of the pass's kernel that one SM holds at once -> *out.
 int t2l_sa_train_bwd_occupancy(int pass, int p, int k, int h1, int h2, int rows,
                                int resident, int dtype, void* out) {
-  return t2l::sab::entry<false>(pass, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+  return t2l::sat::entry<false>(pass, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
                                 nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
                                 nullptr, 0, p, 0, k, h1, h2, rows, resident, 0, dtype,
                                 nullptr, static_cast<int*>(out));

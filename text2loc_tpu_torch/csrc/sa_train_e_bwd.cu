@@ -22,7 +22,7 @@ int t2l_sa_train_e_bwd(int pass, const void* u, const void* sv, const void* idx,
                        const void* aux1, const void* aux2, const void* dout, void* out0,
                        void* out1, void* out2, int n, int p, int s, int k, int h1, int h2,
                        int rows, int resident, int blocks, int dtype, void* stream) {
-  return t2l::sab::entry<true>(pass, u, sv, idx, mm, mf, w2, w2t, aux1, aux2, dout, out0,
+  return t2l::sat::entry<true>(pass, u, sv, idx, mm, mf, w2, w2t, aux1, aux2, dout, out0,
                                out1, out2, n, p, s, k, h1, h2, rows, resident, blocks, dtype,
                                stream, nullptr);
 }
@@ -30,7 +30,7 @@ int t2l_sa_train_e_bwd(int pass, const void* u, const void* sv, const void* idx,
 // As t2l_sa_train_bwd_occupancy (sa_train_bwd.cu).
 int t2l_sa_train_e_bwd_occupancy(int pass, int p, int k, int h1, int h2, int rows,
                                  int resident, int dtype, void* out) {
-  return t2l::sab::entry<true>(pass, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+  return t2l::sat::entry<true>(pass, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
                                nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
                                0, p, 0, k, h1, h2, rows, resident, 0, dtype, nullptr,
                                static_cast<int*>(out));

@@ -31,7 +31,7 @@ SOURCES = ("fps.cu", "sa_select.cu", "sa_select_bisect.cu", "sa_gather.cu",
            "ffn_tiled.cu", "sa_train_fwd.cu", "sa_train_bwd.cu", "sa_train_e_fwd.cu",
            "sa_train_e_bwd.cu", "add_ln.cu", "gather_rows.cu")
 HEADERS = ("common.cuh", "gemm_tc.cuh", "layernorm_rows.cuh", "sa_level.cuh",
-           "sa_train_common.cuh", "sa_train_fwd.cuh", "sa_train_bwd.cuh")
+           "sa_train_tiles.cuh", "sa_train_fwd.cuh", "sa_train_bwd.cuh")
 _NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-Xcompiler", "-fPIC"]
 # FPS must round every product and sum on its own, like the plain version.
@@ -132,11 +132,11 @@ _SIGNATURES = {
     "t2l_ffn_addln": ([_P] * 8 + [_I] * 3 + [_F, _I, _P], _I),
     "t2l_ffn_addln_tiled": ([_P] * 10 + [_I] * 3 + [_F, _I, _P], _I),
     "t2l_ffn_tiled_gemm_relu": ([_P] * 4 + [_I] * 4 + [_P], _I),
-    "t2l_sa_train_smem": ([_I] * 6, ctypes.c_size_t),
-    **{f"t2l_sa_train{e}_fwd": ([_I] + [_P] * 9 + [_I] * 9 + [_P], _I) for e in ("", "_e")},
-    "t2l_sa_train_bwd_smem": ([_I] * 7, ctypes.c_size_t),
+    **{f"t2l_sa_train_{d}_smem": ([_I] * 7, ctypes.c_size_t) for d in ("fwd", "bwd")},
+    **{f"t2l_sa_train{e}_fwd": ([_I] + [_P] * 9 + [_I] * 10 + [_P], _I) for e in ("", "_e")},
     **{f"t2l_sa_train{e}_bwd": ([_I] + [_P] * 13 + [_I] * 10 + [_P], _I) for e in ("", "_e")},
-    **{f"t2l_sa_train{e}_bwd_occupancy": ([_I] * 8 + [_P], _I) for e in ("", "_e")},
+    **{f"t2l_sa_train{e}_{d}_occupancy": ([_I] * 8 + [_P], _I)
+       for e in ("", "_e") for d in ("fwd", "bwd")},
     "t2l_sa_train_reduce": ([_P, _I, _I, _P, _P], _I),
     "t2l_add_ln": ([_P] * 5 + [_I, _I, _F, _I, _P], _I),
     "t2l_gather_rows": ([_P] * 3 + [_I] * 5 + [_P], _I),

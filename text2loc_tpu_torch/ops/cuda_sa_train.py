@@ -34,32 +34,33 @@ KERNEL_E_BWD = _cuda.Kernel(
     source="text2loc_tpu_torch/csrc/sa_train_e_bwd.cu",
     replaces="text2loc_tpu/ops/pallas_sa_train.py:825",
 )
-MAX_WIDTH = 256    # 8 columns per lane of a warp
-MAX_K = 64         # a center's K edges fit one tile of <= 64 rows
-_WARPS = 8
-FWD_BLOCKS_PER_SM = 2   # the forward's grid: this many blocks per SM
-FWD_MAX_CENTERS = 8     # centers of a forward tile (kMaxCenters, csrc/sa_train_common.cuh)
-# Backward tile layouts (tile rows, W2 resident in shared memory): a pass
-# takes, of those that hold a center's K edges and fit a block's shared
-# memory, the one with the most rows in flight on an SM (tile rows x blocks
-# per SM), then the most blocks, then the first in this order
-# (csrc/sa_train_bwd.cuh).
-BWD_LAYOUTS = ((128, 1), (128, 0), (64, 1), (64, 0), (32, 1), (32, 0), (16, 1), (16, 0))
-BWD_MAX_CENTERS = 16  # centers of a backward tile (kMaxCenters)
+MAX_WIDTH = 256    # 8 warps x 4 n8 column tiles (kMaxNQ)
+MAX_K = 64         # a center's K edges fit one tile
+# Tile layouts (tile rows, W2 resident in shared memory) of the passes that
+# form z: a pass takes, of those that hold a center's K edges and fit a
+# block's shared memory, the one with the most rows in flight on an SM
+# (tile rows x blocks per SM), then the most blocks, then the first in this
+# order (csrc/sa_train_tiles.cuh). The forward's BN1 pass takes no tiles
+# (NO_TILE).
+LAYOUTS = ((128, 1), (128, 0), (64, 1), (64, 0), (32, 1), (32, 0), (16, 1), (16, 0))
+NO_TILE = ((0, 0),)
+MAX_CENTERS = 16  # centers of a tile (kMaxCenters)
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_plan(sym: str, pass_id: int, p: int, k: int, h1: int, h2: int, dtype_code: int,
-              layouts: tuple):
+def _plan(direction: str, sym: str, pass_id: int, p: int, k: int, h1: int, h2: int,
+          dtype_code: int, layouts: tuple):
     """(tile rows, resident, dynamic shared memory, blocks per SM) of one
-    backward pass's kernel (`sym`: the C entry of the instantiation), of the
-    given layouts, else of BWD_LAYOUTS where none of them fits."""
+    pass's kernel (`direction`: "fwd" or "bwd"; `sym`: the C entry of the
+    instantiation), of the given layouts, else of LAYOUTS where none of
+    them fits."""
     lib = _cuda.library()
+    smem_of = getattr(lib, f"t2l_sa_train_{direction}_smem")
     best = None
     for rows, resident in layouts:
-        if rows < k:
+        if rows and rows < k:
             continue
-        smem = int(lib.t2l_sa_train_bwd_smem(pass_id, p, h1, h2, rows, resident, dtype_code))
+        smem = int(smem_of(pass_id, p, h1, h2, rows, resident, dtype_code))
         if smem > _cuda.SMEM_LIMIT:
             continue
         occ = ctypes.c_int(0)
@@ -73,10 +74,10 @@ def _bwd_plan(sym: str, pass_id: int, p: int, k: int, h1: int, h2: int, dtype_co
             best = (rows, resident, smem, occ.value)
     if best is not None:
         return best
-    if layouts != BWD_LAYOUTS:
-        return _bwd_plan(sym, pass_id, p, k, h1, h2, dtype_code, BWD_LAYOUTS)
-    raise ValueError(f"SA level P={p} K={k} H1={h1} H2={h2}: no backward tile layout fits "
-                     f"a block's shared memory ({_cuda.SMEM_LIMIT} bytes)")
+    if layouts not in (LAYOUTS, NO_TILE):
+        return _plan(direction, sym, pass_id, p, k, h1, h2, dtype_code, LAYOUTS)
+    raise ValueError(f"SA level P={p} K={k} H1={h1} H2={h2}: no {direction} tile layout "
+                     f"fits a block's shared memory ({_cuda.SMEM_LIMIT} bytes)")
 
 
 class Level:
@@ -120,45 +121,41 @@ class Level:
         if cache_dtype == torch.bfloat16:
             self.kernel_fwd, self.kernel_bwd = KERNEL_E_FWD, KERNEL_E_BWD
             self.sym_fwd, self.sym_bwd = "t2l_sa_train_e_fwd", "t2l_sa_train_e_bwd"
-        sms = torch.cuda.get_device_properties(u.device).multi_processor_count
-        self.sms = sms
-        self.blocks = max(1, min(n, FWD_BLOCKS_PER_SM * sms))
-        self.bwd_layouts = BWD_LAYOUTS
+        self.sms = torch.cuda.get_device_properties(u.device).multi_processor_count
+        self.fwd_layouts = self.bwd_layouts = LAYOUTS
 
-    def rpt(self) -> int:
-        """Rows per thread of a forward tile (tile height 8 x rpt): the
-        largest that holds a center's K edges and fits the block's shared
-        memory."""
-        lib = _cuda.library()
-        for rpt in (8, 4, 2, 1):
-            if _WARPS * rpt < self.k:
-                break
-            if lib.t2l_sa_train_smem(0, self.p, self.k, self.h1, self.h2,
-                                     rpt) <= _cuda.SMEM_LIMIT:
-                return rpt
-        raise ValueError(f"SA level P={self.p} K={self.k} H1={self.h1} H2={self.h2} "
-                         "does not fit a block's shared memory")
+    def fwd_plan(self, pass_id: int):
+        """(tile rows, W2 resident, shared memory bytes, blocks per SM) of
+        the forward pass `pass_id` (1 BN1 sums, 2 BN2 sums, 3 out); pass 1
+        takes no tiles: (0, 0, 0, blocks per SM)."""
+        layouts = NO_TILE if pass_id == 1 else tuple(self.fwd_layouts)
+        return _plan("fwd", self.sym_fwd, pass_id, self.p, self.k, self.h1, self.h2,
+                     self.dtype_code, layouts)
 
     def bwd_plan(self, pass_id: int):
         """(tile rows, W2 resident, shared memory bytes, blocks per SM) of
         the backward pass `pass_id` (1 stats, 2 mid, 3 in)."""
-        return _bwd_plan(self.sym_bwd, pass_id, self.p, self.k, self.h1, self.h2,
-                         self.dtype_code, tuple(self.bwd_layouts))
+        return _plan("bwd", self.sym_bwd, pass_id, self.p, self.k, self.h1, self.h2,
+                     self.dtype_code, tuple(self.bwd_layouts))
+
+    def fwd_blocks(self, pass_id: int) -> int:
+        """The forward pass's persistent grid: the blocks one wave of SMs
+        holds, at most one per cloud."""
+        return max(1, min(self.n, self.sms * self.fwd_plan(pass_id)[3]))
 
     def bwd_blocks(self, pass_id: int) -> int:
-        """The backward pass's persistent grid: the blocks one wave of SMs
-        holds, at most one per cloud."""
+        """The backward pass's persistent grid, as fwd_blocks."""
         return max(1, min(self.n, self.sms * self.bwd_plan(pass_id)[3]))
 
-    def fwd_tiles(self):
-        """(tiles, mean filled rows per tile) of each forward pass: tiles of
-        8 x rpt rows and at most FWD_MAX_CENTERS centers (see _tiles)."""
-        return self._tiles(_WARPS * self.rpt(), FWD_MAX_CENTERS)
+    def fwd_tiles(self, pass_id: int):
+        """(tiles, mean filled rows per tile) of the forward pass 2 or 3
+        (see _tiles)."""
+        return self._tiles(self.fwd_plan(pass_id)[0], MAX_CENTERS)
 
     def bwd_tiles(self, pass_id: int):
-        """(tiles, mean filled rows per tile) of the backward pass: tiles of
-        its height and at most BWD_MAX_CENTERS centers (see _tiles)."""
-        return self._tiles(self.bwd_plan(pass_id)[0], BWD_MAX_CENTERS)
+        """(tiles, mean filled rows per tile) of the backward pass (see
+        _tiles)."""
+        return self._tiles(self.bwd_plan(pass_id)[0], MAX_CENTERS)
 
     def _tiles(self, rows: int, max_centers: int):
         """(tiles, mean filled rows per tile): each cloud's centers packed in
@@ -178,18 +175,16 @@ class Level:
         total = int(tiles.sum())
         return total, float(kept.sum()) / max(total, 1)
 
-    def _dims(self, blocks: int):
-        return (self.n, self.p, self.s, self.k, self.h1, self.h2, self.rpt(), blocks,
-                self.dtype_code)
-
     def _empty(self, *shape):
         return torch.empty(shape, dtype=torch.float32, device=self.u.device)
 
-    def _fwd(self, pass_id, aux1, aux2, out, blocks):
+    def _fwd(self, pass_id, aux1, aux2, out):
+        rows, resident = self.fwd_plan(pass_id)[:2]
         _cuda.launch(self.kernel_fwd, self.sym_fwd, pass_id,
                      *(_cuda.ptr(t) for t in (self.u, self.sv, self.idx, self.maskm,
                                              self.maskf, self.w2, aux1, aux2, out)),
-                     *self._dims(blocks))
+                     self.n, self.p, self.s, self.k, self.h1, self.h2, rows, resident,
+                     self.fwd_blocks(pass_id), self.dtype_code)
 
     def _bwd(self, pass_id, aux1, aux2, dout, outs):
         rows, resident = self.bwd_plan(pass_id)[:2]
@@ -218,15 +213,15 @@ class Level:
         (layer 2)."""
         self._check_aux(aux1, aux2)
         h = self.h1 if layer == 1 else self.h2
-        part = self._empty(self.blocks, 2, h)
-        self._fwd(layer, aux1, aux2, part, self.blocks)
+        part = self._empty(self.fwd_blocks(layer), 2, h)
+        self._fwd(layer, aux1, aux2, part)
         return self._reduce(self.kernel_fwd, part)
 
     def out(self, aux1, aux2):
         """[N, S, H2] f32: the neighbour max of relu(BN2(z)), 0 on empty rows."""
         self._check_aux(aux1, aux2)
         out = self._empty(self.n, self.s, self.h2)
-        self._fwd(3, aux1, aux2, out, self.blocks)
+        self._fwd(3, aux1, aux2, out)
         return out
 
     # ---------------------------------------------------------- backward

@@ -155,6 +155,68 @@ def sa_train_backward_plain(u, sv, w2, idx, maskm, maskf, aux1, aux2, n1, dout,
     return du, dsv, dw2, db2, dg1, dbe1, dg2, dbe2
 
 
+# Where the neighbour max's winner is not settled beyond f32 rounding. The
+# pre-activation of an (edge, column) is y2 = a2 (sum_k h1_k w2_kc + b2) +
+# c2, a sum of H1 <= 256 products; scale = |a2| (sum_k |h1_k w2_kc| +
+# |b2_c|) is the size of its terms. Summed in f32 in any order (FMAs on the
+# FP32 pipes or in cuBLAS; 3xTF32 per-k8 partials, whose dropped lo.lo
+# terms are 2^-22 of a product), the i-th rounding errs by at most 2^-25 of
+# the running sum S_i (round to nearest). With terms of either sign S_i
+# grows as sqrt(i) while the scale grows as i, so the H1 roundings add up,
+# as a random walk, to about 2^-25 sqrt(sum_i S_i^2) ~ 2^-26 of the scale
+# whatever H1 (the worst case, every S_i at the scale, is H1 2^-25 =
+# 2^-17 at H1 = 256, but the smoke's levels never come near it). Two ways
+# of computing the winner's and the runner-up's y2 differ by four such
+# errors, 2^-25; the limit takes 16 times that, 2^-21 = 4.8e-7 of the
+# scale. It covers the smoke's SA2 flip (relative gap 3.2e-7) and the
+# widest flip scripts/probe_torch_sa_train_ties.py finds; twice the limit
+# would mark more than 1e-5 of a level's pairs, which the smoke's check
+# refuses (the count grows in proportion to the limit).
+TIE_RTOL = 2.0 ** -21
+_TIE_CHUNK = 1 << 24   # f64 elements of one [clouds, S, K, H] block of near_ties
+
+
+def near_ties(u, sv, w2, idx, maskm, aux1, aux2, compute_dtype, cache_dtype=None,
+              rtol: float = TIE_RTOL):
+    """bool [N, S, H2]: the (cloud, center, column) pairs whose neighbour-max
+    winner is not settled beyond f32 rounding, at the forward's aux rows.
+    e and h1 are formed as sa_train_backward_plain forms them (f32, rounded
+    to the compute dtype, e to bf16 under the bf16 cache), z = h1 W2 + b2
+    and y2 = z a2 + c2 in f64. A pair is marked where, over its maskm
+    edges, the largest relu(y2) is > 0 and exceeds the second largest by
+    at most rtol x scale, or the largest y2 lies within rtol x scale of 0
+    (the ReLU's kink), scale = |a2| (sum_k |h1_k w2_kc| + |b2_c|) at the
+    winning edge. A pair whose edges all have y2 < 0 passes no gradient,
+    whichever edge wins, and is not marked. For the checks only, never the
+    main path; an rtol other than TIE_RTOL serves the ties probe's sweep."""
+    cdt = compute_dtype
+    n, _, h1w = u.shape
+    s, k = idx.shape[1:]
+    h2w = w2.shape[1]
+    w2c = w2.float().to(cdt).double()
+    a2, c2, b2 = (aux2[i].double() for i in (0, 1, 6))
+    ties = torch.zeros((n, s, h2w), dtype=torch.bool, device=u.device)
+    step = max(1, _TIE_CHUNK // max(1, s * k * max(h1w, h2w)))
+    for lo in range(0, n, step):
+        sl = slice(lo, lo + step)
+        e = _edges(u[sl], sv[sl], idx[sl], cdt, _edge_dtype(cache_dtype))
+        h1 = torch.relu(e * aux1[0] + aux1[1]).to(cdt).double()
+        y2 = torch.where(maskm[sl][..., None], (h1 @ w2c + b2) * a2 + c2,
+                         torch.full((), -torch.inf, dtype=torch.float64, device=u.device))
+        scale = a2.abs() * (h1 @ w2c.abs() + b2.abs())
+        if k > 1:
+            top, arg = torch.topk(y2, 2, dim=2)
+            first, second = top[:, :, 0], top[:, :, 1]
+        else:
+            first, arg = y2[:, :, 0], torch.zeros_like(y2[:, :, :1], dtype=torch.long)
+            second = torch.full_like(first, -torch.inf)
+        tol = rtol * torch.gather(scale, 2, arg[:, :, :1]).squeeze(2)
+        kink = torch.isfinite(first) & (first.abs() <= tol)
+        gap = (first > 0) & (first - second.clamp(min=0.0) <= tol)
+        ties[sl] = kink | gap
+    return ties
+
+
 def _forward_plain(u, sv, w2, b2, g1, be1, g2, be2, idx, maskm, maskf, eps, cdt,
                    cache_dtype):
     out, (m1, v1, m2, v2, n1) = sa_train_plain(u, sv, w2, b2, g1, be1, g2, be2, idx,
