@@ -24,11 +24,13 @@ toolkit. Phases, each printing one JSON line:
    head exceeds the one-block attention core's shared memory, self 128x128
    and cross 16x600 at E=1024, which take the key-tiled core: lines of
    their own, not summed, each stage against its plain stage); the
-   feed-forward block by its route (ffn_addln, the fused kernel, to d=256;
-   ffn_addln_tiled, the tiled chain, at the E=1024 trunk's R=25,344 rows,
-   D=1024, F=4096 in bf16 and f32, each stage against its plain stage, the
-   bf16 case faster than plain, with stock_ms, the port's fused_ffn="0"
-   block, and fused_ms, the fused kernel at that shape, on its line);
+   feed-forward block by its route (ffn_addln, the fused kernel, to d=256,
+   each line with kernel_ms and its plan (tile rows, cluster, blocks), and
+   the blocks of a batch-1 serve request as lines of their own, not
+   summed; ffn_addln_tiled, the tiled chain, at the E=1024 trunk's
+   R=25,344 rows, D=1024, F=4096 in bf16 and f32, each stage against its
+   plain stage, the bf16 case faster than plain, with stock_ms, the port's
+   fused_ffn="0" block, on its line);
    then the training SA level (sa_train_fwd, sa_train_bwd)
    against its plain forward and hand-derived plain backward at the coarse
    train step's three levels (896 clouds, K=32), f32 and bf16, each case
@@ -247,9 +249,8 @@ class KernelRecord:
         is the case's own (ulps: the error in bf16 spacings, or None).
         `library_fn`: one PyTorch call computing the same function, timed
         beside the kernel; `yardsticks`: {key: fn} timed onto the case line
-        only (stock_ms: the port's stock-ops path for the same function;
-        fused_ms: a kernel that the route no longer takes there); `info`:
-        further keys of the case line. Returns the case's (ms, plain_ms)."""
+        only (stock_ms: the port's stock-ops path for the same function);
+        `info`: further keys of the case line. Returns the case's (ms, plain_ms)."""
         err, ok, limit, rels, ulps = 0.0, True, 0.0, [], None
         for got, want in pairs:
             got, want = got.float(), want.float()
@@ -490,6 +491,25 @@ def _stock_ffn_fn(args, dt):
     return run
 
 
+def _ffn_args(gen, dev, dt, rows, d, f):
+    """One feed-forward case's inputs: activations in dt, f32 weights and
+    vectors (as the model holds its parameters)."""
+    return (_rand(gen, (rows, d), 1.0, dev).to(dt),
+            _rand(gen, (d, f), d ** -0.5, dev), _rand(gen, f, 0.1, dev),
+            _rand(gen, (f, d), f ** -0.5, dev), _rand(gen, d, 0.1, dev),
+            _rand(gen, d, 0.1, dev, 1.0), _rand(gen, d, 0.1, dev))
+
+
+def _fused_ffn_fn(args):
+    """The fused feed-forward kernel alone (cuda_ffn.fused_block_cuda into a
+    preallocated output, no count): what `kernel_ms` times beside the
+    wrapper's `ms`."""
+    from text2loc_tpu_torch.ops import cuda_ffn
+
+    out = torch.empty_like(args[0])
+    return lambda: cuda_ffn.fused_block_cuda(*args, out=out, count=False)
+
+
 def _ffn_tiled_stages(name, args, dt) -> None:
     """The feed-forward chain's stages: (a) the hidden GEMM with the relu
     epilogue, (b)+(c) the residual GEMM (K = F) and the LayerNorm."""
@@ -590,27 +610,40 @@ def phase_kernels(dev) -> dict:
 
     ffn_cases = [("cct", 640 * 16, 128, 512), ("obj_inter", 64 * 28, 256, 512),
                  ("inter head", 64 * 6, 256, 1024), ("intra E=1024", 1584 * 16, 1024, 4096)]
+    # A batch-1 serve request's blocks (the coarse inter head over 6 rows, the
+    # CCT's hint and object layers over the top-10 cells): case lines of their
+    # own, not summed, with inputs from a generator of their own.
+    gen_ffn_request = torch.Generator().manual_seed(SEED + 2)
+    ffn_request_cases = [("request inter head", 6, 256, 1024),
+                         ("request cct hint", 60, 128, 512),
+                         ("request cct obj", 160, 128, 512)]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for dt in (torch.bfloat16, torch.float32):
-        for name, rows, d, f in ffn_cases:
-            args = (_rand(gen, (rows, d), 1.0, dev).to(dt),
-                    _rand(gen, (d, f), d ** -0.5, dev), _rand(gen, f, 0.1, dev),
-                    _rand(gen, (f, d), f ** -0.5, dev), _rand(gen, d, 0.1, dev),
-                    _rand(gen, d, 0.1, dev, 1.0), _rand(gen, d, 0.1, dev))
+        for (name, rows, d, f), g in ([(c, gen) for c in ffn_cases]
+                                      + [(c, gen_ffn_request) for c in ffn_request_cases]):
+            args = _ffn_args(g, dev, dt, rows, d, f)
             es = args[0].element_size()
             work = (4.0 * rows * d * f, 2 * rows * d * es + 2 * d * f * 4 + (f + 3 * d) * 4,
                     dt)
             kname = "ffn_addln" if cuda_ffn.route(d, f, dt) == "fused" else "ffn_addln_tiled"
+            fused = kname == "ffn_addln"
             tiled_bf16 = kname == "ffn_addln_tiled" and dt == torch.bfloat16
-            # The bf16 chain's yardsticks: the port's stock block, and the
-            # fused kernel that d=1024 no longer routes to (its layout fits).
-            yardsticks = ({"stock_ms": _stock_ffn_fn(args, dt),
-                           "fused_ms": lambda a=args: cuda_ffn.fused_block_cuda(*a)}
-                          if tiled_bf16 else None)
+            # The fused lines: kernel_ms (the kernel alone, no host dispatch)
+            # and the plan; the bf16 chain's line: stock_ms, the port's stock
+            # block.
+            info = None
+            if fused:
+                plan = cuda_ffn.fused_plan(rows, d, f, dt, sms=sms)
+                info = {"kernel_ms": kernel_ms(_fused_ffn_fn(args)),
+                        "tile_rows": plan.rows, "cluster": plan.cluster, "blocks": plan.blocks}
             ms, plain_ms = records[kname].add(
                 f"{kname} {name} R={rows} D={d} F={f}", dt,
                 [(cuda_ffn.ffn_addln_cuda(*args), ffn.ffn_addln_plain(*args))],
                 lambda a=args: cuda_ffn.ffn_addln_cuda(*a),
-                lambda a=args: ffn.ffn_addln_plain(*a), work, yardsticks=yardsticks)
+                lambda a=args: ffn.ffn_addln_plain(*a), work,
+                counts=False if name.startswith("request") else None,
+                yardsticks={"stock_ms": _stock_ffn_fn(args, dt)} if tiled_bf16 else None,
+                info=info)
             if tiled_bf16:
                 check(ms < plain_ms, f"{kname} {name}: {ms} ms, plain {plain_ms} ms (limit: "
                       "faster than plain)")

@@ -458,14 +458,108 @@ def test_ffn_tiled_stages(dev, dtype, rows, d, f):
 
 
 def test_ffn_route_layout_is_the_kernels(dev):
-    """route's Python sum of the fused layout equals t2l_ffn_addln_smem."""
+    """fused_smem's Python sum of the fused layout equals
+    t2l_ffn_addln_layout's for every tile and cluster the kernel takes, and
+    the kernel refuses (0) a plan past its limits (D > 256, a tile past 80
+    rows, a cluster not 1, 2, 4, 8 or 16 or one that does not split F into
+    multiples of 16) or past a block's shared memory; at every row count
+    the plan of a fused route is one the kernel takes."""
     from text2loc_tpu_torch.ops import _cuda
 
     lib = _cuda.library()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for dtype in DTYPES:
-        for d, f in [(128, 512), (256, 512), (256, 1024), (1024, 4096), (256, 8192)]:
-            assert cuda_ffn.fused_smem(d, f, dtype) == lib.t2l_ffn_addln_smem(
-                d, f, _cuda.DTYPE_CODE[dtype])
+        code = _cuda.DTYPE_CODE[dtype]
+        for d, f in [(128, 512), (256, 512), (256, 1024), (1024, 4096), (256, 8192),
+                     (128, 1024), (64, 96)]:
+            for tile in (16, 32, 48, 64, 80, 96):
+                for c in (1, 2, 3, 4, 8, 16, 32):
+                    want = cuda_ffn.fused_smem(d, f, dtype, tile, c)
+                    takes = (d <= cuda_ffn.FUSED_MAX_D and tile <= cuda_ffn.FUSED_MAX_ROWS
+                             and c in (1, 2, 4, 8, 16) and f % (16 * c) == 0
+                             and d % (8 * c) == 0
+                             and want <= _cuda.SMEM_LIMIT)
+                    assert lib.t2l_ffn_addln_layout(tile, c, d, f, code) == (want if takes
+                                                                              else 0)
+            for rows in (0, 1, 6, 60, 160, 384, 1792, 2113, 10240, 25344):
+                plan = cuda_ffn.fused_plan(rows, d, f, dtype, sms=sms)
+                if cuda_ffn.route(d, f, dtype) == "fused":
+                    assert plan.smem == lib.t2l_ffn_addln_layout(plan.rows, plan.cluster, d, f,
+                                                                 code) > 0
+                else:
+                    assert plan is None
+
+
+# (D, F) of the fused route's shapes in Config(): the CCT (D=128), obj_inter
+# and the coarse inter head (D=256); and row counts whose plans take
+# clusters of 16, 8, 4 and 2 blocks and one block a tile on a 132-SM card:
+# one row, a batch-1 request's 6, 60 and 160, counts off the multiples of
+# the tile, the smoke's 384, 1792 and 10,240.
+FFN_FUSED_SHAPES = [(128, 512), (256, 512), (256, 1024)]
+FFN_FUSED_ROWS = [1, 6, 17, 60, 160, 384, 1030, 1792, 2113, 3000, 10240]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d,f", FFN_FUSED_SHAPES)
+def test_ffn_fused_kernel_plans(dev, dtype, d, f):
+    """The fused kernel against the plain version at each plan fused_plan
+    picks over FFN_FUSED_ROWS, with f32 weights as the model passes them;
+    one counted launch per call; the rows cover clusters of 16, 8, 4 and 2
+    blocks at each shape (and of 1 at some: test_fused_plan_invariants)."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clusters = set()
+    for rows in FFN_FUSED_ROWS:
+        args = _ffn_args(dev, dtype, rows, d, f)
+        clusters.add(cuda_ffn.fused_plan(rows, d, f, dtype, sms=sms).cluster)
+        before = cuda_ffn.KERNEL.launches
+        got = ffn_addln(*args)
+        assert cuda_ffn.KERNEL.launches == before + 1
+        _close(got, ffn_addln_plain(*args), dtype)
+    if sms == 132:
+        assert {2, 4, 8, 16} <= clusters, clusters
+
+
+@pytest.mark.parametrize("d,f", FFN_FUSED_SHAPES)
+def test_ffn_fused_reads_f32_weights_as_cast_ones(dev, d, f):
+    """bf16 activations with the f32 weights give the same bits as the call
+    with the weights cast to bf16 beforehand: the kernel rounds them as
+    Tensor.to does; f32 activations with f32 weights match plain."""
+    for rows in (1, 160, 1792, 10240):
+        args = list(_ffn_args(dev, torch.bfloat16, rows, d, f))
+        got = ffn_addln(*args)
+        for i in (1, 3):
+            args[i] = args[i].to(torch.bfloat16)
+        assert torch.equal(got, ffn_addln(*args))
+        _close(got, ffn_addln_plain(*args), torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ffn_fused_call_is_one_device_op(dev, dtype):
+    """A fused call on the serve's operands (activations in the dtype, f32
+    parameters) issues one device op, the kernel, and counts one launch, at
+    every cluster size: three calls under torch.profiler give three device
+    ops, each the kernel. (The profiler on the card at times records no
+    device op at all in a window; such a window is taken again, up to three
+    times, and three empty windows fail the test.)"""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for d, f in FFN_FUSED_SHAPES:
+        for rows in (6, 160, 1792, 10240):
+            args = _ffn_args(dev, dtype, rows, d, f)
+            ffn_addln(*args)
+            torch.cuda.synchronize()
+            for _ in range(3):
+                before = cuda_ffn.KERNEL.launches
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    for _ in range(3):
+                        ffn_addln(*args)
+                    torch.cuda.synchronize()
+                assert cuda_ffn.KERNEL.launches == before + 3
+                ops = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+                if ops:
+                    break
+            assert len(ops) == 3 and all("ffn_addln_kernel" in op for op in ops), ops
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):

@@ -11,7 +11,9 @@ ops/cuda_ffn.py's route) against the JAX package.
 - The route: the fused kernel for the smoke's d <= 256 shapes, the tiled
   chain above, a raise where D or F is not a multiple of 128, and no
   feed-forward shape of Config()'s models refused under fused_ffn "1" or
-  "all".
+  "all"; the fused kernel's layout summed by hand, and its plan
+  (cuda_ffn.fused_plan) at every fused shape of Config() and every row
+  count to 20,000.
 - A model: the small test config with a 512-wide language trunk (the
   chain's width), every block on its fused function (fused_ffn="all",
   fused_attn="all"), against the JAX model's stock path on the same
@@ -127,12 +129,75 @@ def test_route_takes_the_fused_kernel_to_d256_and_the_tiled_chain_above(dtype):
 
 
 def test_fused_smem_is_make_layouts_sum():
-    """The Python sum of make_layout (csrc/ffn_addln.cu) by hand: the x tile
-    and the hidden rows in the dtype, the f32 pre-norm rows; bf16 at
-    D=1024 fits a block, f32 does not."""
-    assert cuda_ffn.fused_smem(1024, 4096, torch.bfloat16) == 229376
-    assert cuda_ffn.fused_smem(1024, 4096, torch.float32) == 393216
-    assert cuda_ffn.fused_smem(128, 512, torch.float32) == 4 * 16 * (128 + 512 + 128)
+    """The Python sum of layout() (csrc/ffn_addln.cu) by hand: the x rows
+    and the block's hidden slice in the dtype (rows padded by 16 bytes), the
+    f32 rows of the block's output columns from each block of the cluster
+    (padded by 4 floats), two f32 row statistics from each block, and the
+    ring of 3 weight chunks of 16 x (256 + 4) f32. A 16-row block of C = 1 fits at D=1024 in neither
+    dtype (the tiled chain's width)."""
+    ring = 3 * 16 * 260 * 4
+    assert cuda_ffn.fused_smem(1024, 4096, torch.bfloat16) == (
+        2 * 16 * 1032 + 2 * 16 * 4104 + 4 * 16 * 1028 + 8 * 16 + ring) == 280192
+    assert cuda_ffn.fused_smem(1024, 4096, torch.float32) == (
+        4 * 16 * 1028 + 4 * 16 * 4100 + 4 * 16 * 1028 + 8 * 16 + ring) == 444032
+    assert cuda_ffn.fused_smem(128, 512, torch.float32) == (
+        4 * 16 * 132 + 4 * 16 * 516 + 4 * 16 * 132 + 8 * 16 + ring)
+    # A batch-1 request's inter head: a cluster of 8 blocks, each with 128
+    # hidden and 32 output columns.
+    assert cuda_ffn.fused_smem(256, 1024, torch.bfloat16, 16, 8) == (
+        2 * 16 * 264 + 2 * 16 * 136 + 4 * 8 * 16 * 36 + 8 * 8 * 16 + ring)
+    # The smoke's CCT rows in bf16: C = 1, 80-row tiles.
+    assert cuda_ffn.fused_smem(128, 512, torch.bfloat16, 80, 1) == (
+        2 * 80 * 136 + 2 * 80 * 520 + 4 * 80 * 132 + 8 * 80 + ring)
+
+
+SMS = 132
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_plan_invariants(dtype):
+    """At every feed-forward shape of Config()'s models that the fused route
+    takes, at every row count from 1 to 20,000 on a 132-SM card: the cluster
+    C is 1, 2, 4, 8 or 16 (16 only for one tile) and divides F into slices
+    of a multiple of 16 (and D into multiples of 8); the layout is
+    fused_smem's and fits a block's shared memory; a tile is 16-80 rows, a
+    multiple of 16, and the tiles cover the rows; where C > 1 the blocks are
+    at most one wave, or C is the fewest blocks whose layout takes the tile;
+    route is the same whatever the rows. A batch-1 request's coarse inter
+    head (6 rows) takes one tile on 16 blocks, its CCT calls (60, 160 rows)
+    clusters of 8 blocks; the smoke's 10,240 CCT rows take 80-row tiles, on
+    one block in bf16 and on two in f32 (whose hidden does not fit one)."""
+    from text2loc_tpu_torch.ops import _cuda
+
+    shapes = set()
+    with torch.device("meta"):
+        for kind in ("coarse", "fine"):
+            for mod in build_model(Config(), kind).modules():
+                if isinstance(mod, (transformer.EncoderLayer, transformer.DecoderLayer)):
+                    shapes.add(tuple(mod.linear1.weight.shape))
+    fused = {s for s in shapes if cuda_ffn.route(*s, dtype) == "fused"}
+    assert fused == {(128, 512), (256, 512), (256, 1024)}
+    for d, f in fused:
+        for rows in range(1, 20001):
+            p = cuda_ffn.fused_plan(rows, d, f, dtype, sms=SMS)
+            assert p.cluster in (1, 2, 4, 8) or (p.cluster == 16 and rows <= 16)
+            assert f % (16 * p.cluster) == 0 and d % (8 * p.cluster) == 0
+            assert p.smem == cuda_ffn.fused_smem(d, f, dtype, p.rows, p.cluster)
+            assert p.smem <= _cuda.SMEM_LIMIT
+            assert 16 <= p.rows <= 80 and p.rows % 16 == 0
+            assert p.blocks == -(-rows // p.rows) * p.cluster
+            assert p.cluster == 1 or p.blocks <= SMS or cuda_ffn.fused_smem(
+                d, f, dtype, p.rows, p.cluster // 2) > _cuda.SMEM_LIMIT
+        assert cuda_ffn.route(d, f, dtype) == "fused"
+        for rows in (1, 6):
+            p = cuda_ffn.fused_plan(rows, d, f, dtype, sms=SMS)
+            assert (p.rows, p.cluster, p.blocks) == (16, 16, 16)
+        for rows in (60, 160):
+            p = cuda_ffn.fused_plan(rows, d, f, dtype, sms=SMS)
+            assert (p.rows, p.cluster, p.blocks) == (16, 8, 8 * -(-rows // 16))
+    p = cuda_ffn.fused_plan(10240, 128, 512, dtype, sms=SMS)
+    assert (p.rows, p.cluster) == (80, 1 if dtype == torch.bfloat16 else 2)
+    assert cuda_ffn.fused_plan(16, 1024, 4096, dtype, sms=SMS) is None
 
 
 def test_check_tiled_raises_off_the_128_grid():

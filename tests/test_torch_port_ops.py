@@ -3,7 +3,8 @@
 Each plain PyTorch version (the CPU path of its wrapper) is held against the
 JAX Pallas kernel run in interpret mode on the same numpy-seeded inputs, in
 f32: FPS bit-equal, the others at atol 1e-5 (f32 sums taken in another
-order). The CUDA kernels themselves run only on the card:
+order; the feed-forward block also in bf16 at a serve request's shapes,
+within one bf16 ulp). The CUDA kernels themselves run only on the card:
 tests/test_torch_port_cuda.py.
 """
 
@@ -174,8 +175,28 @@ def test_mha_plain_matches_pallas_kernel(b, lq, lk, d, self_attn):
 # -------------------------------------------------------------------- FFN
 
 
-@pytest.mark.parametrize("rows,d,f", [(37, 128, 512), (1030, 256, 1024)])
-def test_ffn_plain_matches_pallas_kernel(rows, d, f):
+def _bf16_ulp(v: float) -> float:
+    return 2.0 ** (math.floor(math.log2(v)) - 7)
+
+
+# A batch-1 serve request's feed-forward calls: the coarse inter head over
+# its 6 hint rows (D=256, F=1024), the CCT's hint and object layers over the
+# top-10 cells (60 and 160 rows, D=128, F=512).
+FFN_REQUEST = [(6, 256, 1024), (60, 128, 512), (160, 128, 512)]
+
+
+@pytest.mark.parametrize("rows,d,f,dtype", [
+    pytest.param(37, 128, 512, torch.float32, id="37-128-512"),
+    pytest.param(1030, 256, 1024, torch.float32, id="1030-256-1024"),
+    *(pytest.param(rows, d, f, dt, id=f"request-{rows}-{d}-{f}-{name}")
+      for rows, d, f in FFN_REQUEST
+      for dt, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16"))),
+])
+def test_ffn_plain_matches_pallas_kernel(rows, d, f, dtype):
+    """x in the dtype, the weights and vectors in f32 as the model passes
+    them (both round the weights to the dtype). f32 within ATOL; bf16 within
+    one bf16 ulp of max|want|: the two sum the products in another order,
+    which can round the bf16 hidden, and then an output, the other way."""
     rng = np.random.default_rng(6)
     x = rng.normal(size=(rows, d)).astype(np.float32)
     w1 = (rng.normal(size=(d, f)) / math.sqrt(d)).astype(np.float32)
@@ -183,12 +204,17 @@ def test_ffn_plain_matches_pallas_kernel(rows, d, f):
     b1 = (0.1 * rng.normal(size=f)).astype(np.float32)
     b2, bias = ((0.1 * rng.normal(size=d)).astype(np.float32) for _ in range(2))
     scale = (1 + 0.1 * rng.normal(size=d)).astype(np.float32)
-    args = (x, w1, b1, w2, b2, scale, bias)
-    want = fused_ffn_addlayernorm(*(jnp.asarray(a) for a in args), interpret=True)
-    got = ffn_addln_plain(*(_t(a) for a in args))
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
-    np.testing.assert_array_equal(ffn_addln(*(_t(a) for a in args)).numpy(),
-                                  got.numpy())
+    params = (w1, b1, w2, b2, scale, bias)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    want = fused_ffn_addlayernorm(jnp.asarray(x).astype(jdt),
+                                  *(jnp.asarray(a) for a in params), interpret=True)
+    want = np.asarray(want.astype(jnp.float32))
+    args = (_t(x).to(dtype), *(_t(a) for a in params))
+    got = ffn_addln_plain(*args)
+    assert got.dtype == dtype and got.shape == (rows, d)
+    atol = ATOL if dtype == torch.float32 else _bf16_ulp(float(np.abs(want).max()))
+    np.testing.assert_allclose(got.float().numpy(), want, atol=atol, rtol=0)
+    np.testing.assert_array_equal(ffn_addln(*args).float().numpy(), got.float().numpy())
 
 
 # ------------------------------------------------------------ masked ops

@@ -46,8 +46,8 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "fused_block.cuh"
 #include "gemm_tc.cuh"
-#include "sa_train_tiles.cuh"
 
 namespace {
 
@@ -57,22 +57,22 @@ using t2l::gemm::ldmatrix_x4;
 using t2l::gemm::ldmatrix_x4_trans;
 using t2l::gemm::mma_bf16;
 using t2l::gemm::store2;
-using t2l::sat::ldmatrix_x2_trans;
-using F32Mma = t2l::sat::Mma<float>;
+using t2l::fused::Cols;
+using t2l::fused::pack_bf16;
 
-constexpr int kThreads = 256, kWarps = 8;
+constexpr int kThreads = t2l::fused::kThreads, kWarps = t2l::fused::kWarps;
 constexpr int kMaxRows = 80;    // query rows (and key rows) of a block
 constexpr int kMaxKeys = 32;    // keys of a sample: four n8 score tiles
 constexpr int kMaxDh = 64;      // head width: eight n8 output tiles
 constexpr int kMaxD = 256;
 constexpr int kMaxHeads = 8;    // the portable cluster size
-constexpr int kPassCols = 3 * kMaxDh;  // projection columns a block covers per pass
+constexpr int kPassTiles = 3;   // n8 tiles a warp per pass: 3 x kMaxDh, q, k, v of a head
 constexpr size_t kSmemLimit = 232448;
 constexpr float kMasked = -1e9f;
-// The weight ring: kStages chunks of kChunkK rows (k) by up to kPassCols
-// columns as the caller holds them (f32 rows of kPassCols + 4 floats).
-constexpr int kChunkK = 16, kStages = 3;
-constexpr size_t kStageBytes = (size_t)kChunkK * (kPassCols + 4) * 4;
+// The weight ring: kStages chunks of 16 rows (k) by up to 3 x kMaxDh
+// columns as the caller holds them (t2l::fused::stage_bytes).
+constexpr int kStages = 3;
+constexpr size_t kStageBytes = t2l::fused::stage_bytes(kPassTiles);
 
 // Shared rows are padded by 16 bytes: conflict-free ldmatrix rows and
 // fragment loads.
@@ -171,151 +171,13 @@ __device__ void load_rows(T* dst, int ld, const T* src, int m, int rows, int d) 
   }
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// The weight columns a projection reads: up to three segments of `seg`
-// columns side by side, segment i starting at col[i] of a [d, d] matrix.
-template <typename TW>
-struct Cols {
-  const TW* col[3];
-  int seg;
-};
-
-// out = epi(a . W) for rows [0, rows) (a multiple of 16, at most 80) and the
-// n columns of `w`, k in [0, d), in passes of kPassCols columns. In a pass
-// warp w owns the n8 tiles w, w + 8, w + 16 over every m16 tile. The chunks
-// of every pass form one sequence through the cp.async ring, kStages - 1
-// in flight; a thread's 16-byte pieces of a chunk keep their place from
-// chunk to chunk, so their addresses are computed once a pass. bf16 from
-// f32 weights: each B fragment is read as f32 pairs and rounded as it is
-// packed. Ends on a block barrier.
+// The block's products: a . W over k = d for rows [0, rows) and the n
+// columns of `w` (rows of the [d, d] weights at stride d) on the weight
+// ring (t2l::fused::project).
 template <typename T, typename TW, class Epi>
 __device__ void project(const T* a, int lda, int rows, const Cols<TW> w, int d, int n,
                         unsigned char* ring, const Epi& epi) {
-  constexpr int KC = kChunkK;
-  constexpr int E = 16 / sizeof(TW);       // elements of a 16-byte piece
-  constexpr int WLD = kPassCols + E;       // ring row stride (elements)
-  constexpr int PPT = (KC * kPassCols / E + kThreads - 1) / kThreads;  // pieces a thread
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int mtiles = rows / 16;
-  const int kchunks = d / KC;
-  const int chunks = (n + kPassCols - 1) / kPassCols * kchunks;
-
-  // The issuing side runs kStages - 1 chunks ahead of the multiplying side.
-  int issue_pass = -1, npieces = 0;
-  const TW* src[PPT];
-  int dst[PPT];
-  auto issue = [&](int c) {
-    if (c < chunks) {
-      const int pass = c / kchunks;
-      if (pass != issue_pass) {
-        issue_pass = pass;
-        const int p0 = pass * kPassCols;
-        const int per_row = (n - p0 < kPassCols ? n - p0 : kPassCols) / E;
-        npieces = 0;
-#pragma unroll
-        for (int k = 0; k < PPT; ++k) {
-          const int i = tid + k * kThreads;
-          if (i < KC * per_row) {
-            const int r = i / per_row, cc = (i - r * per_row) * E;
-            const int s = (p0 + cc) / w.seg;
-            src[k] = w.col[s] + (size_t)r * d + (p0 + cc - s * w.seg);
-            dst[k] = r * WLD + cc;
-            npieces = k + 1;
-          }
-        }
-      }
-      TW* st = reinterpret_cast<TW*>(ring + (size_t)(c % kStages) * kStageBytes);
-      const size_t koff = (size_t)(c % kchunks) * KC * d;
-#pragma unroll
-      for (int k = 0; k < PPT; ++k)
-        if (k < npieces) t2l::gemm::cp_async16(st + dst[k], src[k] + koff, 16);
-    }
-    t2l::gemm::cp_async_commit();
-  };
-
-  float acc[kMaxRows / 16][3][4];
-#pragma unroll
-  for (int i = 0; i < kMaxRows / 16; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) issue(s);
-  for (int c = 0; c < chunks; ++c) {
-    t2l::gemm::cp_async_wait<kStages - 2>();
-    __syncthreads();  // chunk c landed; every warp is done with chunk c - 1
-    issue(c + kStages - 1);
-    const int p0 = c / kchunks * kPassCols, k0 = c % kchunks * KC;
-    const int ntiles = (n - p0 < kPassCols ? n - p0 : kPassCols) / 8;
-    const TW* ws = reinterpret_cast<const TW*>(ring + (size_t)(c % kStages) * kStageBytes);
-    if constexpr (std::is_same<T, bf16>::value) {
-      uint32_t af[kMaxRows / 16][4];
-#pragma unroll
-      for (int i = 0; i < kMaxRows / 16; ++i)
-        if (i < mtiles && warp < ntiles)
-          ldmatrix_x4(af[i], a + (i * 16 + (lane & 15)) * lda + k0 + (lane >> 4) * 8);
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        const int nt = warp + j * kWarps;
-        if (nt < ntiles) {
-          uint32_t b[2];
-          if constexpr (std::is_same<TW, bf16>::value) {
-            ldmatrix_x2_trans(b, ws + (lane & 15) * WLD + nt * 8);
-          } else {
-            // b0: k = 2t, 2t + 1; b1: k + 8; column lane / 4 of the tile.
-            const TW* wc = ws + 2 * (lane & 3) * WLD + nt * 8 + (lane >> 2);
-            b[0] = pack_bf16(wc[0], wc[WLD]);
-            b[1] = pack_bf16(wc[8 * WLD], wc[9 * WLD]);
-          }
-#pragma unroll
-          for (int i = 0; i < kMaxRows / 16; ++i)
-            if (i < mtiles) mma_bf16(acc[i][j], af[i], b[0], b[1]);
-        }
-      }
-    } else if (warp < ntiles) {
-      // f32 on the tensor cores as 3xTF32, each k8 half summed into a
-      // zeroed partial (t2l::sat::mma_step): never TF32 alone.
-      const int nq = (ntiles - warp + kWarps - 1) / kWarps;
-      F32Mma::B bf[3];
-#pragma unroll
-      for (int j = 0; j < 3; ++j)
-        if (j < nq) F32Mma::load_b(bf[j], ws, WLD, 0, (warp + j * kWarps) * 8);
-#pragma unroll
-      for (int i = 0; i < kMaxRows / 16; ++i) {
-        if (i < mtiles) {
-          F32Mma::A af;
-          F32Mma::load_a_row(af, a, lda, i * 16, k0);
-          t2l::sat::mma_step<float, 3>(acc[i], af, bf, nq);
-        }
-      }
-    }
-    if (c % kchunks == kchunks - 1) {
-      // The pass's epilogue. c0, c1: row lane / 4, columns 2 (lane % 4) +
-      // {0, 1}; c2, c3: row + 8.
-#pragma unroll
-      for (int i = 0; i < kMaxRows / 16; ++i) {
-#pragma unroll
-        for (int j = 0; j < 3; ++j) {
-          const int nt = warp + j * kWarps;
-          if (i < mtiles && nt < ntiles) {
-            const int r = i * 16 + (lane >> 2), col = p0 + nt * 8 + 2 * (lane & 3);
-            epi(r, col, acc[i][j][0], acc[i][j][1]);
-            epi(r + 8, col, acc[i][j][2], acc[i][j][3]);
-          }
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-        }
-      }
-    }
-  }
-  t2l::gemm::cp_async_wait<0>();
-  __syncthreads();  // every epilogue's stores are visible to the block
+  t2l::fused::project<kMaxRows / 16, kPassTiles, kStages>(a, lda, rows, w, d, d, n, ring, epi);
 }
 
 // The block's w columns of each of [q|k|v] (from `off` on: cross-attention's

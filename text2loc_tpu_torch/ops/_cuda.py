@@ -30,7 +30,7 @@ SOURCES = ("fps.cu", "sa_select.cu", "sa_select_bisect.cu", "sa_gather.cu",
            "sa_exact.cu", "sa_all.cu", "mha_addln.cu", "mha_tiled.cu", "ffn_addln.cu",
            "ffn_tiled.cu", "sa_train_fwd.cu", "sa_train_bwd.cu", "sa_train_e_fwd.cu",
            "sa_train_e_bwd.cu", "add_ln.cu", "gather_rows.cu")
-HEADERS = ("common.cuh", "gemm_tc.cuh", "layernorm_rows.cuh", "sa_level.cuh",
+HEADERS = ("common.cuh", "fused_block.cuh", "gemm_tc.cuh", "layernorm_rows.cuh", "sa_level.cuh",
            "sa_train_tiles.cuh", "sa_train_fwd.cuh", "sa_train_bwd.cuh")
 _NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-Xcompiler", "-fPIC"]
@@ -128,8 +128,8 @@ _SIGNATURES = {
     "t2l_mha_tiled_gemm": ([_P, _I, _P, _I, _P, _P, _I, _P] + [_I] * 5 + [_F, _I, _P], _I),
     "t2l_mha_tiled_core": ([_P, _I, _P, _P, _I, _P, _P] + [_I] * 8 + [_P], _I),
     "t2l_mha_tiled_ln": ([_P] * 4 + [_I, _I, _F, _I, _P], _I),
-    "t2l_ffn_addln_smem": ([_I] * 3, ctypes.c_size_t),
-    "t2l_ffn_addln": ([_P] * 8 + [_I] * 3 + [_F, _I, _P], _I),
+    "t2l_ffn_addln_layout": ([_I] * 5, ctypes.c_size_t),
+    "t2l_ffn_addln": ([_P] * 8 + [_I] * 3 + [_F] + [_I] * 4 + [_P], _I),
     "t2l_ffn_addln_tiled": ([_P] * 10 + [_I] * 3 + [_F, _I, _P], _I),
     "t2l_ffn_tiled_gemm_relu": ([_P] * 4 + [_I] * 4 + [_P], _I),
     **{f"t2l_sa_train_{d}_smem": ([_I] * 7, ctypes.c_size_t) for d in ("fwd", "bwd")},
@@ -171,6 +171,12 @@ def launch(kernel: Kernel, symbol: str, *args, count: bool = True) -> None:
         kernel.launches += 1
 
 
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The number of SMs of CUDA device `index` (read once)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def check(t: torch.Tensor, name: str, dtype=None, shape=None):
     """Validate a tensor handed to a kernel: on the current CUDA device,
     contiguous, of the given dtype and shape."""
@@ -185,6 +191,12 @@ def check(t: torch.Tensor, name: str, dtype=None, shape=None):
         raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+
+
+def as_given(t: torch.Tensor, dtype) -> torch.Tensor:
+    """t itself where a kernel reads it as it is (this dtype, contiguous),
+    else a converted copy (one device op)."""
+    return t if t.dtype == dtype and t.is_contiguous() else t.to(dtype).contiguous()
 
 
 def ptr(t: torch.Tensor):

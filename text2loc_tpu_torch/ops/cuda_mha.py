@@ -216,12 +216,6 @@ def mha_addln_cuda(x, kv, wq, bq, wk, bk, wv, bv, wo, bo, scale, bias,
     return _tiled_block(x, kv, kb, mats, vecs, num_heads, eps, self_attn, layout)
 
 
-def _as_given(t, dtype):
-    """t itself where the fused kernel reads it as it is (this dtype,
-    contiguous), else a converted copy (one device op)."""
-    return t if t.dtype == dtype and t.is_contiguous() else t.to(dtype).contiguous()
-
-
 def launch_fused(x, kv, mats, vecs, key_mask, out, *, num_heads: int, eps: float = 1e-5,
                  count: bool = True) -> None:
     """One launch of t2l_mha_addln into `out` (x's shape and dtype) with
@@ -235,12 +229,12 @@ def launch_fused(x, kv, mats, vecs, key_mask, out, *, num_heads: int, eps: float
     the main path's (a probe timing the kernel alone)."""
     dt = x.dtype
     wdt = torch.float32 if all(t.dtype == torch.float32 for t in mats) else dt
-    mats = [_as_given(t, wdt) for t in mats]
-    vecs = [_as_given(t, torch.float32) for t in vecs]
+    mats = [_cuda.as_given(t, wdt) for t in mats]
+    vecs = [_cuda.as_given(t, torch.float32) for t in vecs]
     b, lq, lk, d = _check_block(x, kv, mats, vecs, num_heads)
     mask = None
     if key_mask is not None:
-        mask = _as_given(key_mask, torch.bool)
+        mask = _cuda.as_given(key_mask, torch.bool)
         _cuda.check(mask, "key_mask", shape=(b, lk))
     _cuda.check(out, "out", dtype=dt, shape=tuple(x.shape))
     for name, t in (("x", x), ("kv", kv), ("wq", mats[0]), ("wk", mats[1]), ("wv", mats[2]),
@@ -249,7 +243,7 @@ def launch_fused(x, kv, mats, vecs, key_mask, out, *, num_heads: int, eps: float
             raise ValueError(f"{name}: the fused kernel loads 16-byte vectors; the data "
                              "must start on a 16-byte boundary")
     plan = fused_plan(b, lq, lk, d, num_heads, dt, self_attn=kv is x,
-                      sms=torch.cuda.get_device_properties(x.device).multi_processor_count)
+                      sms=_cuda.sm_count(x.get_device()))
     if plan is None:
         raise ValueError(f"the fused attention block does not take Lq={lq}, Lk={lk}, D={d}, "
                          f"{num_heads} heads, {dt}: route gives the tiled chain")
