@@ -13,7 +13,9 @@ toolkit. Phases, each printing one JSON line:
    at the serve's shapes, bf16 and f32, with median times by CUDA events;
    the inference SA level in every selection (first, bisect, gather over
    the exact and the approximate ball query, exact, all) at the gallery's
-   three levels; the attention block by its route (mha_addln, the fused
+   three levels, the "first" lines with the tensor-core kernel's plan (tile
+   rows, W2 resident, shared bytes, blocks per SM, column slices); the
+   attention block by its route (mha_addln, the fused
    kernel, to d=256, each line with kernel_ms, the kernel alone with the
    host's dispatch off the measured span, and stock_ms, and the blocks of
    a batch-1 serve request as lines of their own, not summed;
@@ -340,6 +342,7 @@ def phase_sa_kernels(dev, gen, pts, xyz, records) -> None:
 
             tag = f"P={lp} S={s} {cin}->{h1}->{h2}"
             args = (feat, pos, ctr, w1, wp, ab1, w2, ab2, radius, k)
+            plan = cp.first_plan(lp, s, cin, h1, h2, k, dt)
             for sel, name in (("first", "sa_select_first"), ("bisect", "sa_select_bisect")):
                 e = edges[sel]
                 records[name].add(
@@ -348,7 +351,8 @@ def phase_sa_kernels(dev, gen, pts, xyz, records) -> None:
                       pc.sa_select_plain(*args, selection=sel))],
                     lambda a=args, sel=sel: cp.sa_select_cuda(*a, selection=sel),
                     lambda a=args, sel=sel: pc.sa_select_plain(*a, selection=sel),
-                    work(e, n * lp * (cin * es + 12) + fixed))
+                    work(e, n * lp * (cin * es + 12) + fixed),
+                    info={"plan": plan._asdict()} if sel == "first" else None)
             for approx in (False, True):
                 idx, mask = ball_query_knn(pos, ctr, radius, k, approx=approx)
                 gargs = (feat, ctr, idx.to(torch.int32).contiguous(), mask.contiguous(),

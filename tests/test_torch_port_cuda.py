@@ -27,6 +27,7 @@ than the bf16 spacing at the result). The row gather is bit-equal; the scatter-a
 point's rows in q order too; the CUDA index_add_ does not).
 """
 
+import ctypes
 import math
 
 import numpy as np
@@ -202,6 +203,114 @@ def test_sa_level_wrappers_reject_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError, match="idx"):
         cuda_pointconv.sa_gather_cuda(a["feat"], a["ctr"], idx, mask, a["w1"], a["wp"],
                                       a["ab1"], a["w2"], a["ab2"])   # int64 idx
+
+
+FIRST_CASES = ["clusters", "voxel", "ragged_s", "one_cloud", "groups"]
+
+
+def _first_args(rng, dev, dtype, case, n, p, s, c, h1, h2, radius, k=32):
+    """The "first" level's arguments for one case: "clusters": random points,
+    duplicates, a line of K + 3 points whose first K lie within radius of
+    center 0 and all of them within radius of center 1; "voxel": points and
+    centers on a 1/16 grid, many exactly at r = 4/16; "ragged_s": clusters
+    with S - 5 centers (no tile size divides it); "one_cloud": clusters with
+    N = 1; "groups": clusters with 293 centers (three groups of selection;
+    past the first, centers drawn from the points). Center 5 of cloud 0 has
+    no point in radius."""
+    if case == "voxel":
+        radius = 0.25
+        pos = torch.from_numpy((rng.integers(-8, 9, (n, p, 3)) / 16.0).astype(np.float32))
+        ctr = pos[:, :s].clone()
+    else:
+        n = 1 if case == "one_cloud" else n
+        s = {"ragged_s": s - 5, "groups": 293}.get(case, s)
+        pos = torch.from_numpy((rng.random((n, p, 3)) - 0.5).astype(np.float32))
+        pos[:, 10:15] = pos[:, 0:5]
+        step = radius / (k - 0.5)
+        pos[:, p - k - 3:] = 2.0
+        pos[:, p - k - 3:, 0] += step * torch.arange(k + 3, dtype=torch.float32)
+        ctr = pos[:, torch.from_numpy(rng.integers(0, p, s))] if s > p else pos[:, :s].clone()
+        ctr[:, 0] = 2.0
+        ctr[:, 1] = torch.tensor([2.0 + step * ((k + 2) // 2), 2.0, 2.0])
+    ctr[0, 5] = 9.0
+    pos, ctr = pos.to(dev).contiguous(), ctr.to(dev).contiguous()
+    x = _randn(rng, (n, p, c - 3), dev).to(dtype)
+    feat = torch.cat([x, pos.to(dtype)], -1).contiguous()
+    w1 = _randn(rng, (c, h1), dev, c ** -0.5).to(dtype)
+    w2 = _randn(rng, (h1, h2), dev, h1 ** -0.5).to(dtype)
+    ab1 = torch.stack([_randn(rng, h1, dev, 0.1, 1.0), _randn(rng, h1, dev, 0.1)])
+    ab2 = torch.stack([_randn(rng, h2, dev, 0.1, 1.0), _randn(rng, h2, dev, 0.1)])
+    return (feat, pos, ctr, w1, w1[c - 3:].contiguous(), ab1, w2, ab2, radius, k)
+
+
+def _check_first(args, dtype):
+    before = cuda_pointconv.KERNEL_FIRST.launches
+    got = sa_select(*args)
+    assert cuda_pointconv.KERNEL_FIRST.launches == before + 1
+    _close(got, sa_select_plain(*args), dtype)
+    assert (got[0, 5] == 0).all()
+    return got
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", SA_SHAPES)
+@pytest.mark.parametrize("case", FIRST_CASES)
+def test_sa_select_first_kernel_cases(dev, dtype, shape, case):
+    _check_first(_first_args(np.random.default_rng(12), dev, dtype, case, *shape), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_sa_select_first_kernel_wide_output(dev, dtype):
+    args = _first_args(np.random.default_rng(13), dev, dtype, "clusters",
+                       5, 64, 32, 131, 256, 512, 0.4)
+    assert cuda_pointconv.first_plan(64, 32, 131, 256, 512, 32, dtype).slices == 2
+    _check_first(args, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_sa_select_first_kernel_takes_no_clouds(dev, dtype):
+    args = _first_args(np.random.default_rng(14), dev, dtype, "clusters",
+                       1, 128, 64, 67, 128, 128, 0.3)
+    args = tuple(a[:0].contiguous() if i < 3 else a for i, a in enumerate(args))
+    before = cuda_pointconv.KERNEL_FIRST.launches
+    got = sa_select(*args)
+    assert cuda_pointconv.KERNEL_FIRST.launches == before
+    assert got.shape == (0, 64, 128) and got.dtype == dtype
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("p,s,c,h1,h2", [(256, 128, 6, 32, 64), (128, 64, 67, 128, 128),
+                                         (64, 32, 131, 256, 256), (64, 32, 131, 256, 512),
+                                         (64, 300, 131, 256, 256)])
+def test_sa_select_first_plan_is_the_kernels(dev, dtype, p, s, c, h1, h2):
+    """select_smem is the kernel's layout() for every tile layout it takes
+    (the largest size_t for the others), and first_plan's blocks per SM the
+    occupancy query's."""
+    from text2loc_tpu_torch.ops import _cuda
+
+    lib, code = _cuda.library(), _cuda.DTYPE_CODE[dtype]
+    for rows, resident in cuda_pointconv.FIRST_LAYOUTS:
+        ok = 32 <= rows <= cuda_pointconv.max_rows(h1, h2)
+        want = (cuda_pointconv.select_smem(p, s, c, h1, h2, 32, rows, resident, dtype) if ok
+                else 2 ** 64 - 1)
+        assert lib.t2l_sa_select_layout(p, s, c, h1, h2, 32, rows, resident, code) == want
+    assert lib.t2l_sa_select_layout(p, s, c, h1, h2, 33, 64, 0, code) == 2 ** 64 - 1
+    plan = cuda_pointconv.first_plan(p, s, c, h1, h2, 32, dtype)
+    occ = ctypes.c_int(0)
+    assert lib.t2l_sa_select_occupancy(p, s, c, h1, h2, 32, plan.rows, plan.resident, code,
+                                       ctypes.byref(occ)) == 0
+    assert occ.value == plan.blocks_per_sm >= 1
+
+
+def test_sa_select_first_rejects_what_the_kernel_does_not_take(dev):
+    args = list(_first_args(np.random.default_rng(15), dev, torch.float32, "clusters",
+                            2, 64, 32, 131, 256, 256, 0.4))
+    with pytest.raises(ValueError, match="K=33"):
+        sa_select(*args[:9], 33)
+    flat = torch.zeros(256 * 256 + 1, device=dev)
+    args[6] = flat[1:].view(256, 256)                 # contiguous, 4 bytes off 16
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        sa_select(*args)
 
 
 def _mha_args(dev, dtype, b, lq, lk, d, self_attn, seed=2):

@@ -1,12 +1,14 @@
 // One PointNet++ set-abstraction level at inference, one block per point
 // cloud: a neighbour selection, then one pooling tail. This header holds
 // the kernel template; each selection is instantiated in a source of its
-// own (sa_select.cu, sa_select_bisect.cu, sa_gather.cu, sa_exact.cu,
-// sa_all.cu), so that nvcc builds them in parallel.
+// own (sa_select_bisect.cu, sa_gather.cu, sa_exact.cu, sa_all.cu), so that
+// nvcc builds them in parallel. Selection "first" (SA mode "first") runs on
+// the tensor cores in sa_select_tc.cuh, which takes dist2 and sq_norm from
+// here.
 //
 // Replaces the TPU kernels of text2loc_tpu/ops/pallas_pointconv.py:
-//   fused_sa_select :451 (_sa_select_kernel :304), selection "first" and
-//     "bisect" (SA modes "first" and "full");
+//   fused_sa_select :451 (_sa_select_kernel :304), selection "bisect" (SA
+//     mode "full");
 //   fused_sa_gather :242 (_sa_gather_kernel :188): neighbours given as
 //     idx/mask (SA mode "gather");
 //   fused_set_abstraction :116 (_sa_kernel :38): K masked-argmin rounds
@@ -23,8 +25,6 @@
 // f32, not rounded, for exact/all (fused_set_abstraction's u).
 //
 // Selections, one warp per center:
-//   first:  the first <= K in-radius points in index order (ballot and
-//           popcount prefix);
 //   bisect: d2 of P <= 256 points in registers (8 per lane); `iters` rounds
 //           of mid = (lo + hi) * 0.5 with count(d2 <= mid) <= K by ballot and
 //           popcount; then the TPU kernel's tie expansion (cnt_lo, the next
@@ -63,7 +63,7 @@ constexpr int kMaxK = 32;      // slots per tile; K <= 32 (torch-cluster's defau
 constexpr int kLanePts = 8;    // points per lane in registers: P <= 256
 constexpr float kInf = 3.0e38f;
 
-enum Sel : int { kFirst = 0, kBisect = 1, kGather = 2, kExact = 3, kAll = 4 };
+enum Sel : int { kBisect = 1, kGather = 2, kExact = 3, kAll = 4 };
 
 __device__ __forceinline__ float sq_norm(float x, float y, float z) {
   return __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z));
@@ -182,17 +182,7 @@ __global__ void sa_level_kernel(
       if (si < s) {
         const float cx = ctr_n[3 * si], cy = ctr_n[3 * si + 1], cz = ctr_n[3 * si + 2];
         const float sc = sq_norm(cx, cy, cz);
-        if constexpr (SEL == kFirst) {
-          for (int base = 0; base < p && count < k; base += 32) {
-            const int j = base + lane;
-            const bool in = j < p && dist2(sc, cx, cy, cz, pos_s, j) <= r2;
-            const unsigned ball = __ballot_sync(0xffffffffu, in);
-            const int rank = count + __popc(ball & lt_mask);
-            if (in && rank < k) list[rank] = j;
-            count += __popc(ball);
-          }
-          count = count < k ? count : k;
-        } else if constexpr (SEL == kGather) {
+        if constexpr (SEL == kGather) {
           const size_t row = ((size_t)n * s + si) * k;
           const bool valid = lane < k && nmask[row + lane] != 0;
           const unsigned ball = __ballot_sync(0xffffffffu, valid);

@@ -7,4 +7,11 @@
 // (_sa_select_kernel :304), selection="bisect".
 #include "sa_level.cuh"
 
+// Dynamic shared memory of one block (the wrapper checks it against the
+// card's limit before launching); shared by every selection of
+// sa_level.cuh.
+extern "C" size_t t2l_sa_level_smem(int p, int h1, int g_per, int cap) {
+  return sa_level_smem(p, h1, g_per, cap);
+}
+
 T2L_SA_LEVEL_ENTRY(bisect, kBisect)

@@ -274,25 +274,32 @@ __device__ __forceinline__ void warp_gemm(float (&acc)[MTR][NQ][4], const T* a, 
 
 // Copy rows [k0, k0 + kc) of a [kdim][n] matrix in device memory to a
 // [kc][ld] buffer in shared memory (cp.async, 16 bytes a thread a step).
-template <typename T>
+// BOUNDED: the matrix's rows are lds apart (n columns of a wider matrix),
+// and rows at or past kvalid are filled with zeros.
+template <typename T, bool BOUNDED = false>
 __device__ __forceinline__ void stage_rows(T* dst, int ld, const T* src, int n, int k0,
-                                           int kc) {
+                                           int kc, int lds = 0, int kvalid = 0) {
   constexpr int V = 16 / sizeof(T);
   const int per_row = n / V;
+  const int stride = BOUNDED ? lds : n;
   for (int i = threadIdx.x; i < kc * per_row; i += kThreads) {
     const int r = i / per_row, c = (i - r * per_row) * V;
-    gemm::cp_async16(dst + (size_t)r * ld + c, src + (size_t)(k0 + r) * n + c, 16);
+    const bool in = !BOUNDED || k0 + r < kvalid;
+    gemm::cp_async16(dst + (size_t)r * ld + c, src + (size_t)(in ? k0 + r : 0) * stride + c,
+                     in ? 16 : 0);
   }
 }
 
 // acc = A [rows, kdim] . B [kdim, n]: B from `res` (resident in shared
 // memory, row stride ldb) or, where res is null, streamed from `src` in
 // device memory through the two-stage ring (row stride ldb). Every thread
-// of the block calls it (the ring's barriers).
-template <typename T, int MTR, int NQ>
+// of the block calls it (the ring's barriers). BOUNDED: src's rows are lds
+// apart and its rows at or past kvalid read as zeros (stage_rows).
+template <typename T, int MTR, int NQ, bool BOUNDED = false>
 __device__ __forceinline__ void product(float (&acc)[MTR][NQ][4], const T* a, int lda,
                                         int kdim, const T* res, const T* src, int n,
-                                        T* ring, int ldb, int mts, int nq) {
+                                        T* ring, int ldb, int mts, int nq, int lds = 0,
+                                        int kvalid = 0) {
   zero(acc);
   if (res != nullptr) {
     warp_gemm(acc, a, lda, 0, res, ldb, kdim, mts, nq);
@@ -300,10 +307,12 @@ __device__ __forceinline__ void product(float (&acc)[MTR][NQ][4], const T* a, in
   }
   const int chunks = kdim / kKC;
   const size_t stage = (size_t)kKC * ldb;
-  stage_rows(ring, ldb, src, n, 0, kKC);
+  stage_rows<T, BOUNDED>(ring, ldb, src, n, 0, kKC, lds, kvalid);
   gemm::cp_async_commit();
   for (int c = 0; c < chunks; ++c) {
-    if (c + 1 < chunks) stage_rows(ring + ((c + 1) & 1) * stage, ldb, src, n, (c + 1) * kKC, kKC);
+    if (c + 1 < chunks)
+      stage_rows<T, BOUNDED>(ring + ((c + 1) & 1) * stage, ldb, src, n, (c + 1) * kKC, kKC,
+                             lds, kvalid);
     gemm::cp_async_commit();
     gemm::cp_async_wait<1>();
     __syncthreads();  // chunk c has landed, from every thread's copies

@@ -14,6 +14,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -31,9 +32,11 @@ SOURCES = ("fps.cu", "sa_select.cu", "sa_select_bisect.cu", "sa_gather.cu",
            "ffn_tiled.cu", "sa_train_fwd.cu", "sa_train_bwd.cu", "sa_train_e_fwd.cu",
            "sa_train_e_bwd.cu", "add_ln.cu", "gather_rows.cu")
 HEADERS = ("common.cuh", "fused_block.cuh", "gemm_tc.cuh", "layernorm_rows.cuh", "sa_level.cuh",
-           "sa_train_tiles.cuh", "sa_train_fwd.cuh", "sa_train_bwd.cuh")
+           "sa_select_tc.cuh", "sa_train_tiles.cuh", "sa_train_fwd.cuh", "sa_train_bwd.cuh")
+# -Xptxas -v: each source's registers, shared memory and spills per kernel,
+# kept beside the library as <source>.log (ptxas_report reads them).
 _NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-Xcompiler", "-fPIC"]
+               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # FPS must round every product and sum on its own, like the plain version.
 _FILE_FLAGS = {"fps.cu": ["-fmad=false"]}
 LIB_NAME = "libtext2loc_kernels.so"
@@ -94,6 +97,7 @@ def build() -> Path:
             proc = subprocess.run(cmd, capture_output=True, text=True)
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed on {name}:\n{proc.stderr}")
+            (work / (name + ".log")).write_text(proc.stderr)
             return obj
 
         with ThreadPoolExecutor(max_workers=len(SOURCES)) as pool:
@@ -106,6 +110,8 @@ def build() -> Path:
         )
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{proc.stderr}")
+        for name in SOURCES:
+            os.replace(work / (name + ".log"), out_dir / (name + ".log"))
         os.replace(tmp_lib, lib)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -120,7 +126,10 @@ _SIGNATURES = {
     "t2l_fps": ([_P, _P, _P, _I, _I, _I, _P], _I),
     "t2l_sa_level_smem": ([_I] * 4, ctypes.c_size_t),
     **{f"t2l_sa_level_{sel}": ([_P] * 11 + [_I] * 7 + [_F] + [_I] * 4 + [_P], _I)
-       for sel in ("first", "bisect", "gather", "exact", "all")},
+       for sel in ("bisect", "gather", "exact", "all")},
+    "t2l_sa_select_layout": ([_I] * 9, ctypes.c_size_t),
+    "t2l_sa_select_occupancy": ([_I] * 9 + [_P], _I),
+    "t2l_sa_select_first": ([_P] * 9 + [_I] * 7 + [_F] + [_I] * 4 + [_P], _I),
     "t2l_mha_addln_layout": ([_I] * 8, ctypes.c_size_t),
     "t2l_mha_addln": ([_P] * 14 + [_I] * 5 + [_F, _F] + [_I] * 5 + [_P], _I),
     "t2l_mha_tiled_core_smem": ([_I] * 7, ctypes.c_size_t),
@@ -155,6 +164,25 @@ def library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = restype
     return lib
+
+
+def ptxas_report(source: str) -> dict:
+    """{kernel (mangled name): {"registers": n, "spill_stores": bytes,
+    "spill_loads": bytes}} of one source, from the build's ptxas output
+    (the library is built first if needed)."""
+    report, name = {}, None
+    for line in (build().parent / (source + ".log")).read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'|Function properties for (\w+)", line)
+        if m:
+            name = m.group(1) or m.group(2)
+            report.setdefault(name, {})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            report[name].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            report[name]["registers"] = int(m.group(1))
+    return report
 
 
 def launch(kernel: Kernel, symbol: str, *args, count: bool = True) -> None:
