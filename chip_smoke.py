@@ -13,8 +13,11 @@ toolkit. Phases, each printing one JSON line:
    at the serve's shapes, bf16 and f32, with median times by CUDA events;
    the inference SA level in every selection (first, bisect, gather over
    the exact and the approximate ball query, exact, all) at the gallery's
-   three levels, the "first" lines with the tensor-core kernel's plan (tile
-   rows, W2 resident, shared bytes, blocks per SM, column slices); the
+   three levels, the lines of the tensor-core tile kernel (first, gather,
+   all) with its plan (tile rows, W2 resident, shared bytes, blocks per
+   SM, column slices, the row map's budget of "all"), the "all" lines with
+   their groups, tiles and mean filled rows; and "all" at SA1 with a dense
+   cluster whose centers hold more edges than a tile (not summed); the
    attention block by its route (mha_addln, the fused
    kernel, to d=256, each line with kernel_ms, the kernel alone with the
    host's dispatch off the measured span, and stock_ms, and the blocks of
@@ -307,10 +310,14 @@ def phase_sa_kernels(dev, gen, pts, xyz, records) -> None:
     """The inference SA kernel in each selection against its plain version
     at the gallery's three levels (1792 clouds, K=32), bf16 and f32: first
     and bisect (fused_sa_select), gather over the exact and the approximate
-    ball query (fused_sa_gather), exact and all (fused_set_abstraction).
-    The plain all/exact versions run in chunks of clouds. Bound: the
-    products (u = feat @ W1 per point, the center term, the second layer
-    over this data's selected edges) and each input and output once."""
+    ball query (fused_sa_gather), exact and all (fused_set_abstraction);
+    the tile kernel's lines (first, gather, all) with their plan. Then
+    "all" at SA1 with a dense cluster (3/4 of each cloud's points within
+    0.01 of its first center), whose centers there hold more edges than the
+    plan's tile: a line of its own, not summed. The plain all/exact
+    versions run in chunks of clouds. Bound: the products (u = feat @ W1
+    per point, the center term, the second layer over this data's selected
+    edges) and each input and output once."""
     from text2loc_tpu_torch.ops import cuda_pointconv as cp
     from text2loc_tpu_torch.ops import pointconv as pc
     from text2loc_tpu_torch.ops.ballquery import ball_query_knn, first_k, squared_distances
@@ -342,7 +349,7 @@ def phase_sa_kernels(dev, gen, pts, xyz, records) -> None:
 
             tag = f"P={lp} S={s} {cin}->{h1}->{h2}"
             args = (feat, pos, ctr, w1, wp, ab1, w2, ab2, radius, k)
-            plan = cp.first_plan(lp, s, cin, h1, h2, k, dt)
+            plan = cp.tile_plan(lp, s, cin, h1, h2, k, dt)
             for sel, name in (("first", "sa_select_first"), ("bisect", "sa_select_bisect")):
                 e = edges[sel]
                 records[name].add(
@@ -365,8 +372,11 @@ def phase_sa_kernels(dev, gen, pts, xyz, records) -> None:
                     lambda a=gargs: cp.sa_gather_cuda(*a),
                     lambda a=gargs: pc.sa_gather_plain(*a),
                     work(e, n * lp * cin * es + n * s * k * 5 + fixed),
-                    counts=approx and dt == torch.bfloat16)
+                    counts=approx and dt == torch.bfloat16,
+                    info={"plan": cp.tile_plan(lp, s, cin, h1, h2, k, dt,
+                                               "gather")._asdict()})
             sargs = (x, pos, ctr, wx, wp, ab1, w2, ab2, radius, k)
+            all_plan = cp.tile_plan(lp, s, cin - 3, h1, h2, k, dt, "all")
             for select_k, name in ((True, "sa_exact"), (False, "sa_all")):
                 e = edges["exact" if select_k else "all"]
                 records[name].add(
@@ -375,8 +385,46 @@ def phase_sa_kernels(dev, gen, pts, xyz, records) -> None:
                       pc.set_abstraction_plain(*sargs, select_k=select_k))],
                     lambda a=sargs, sk=select_k: cp.set_abstraction_cuda(*a, select_k=sk),
                     lambda a=sargs, sk=select_k: pc.set_abstraction_plain(*a, select_k=sk),
-                    work(e, n * lp * ((cin - 3) * es + 12) + fixed))
+                    work(e, n * lp * ((cin - 3) * es + 12) + fixed),
+                    info=None if select_k else {"plan": all_plan._asdict(),
+                                                **_all_tiles(inr, all_plan)})
+            if lp == SA_LEVELS[0][0]:
+                # A dense cluster: centers with more edges than the tile.
+                dense = pos.clone()
+                q = 3 * lp // 4
+                noise = torch.rand((n, q - 1, 3), generator=torch.Generator().manual_seed(SEED))
+                dense[:, 1:q] = dense[:, :1] + 0.01 * (noise - 0.5).to(dev)
+                dinr = squared_distances(dense, ctr) <= r2
+                over = int((dinr.sum(-1) > all_plan.rows).sum().item())
+                check(over > 0, f"sa_all dense cluster {dt}: no center above the tile")
+                dargs = (x, dense, ctr, wx, wp, ab1, w2, ab2, radius, k)
+                e = int(dinr.sum().item())
+                records["sa_all"].add(
+                    f"sa_all dense cluster {tag} edges={e}", dt,
+                    [(cp.set_abstraction_cuda(*dargs, select_k=False),
+                      pc.set_abstraction_plain(*dargs, select_k=False))],
+                    lambda a=dargs: cp.set_abstraction_cuda(*a, select_k=False),
+                    lambda a=dargs: pc.set_abstraction_plain(*a, select_k=False),
+                    work(e, n * lp * ((cin - 3) * es + 12) + fixed), counts=False,
+                    info={"plan": all_plan._asdict(), "centers_above_tile": over,
+                          **_all_tiles(dinr, all_plan)})
             pos = ctr
+
+
+def _all_tiles(inr, plan) -> dict:
+    """The "all" kernel's groups and tiles over in-radius masks inr [N, S,
+    P] as it cuts them (cuda_pointconv.all_groups, tiles of plan.rows rows
+    a group), and the tiles' mean filled rows."""
+    from text2loc_tpu_torch.ops import cuda_pointconv as cp
+
+    groups = tiles = rows = 0
+    for counts in inr.sum(-1).cpu().tolist():
+        for g0, g1 in cp.all_groups(counts, plan.budget):
+            r = sum(counts[g0:g1])
+            groups += 1
+            tiles += -(-r // plan.rows)
+            rows += r
+    return {"groups": groups, "tiles": tiles, "mean_tile_rows": rows / max(tiles, 1)}
 
 
 SA_KERNELS = ("sa_select_first", "sa_select_bisect", "sa_gather", "sa_exact", "sa_all")

@@ -1,33 +1,44 @@
-"""Time the inference SA level with "first" selection on the card
-(`sa_select_first`) at chip_smoke.py's three gallery levels.
+"""Time the inference SA level on the card in one selection (`sa_select_first`,
+`sa_gather`, `sa_all` on the tensor-core tile kernel; `sa_select_bisect`,
+`sa_exact` on csrc/sa_level.cuh) at chip_smoke.py's three gallery levels.
 
-    python3 scripts/probe_torch_sa_select.py [--root DIR] [--reps 10] [--layouts]
+    python3 scripts/probe_torch_sa_select.py
+        [--selection first|gather|all|bisect|exact] [--root DIR] [--reps 10]
+        [--layouts]
 
-`--root` names the checkout whose text2loc_tpu_torch is timed (default: the
-one holding this script), e.g. a parent commit unpacked with `git archive`
-beside the working tree; run parent, change, change, parent in one call to
-compare two trees on one card. The cases are the smoke's: 1792 clouds of 256
-points (a 64-cell gallery), their FPS ladder's prefixes as centers, K = 32,
-the levels P=256 S=128 6->32->64, P=128 S=64 67->128->128 and P=64 S=32
-131->256->256 of Config(), in bf16 and f32, inputs made from a seed as the
-smoke makes them. For each it prints one JSON line:
+`--selection` (default first): "first" and "bisect" time
+ops/cuda_pointconv.sa_select_cuda with that selection (bisect: 12 rounds);
+"gather" sa_gather_cuda over the exact and the approximate ball query's
+neighbours (two lines a level); "all" and "exact" set_abstraction_cuda
+with select_k False and True. `--root` names the checkout whose
+text2loc_tpu_torch is timed (default: the one holding this script), e.g. a
+parent commit unpacked with `git archive` beside the working tree; run
+parent, change, change, parent in one call to compare two trees on one
+card. The cases are the smoke's: 1792 clouds of 256 points (a 64-cell
+gallery), their FPS ladder's prefixes as centers, K = 32, the levels P=256
+S=128 6->32->64, P=128 S=64 67->128->128 and P=64 S=32 131->256->256 of
+Config(), in bf16 and f32, inputs made from a seed as the smoke makes them
+(x, pos, feat = concat(x, pos); "all" reads x and the rows of W1 for x).
+For each it prints one JSON line:
 
-- `ms`: one wrapper call (ops/cuda_pointconv.sa_select_cuda) per CUDA event
-  pair, median of `--reps`, as chip_smoke.py times it;
+- `ms`: one wrapper call per CUDA event pair, median of `--reps`, as
+  chip_smoke.py times it;
 - `kernel_ms`: 50 wrapper calls between two events, queued behind a device
   sleep so that the host's dispatch is off the span, divided by 50
   (chip_smoke.kernel_ms);
-- `plain_ms`: ops/pointconv.sa_select_plain, timed as `ms`;
-- `edges`: the valid edges (selected neighbours) of the case;
-- `plan`: the kernel's plan (tile rows, W2 resident, shared bytes, blocks
-  per SM, column slices) and `ptxas`: its instantiation's registers and
-  spill bytes from the build's ptxas output, where the checkout has a plan
-  (null before the tensor-core kernel).
+- `plain_ms`: the plain version (ops/pointconv), timed as `ms`;
+- `edges`: the valid edges of the case;
+- `plan`: the tile kernel's plan (tile rows, W2 resident, shared bytes,
+  blocks per SM, column slices, the row map's budget of "all"; null for
+  bisect and exact) and `ptxas`: the instantiation's registers and spill
+  bytes from the build's ptxas output, where the checkout has
+  cuda_pointconv.tile_plan (null otherwise).
 
-`--layouts` (a checkout with a plan) adds, per case, `layouts`: the
-kernel alone (no launch count) on every tile layout it takes at the level,
-{"rows,resident": [blocks per SM, ms]}, ms timed as `ms` on the persistent
-grid of that layout's occupancy, the plan's choice among them.
+`--layouts` (a tile selection, a checkout with tile_plan) adds, per case,
+`layouts`: the kernel alone (no launch count) on every tile layout it
+takes at the level, {"rows,resident,budget": [blocks per SM, ms]}, ms
+timed as `ms` on the persistent grid of that layout's occupancy, the
+plan's choice among them.
 
 The first line is the card's nvidia-smi name and power limit.
 """
@@ -46,44 +57,56 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SEED = 0
+SOURCE = {"first": ("sa_select.cu", "sa_select_first_kernel"),
+          "gather": ("sa_gather.cu", "sa_gather_kernel"), "all": ("sa_all.cu", "sa_all_kernel"),
+          "bisect": ("sa_select_bisect.cu", "sa_level_kernel"),
+          "exact": ("sa_exact.cu", "sa_level_kernel")}
+TILE = ("first", "gather", "all")   # the selections with a plan
 
 
-def ptxas_of(_cuda, cp, dt, h1, h2):
+def ptxas_of(_cuda, cp, selection, dt, h1, h2):
     """Registers and spill bytes of the level's kernel instantiation."""
-    tag = ("If" if dt == torch.float32 else "I13__nv_bfloat16") + f"Li{cp.width_class(h1, h2)}E"
-    for name, info in _cuda.ptxas_report("sa_select.cu").items():
-        if "sa_select_first_kernel" in name and tag in name:
+    source, kernel = SOURCE[selection]
+    # The tile kernel's second template argument is its width class, the
+    # older template's its selection (kBisect 1, kExact 3).
+    second = cp.width_class(h1, h2) if selection in TILE else (1 if selection == "bisect" else 3)
+    tag = ("If" if dt == torch.float32 else "I13__nv_bfloat16") + f"Li{second}E"
+    for name, info in _cuda.ptxas_report(source).items():
+        if kernel in name and tag in name:
             return info
     return None
 
 
-def layout_times(smoke, _cuda, cp, a, s, dt, reps):
-    """{"rows,resident": [blocks per SM, ms]} of the kernel alone on every
-    tile layout it takes for the case's arguments `a`."""
-    feat, pos, ctr, w1, wp, ab1, w2, ab2, radius, k = a
+def layout_times(smoke, _cuda, cp, selection, a, dt, reps):
+    """{"rows,resident,budget": [blocks per SM, ms]} of the kernel alone on
+    every tile layout it takes for the case's tile-entry arguments `a`
+    (feat, pos, ctr, idx, mask, w1, wp, ab1, w2, ab2, radius, k, s)."""
+    feat, pos, ctr, idx, mask, w1, wp, ab1, w2, ab2, radius, k, s = a
     n, p, c = feat.shape
     h1, h2 = w1.shape[1], w2.shape[1]
     lib, code = _cuda.library(), _cuda.DTYPE_CODE[dt]
     out = torch.empty((n, s, h2), dtype=dt, device=feat.device)
     sms = _cuda.sm_count(feat.device.index)
+    ptrs = tuple(None if t is None else _cuda.ptr(t)
+                 for t in (feat, pos, ctr, idx, mask, w1, wp, ab1, w2, ab2, out))
     times = {}
-    for rows, resident, _ in cp.first_layouts(p, s, c, h1, h2, k, dt):
+    for rows, resident, _, budget in cp.tile_layouts(p, s, c, h1, h2, k, dt, selection):
         occ = ctypes.c_int(0)
-        lib.t2l_sa_select_occupancy(p, s, c, h1, h2, k, rows, resident, code,
-                                    ctypes.byref(occ))
+        getattr(lib, f"t2l_sa_{selection}_occupancy")(p, s, c, h1, h2, k, rows, resident,
+                                                      budget, code, ctypes.byref(occ))
         if occ.value < 1:
             continue
-        args = (*(_cuda.ptr(t) for t in (feat, pos, ctr, w1, wp, ab1, w2, ab2, out)),
-                n, p, s, c, h1, h2, k, ctypes.c_float(radius * radius), rows, resident,
-                min(n, sms * occ.value), code)
-        times[f"{rows},{resident}"] = [occ.value, smoke.cuda_ms(
-            lambda args=args: _cuda.launch(cp.KERNEL_FIRST, "t2l_sa_select_first", *args,
-                                           count=False), reps)]
+        args = (*ptrs, n, p, s, c, h1, h2, k, ctypes.c_float(radius * radius), rows, resident,
+                budget, min(n, sms * occ.value), code)
+        times[f"{rows},{resident},{budget}"] = [occ.value, smoke.cuda_ms(
+            lambda args=args: _cuda.launch(cp.TILE_KERNELS[selection], f"t2l_sa_{selection}",
+                                           *args, count=False), reps)]
     return times
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--selection", default="first", choices=tuple(SOURCE))
     ap.add_argument("--root", default=REPO)
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--layouts", action="store_true",
@@ -100,9 +123,9 @@ def main() -> int:
     spec.loader.exec_module(smoke)
     from text2loc_tpu_torch.ops import _cuda
     from text2loc_tpu_torch.ops import cuda_pointconv as cp
-    from text2loc_tpu_torch.ops.ballquery import ball_query_knn
+    from text2loc_tpu_torch.ops import pointconv as pc
+    from text2loc_tpu_torch.ops.ballquery import ball_query_knn, squared_distances
     from text2loc_tpu_torch.ops.fps import farthest_point_sampling_plain
-    from text2loc_tpu_torch.ops.pointconv import sa_select_plain
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
@@ -112,10 +135,10 @@ def main() -> int:
     _cuda.library()
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(SEED)
-    n, k = 64 * 28, 32
+    n, k, sel = 64 * 28, 32, args.selection
     pts = smoke._clouds(gen, n, 256, dev)
     xyz = farthest_point_sampling_plain(pts, 128)[1]
-    has_plan = hasattr(cp, "first_plan")
+    has_plan = hasattr(cp, "tile_plan")
     for dt in (torch.bfloat16, torch.float32):
         pos = pts
         for lp, s, cin, h1, h2, radius in smoke.SA_LEVELS:
@@ -128,24 +151,53 @@ def main() -> int:
                                smoke._rand(gen, h1, 0.1, dev)]).contiguous()
             ab2 = torch.stack([smoke._rand(gen, h2, 0.1, dev, 1.0),
                                smoke._rand(gen, h2, 0.1, dev)]).contiguous()
-            a = (feat, pos, ctr, w1, w1[cin - 3:].contiguous(), ab1, w2, ab2, radius, k)
-
-            def call(a=a):
-                return cp.sa_select_cuda(*a, selection="first")
-
-            plan = cp.first_plan(lp, s, cin, h1, h2, k, dt) if has_plan else None
-            print(json.dumps({
-                "root": root, "case": f"P={lp} S={s} {cin}->{h1}->{h2}",
-                "dtype": str(dt).split(".")[-1],
-                "edges": int(ball_query_knn(pos, ctr, radius, k, first=True)[1].sum()),
-                "ms": smoke.cuda_ms(call, args.reps),
-                "kernel_ms": smoke.kernel_ms(call, args.reps),
-                "plain_ms": smoke.cuda_ms(lambda a=a: sa_select_plain(*a), args.reps),
-                "plan": None if plan is None else plan._asdict(),
-                "ptxas": ptxas_of(_cuda, cp, dt, h1, h2) if has_plan else None,
-                **({"layouts": layout_times(smoke, _cuda, cp, a, s, dt, args.reps)}
-                   if args.layouts and has_plan else {})}),
-                  flush=True)
+            wx, wp = w1[:cin - 3].contiguous(), w1[cin - 3:].contiguous()
+            cases = []
+            if sel in ("first", "bisect"):
+                a = (feat, pos, ctr, w1, wp, ab1, w2, ab2, radius, k)
+                edges = (ball_query_knn(pos, ctr, radius, k, first=True)[1] if sel == "first"
+                         else pc.first_k(pc.bisect_mask(
+                             squared_distances(pos, ctr),
+                             squared_distances(pos, ctr) <= radius * radius,
+                             radius * radius, k, 12), k)[1])
+                cases.append(("", lambda a=a, sel=sel: cp.sa_select_cuda(*a, selection=sel),
+                              lambda a=a, sel=sel: pc.sa_select_plain(*a, selection=sel),
+                              int(edges.sum()),
+                              (feat, pos, ctr, None, None, w1, wp, ab1, w2, ab2, radius, k, s)))
+            elif sel == "gather":
+                for approx in (False, True):
+                    idx, mask = ball_query_knn(pos, ctr, radius, k, approx=approx)
+                    idx = idx.to(torch.int32).contiguous()
+                    a = (feat, ctr, idx, mask, w1, wp, ab1, w2, ab2)
+                    cases.append(("approx " if approx else "exact ",
+                                  lambda a=a: cp.sa_gather_cuda(*a),
+                                  lambda a=a: pc.sa_gather_plain(*a), int(mask.sum()),
+                                  (feat, None, ctr, idx, mask, w1, wp, ab1, w2, ab2, 0.0, k,
+                                   s)))
+            else:
+                a = (x, pos, ctr, wx, wp, ab1, w2, ab2, radius, k)
+                sk = sel == "exact"
+                inr = (squared_distances(pos, ctr) <= radius * radius).sum(-1)
+                cases.append(("", lambda a=a, sk=sk: cp.set_abstraction_cuda(*a, select_k=sk),
+                              lambda a=a, sk=sk: pc.set_abstraction_plain(*a, select_k=sk),
+                              int((inr.clamp(max=k) if sk else inr).sum()),
+                              (x, pos, ctr, None, None, wx, wp, ab1, w2, ab2, radius, k, s)))
+            c = cin - 3 if sel in ("all", "exact") else cin
+            tiled = has_plan and sel in TILE
+            plan = cp.tile_plan(lp, s, c, h1, h2, k, dt, sel) if tiled else None
+            for tag, call, plain, edges, targs in cases:
+                print(json.dumps({
+                    "root": root, "selection": sel,
+                    "case": f"{tag}P={lp} S={s} {cin}->{h1}->{h2}",
+                    "dtype": str(dt).split(".")[-1], "edges": edges,
+                    "ms": smoke.cuda_ms(call, args.reps),
+                    "kernel_ms": smoke.kernel_ms(call, args.reps),
+                    "plain_ms": smoke.cuda_ms(plain, args.reps),
+                    "plan": None if plan is None else plan._asdict(),
+                    "ptxas": ptxas_of(_cuda, cp, sel, dt, h1, h2) if has_plan else None,
+                    **({"layouts": layout_times(smoke, _cuda, cp, sel, targs, dt, args.reps)}
+                       if args.layouts and tiled else {})}),
+                      flush=True)
             pos = ctr
     return 0
 

@@ -18,7 +18,7 @@ profiles its two stages with torch.profiler after a warm-up:
 For each (mode, stage) it prints one JSON line: wall_ms (host clock without
 the profiler, mean of --reps calls ending in a synchronize), device_ms,
 busy_ms, idle_share (1 - busy_ms / wall_ms), device_ops, sa_ms (the
-inference SA kernel's device time) and the largest device ops. The
+inference SA kernels' device time, SA_KERNELS) and the largest device ops. The
 profiler's tables go to --out. It imports nothing of JAX.
 """
 
@@ -36,6 +36,10 @@ from torch.autograd import DeviceType
 from profile_torch_serve import REPO, SEED, build_map, device_summary, profiled, timed
 
 MODES = ("off", "first", "full", "gather", "exact", "all", "full,full,all")
+# The inference SA level's kernels: the tile kernel's selections
+# (csrc/sa_select_tc.cuh) and the older template's (csrc/sa_level.cuh).
+SA_KERNELS = ("sa_select_first_kernel", "sa_gather_kernel", "sa_all_kernel",
+              "sa_level_kernel")
 
 
 def main() -> int:
@@ -88,7 +92,7 @@ def main() -> int:
                 sa_ms = sum(evt.time_range.end - evt.time_range.start
                             for evt in prof.events()
                             if evt.device_type == DeviceType.CUDA
-                            and "sa_level_kernel" in evt.name) / 1e3
+                            and any(k in evt.name for k in SA_KERNELS)) / 1e3
                 print(json.dumps({"mode": mode, "stage": stage, "wall_ms": wall,
                                   "wall_ms_profiled": wall_prof,
                                   "idle_share": 1.0 - s["busy_ms"] / wall,

@@ -44,7 +44,7 @@ from text2loc_tpu_torch.ops.ln import add_layernorm, add_layernorm_plain
 from text2loc_tpu_torch.ops.fps import farthest_point_sampling_plain, fps_gather
 from text2loc_tpu_torch.ops.mha import (mha_addln, mha_addln_plain, mha_core_plain,
                                         mha_out_addln_plain, mha_project_plain)
-from text2loc_tpu_torch.ops.ballquery import ball_query_knn
+from text2loc_tpu_torch.ops.ballquery import ball_query_knn, squared_distances
 from text2loc_tpu_torch.ops.pointconv import (
     sa_gather,
     sa_gather_plain,
@@ -263,7 +263,7 @@ def test_sa_select_first_kernel_cases(dev, dtype, shape, case):
 def test_sa_select_first_kernel_wide_output(dev, dtype):
     args = _first_args(np.random.default_rng(13), dev, dtype, "clusters",
                        5, 64, 32, 131, 256, 512, 0.4)
-    assert cuda_pointconv.first_plan(64, 32, 131, 256, 512, 32, dtype).slices == 2
+    assert cuda_pointconv.tile_plan(64, 32, 131, 256, 512, 32, dtype).slices == 2
     _check_first(args, dtype)
 
 
@@ -278,28 +278,49 @@ def test_sa_select_first_kernel_takes_no_clouds(dev, dtype):
     assert got.shape == (0, 64, 128) and got.dtype == dtype
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("p,s,c,h1,h2", [(256, 128, 6, 32, 64), (128, 64, 67, 128, 128),
-                                         (64, 32, 131, 256, 256), (64, 32, 131, 256, 512),
-                                         (64, 300, 131, 256, 256)])
-def test_sa_select_first_plan_is_the_kernels(dev, dtype, p, s, c, h1, h2):
-    """select_smem is the kernel's layout() for every tile layout it takes
-    (the largest size_t for the others), and first_plan's blocks per SM the
-    occupancy query's."""
+PLAN_LEVELS = [(256, 128, 6, 32, 64), (128, 64, 67, 128, 128), (64, 32, 131, 256, 256),
+               (64, 32, 131, 256, 512), (64, 300, 131, 256, 256)]
+
+
+def _assert_tile_plan_is_the_kernels(dtype, selection, p, s, c, h1, h2, k=32):
+    """select_smem is the kernel's layout() for every tile layout and budget
+    it takes (the largest size_t for the others), and tile_plan's blocks per
+    SM the occupancy query's."""
     from text2loc_tpu_torch.ops import _cuda
 
     lib, code = _cuda.library(), _cuda.DTYPE_CODE[dtype]
-    for rows, resident in cuda_pointconv.FIRST_LAYOUTS:
-        ok = 32 <= rows <= cuda_pointconv.max_rows(h1, h2)
-        want = (cuda_pointconv.select_smem(p, s, c, h1, h2, 32, rows, resident, dtype) if ok
-                else 2 ** 64 - 1)
-        assert lib.t2l_sa_select_layout(p, s, c, h1, h2, 32, rows, resident, code) == want
-    assert lib.t2l_sa_select_layout(p, s, c, h1, h2, 33, 64, 0, code) == 2 ** 64 - 1
-    plan = cuda_pointconv.first_plan(p, s, c, h1, h2, 32, dtype)
+    layout = getattr(lib, f"t2l_sa_{selection}_layout")
+    budgets = [b for b in cuda_pointconv.ALL_BUDGETS if b >= p] if selection == "all" else [0]
+    for rows, resident in cuda_pointconv.TILE_LAYOUTS:
+        ok = (16 if selection == "all" else k) <= rows <= cuda_pointconv.max_rows(h1, h2)
+        for budget in budgets:
+            want = (cuda_pointconv.select_smem(p, s, c, h1, h2, k, rows, resident, dtype,
+                                               selection, budget) if ok else 2 ** 64 - 1)
+            assert layout(p, s, c, h1, h2, k, rows, resident, budget, code) == want
+    if selection == "all":     # a budget below P
+        assert layout(p, s, c, h1, h2, k, 64, 0, p - 1, code) == 2 ** 64 - 1
+    else:                      # K above 32
+        assert layout(p, s, c, h1, h2, 33, 64, 0, 0, code) == 2 ** 64 - 1
+    plan = cuda_pointconv.tile_plan(p, s, c, h1, h2, k, dtype, selection)
     occ = ctypes.c_int(0)
-    assert lib.t2l_sa_select_occupancy(p, s, c, h1, h2, 32, plan.rows, plan.resident, code,
-                                       ctypes.byref(occ)) == 0
+    assert getattr(lib, f"t2l_sa_{selection}_occupancy")(
+        p, s, c, h1, h2, k, plan.rows, plan.resident, plan.budget, code,
+        ctypes.byref(occ)) == 0
     assert occ.value == plan.blocks_per_sm >= 1
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("p,s,c,h1,h2", PLAN_LEVELS)
+def test_sa_select_first_plan_is_the_kernels(dev, dtype, p, s, c, h1, h2):
+    _assert_tile_plan_is_the_kernels(dtype, "first", p, s, c, h1, h2)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("selection", ["gather", "all"])
+@pytest.mark.parametrize("p,s,c,h1,h2", PLAN_LEVELS)
+def test_sa_gather_all_plans_are_the_kernels(dev, dtype, selection, p, s, c, h1, h2):
+    _assert_tile_plan_is_the_kernels(dtype, selection, p, s,
+                                     c - 3 if selection == "all" else c, h1, h2)
 
 
 def test_sa_select_first_rejects_what_the_kernel_does_not_take(dev):
@@ -311,6 +332,132 @@ def test_sa_select_first_rejects_what_the_kernel_does_not_take(dev):
     args[6] = flat[1:].view(256, 256)                 # contiguous, 4 bytes off 16
     with pytest.raises(ValueError, match="16-byte aligned"):
         sa_select(*args)
+
+
+ALL_CASES = ["split", "whole", "voxel"]
+
+
+def _all_args(rng, dev, dtype, case, n, p, s, c, h1, h2, radius):
+    """set_abstraction's arguments for one "all" case: "split": random points
+    and a dense cluster of 3P/4 of them within 0.01 of point 0, so that
+    centers in it hold more edges than the plan's tile where P exceeds it,
+    and others straddle a tile's end; "whole": every point within radius of
+    every center (S x P edges, several groups a cloud); "voxel": points on
+    a 1/16 grid with duplicates, many exactly at r = 4/16. Center 5 of
+    cloud 0 has no point in radius."""
+    if case == "voxel":
+        radius = 0.25
+        pos = rng.integers(-8, 9, (n, p, 3)) / 16.0
+        pos[:, 10:15] = pos[:, 0:5]
+    else:
+        pos = rng.random((n, p, 3)) - 0.5
+        if case == "split":
+            q = 3 * p // 4
+            pos[:, 1:q] = pos[:, :1] + 0.01 * (rng.random((n, q - 1, 3)) - 0.5)
+        else:
+            radius = 4.0
+    pos = torch.from_numpy(pos.astype(np.float32)).to(dev)
+    ctr = pos[:, :s].contiguous()
+    ctr[0, 5] = 9.0
+    x = _randn(rng, (n, p, c - 3), dev).to(dtype).contiguous()
+    wx = _randn(rng, (c - 3, h1), dev, c ** -0.5).to(dtype)
+    wp = _randn(rng, (3, h1), dev, c ** -0.5).to(dtype)
+    w2 = _randn(rng, (h1, h2), dev, h1 ** -0.5).to(dtype)
+    ab1 = torch.stack([_randn(rng, h1, dev, 0.1, 1.0), _randn(rng, h1, dev, 0.1)])
+    ab2 = torch.stack([_randn(rng, h2, dev, 0.1, 1.0), _randn(rng, h2, dev, 0.1)])
+    return (x, pos, ctr, wx, wp, ab1, w2, ab2, radius, 32)
+
+
+def _split_centers(pos, ctr, radius, plan):
+    """(centers with more edges than the plan's tile, centers whose edges
+    straddle a tile's end) as the "all" kernel cuts groups and tiles."""
+    counts = (squared_distances(pos, ctr) <= radius * radius).sum(-1).cpu().tolist()
+    over = straddle = 0
+    for row in counts:
+        for g0, g1 in cuda_pointconv.all_groups(row, plan.budget):
+            start = 0
+            for cnt in row[g0:g1]:
+                if cnt:
+                    over += cnt > plan.rows
+                    straddle += start // plan.rows != (start + cnt - 1) // plan.rows
+                start += cnt
+    return over, straddle
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", SA_SHAPES)
+@pytest.mark.parametrize("case", ALL_CASES)
+def test_sa_all_kernel_cases(dev, dtype, shape, case):
+    n, p, s, c, h1, h2, radius = shape
+    args = _all_args(np.random.default_rng(16), dev, dtype, case, n, p, s, c, h1, h2, radius)
+    x, pos, ctr, radius = args[0], args[1], args[2], args[8]
+    plan = cuda_pointconv.tile_plan(p, s, c - 3, h1, h2, 32, dtype, "all")
+    over, straddle = _split_centers(pos, ctr, radius, plan)
+    if case == "split":
+        assert straddle > 0 and (over > 0 or p <= plan.rows)
+    if case == "whole":
+        assert len(cuda_pointconv.all_groups([p] * s, plan.budget)) > 1 or p * s <= plan.budget
+    before = cuda_pointconv.KERNEL_ALL.launches
+    got = set_abstraction(*args, select_k=False)
+    assert cuda_pointconv.KERNEL_ALL.launches == before + 1
+    _close(got, set_abstraction_plain(*args, select_k=False), dtype)
+    assert (got[0, 5] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", SA_SHAPES)
+@pytest.mark.parametrize("approx", [False, True])
+def test_sa_gather_kernel_holes_and_duplicates(dev, dtype, shape, approx):
+    """Masks with holes in mid-row, a duplicated neighbour in a valid slot
+    and all-invalid rows, over the exact and the approximate ball query."""
+    rng = np.random.default_rng(17)
+    n, p, s, c, h1, h2, radius = shape
+    a = _sa_level_inputs(rng, dev, dtype, n, p, s, c, h1, h2, voxel=approx)
+    idx, mask = ball_query_knn(a["pos"], a["ctr"], radius, 32, approx=approx)
+    idx, mask = idx.to(torch.int32).contiguous(), mask.clone()
+    mask[:, :, 3] = False
+    mask[:, ::2, 10:13] = False
+    idx[:, :, 6] = idx[:, :, 5]
+    mask[:, :, 6] = mask[:, :, 5]
+    mask[1, :4] = False
+    args = (a["feat"], a["ctr"], idx, mask, a["w1"], a["wp"], a["ab1"], a["w2"], a["ab2"])
+    before = cuda_pointconv.KERNEL_GATHER.launches
+    got = sa_gather(*args)
+    assert cuda_pointconv.KERNEL_GATHER.launches == before + 1
+    _close(got, sa_gather_plain(*args), dtype)
+    assert (got[1, :4] == 0).all() and (got[0, 5] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("selection", ["gather", "all"])
+def test_sa_gather_all_kernels_take_no_clouds(dev, dtype, selection):
+    a = _sa_level_inputs(np.random.default_rng(18), dev, dtype, 1, 128, 64, 67, 128, 128)
+    a = {key: v[:0].contiguous() if key in ("x", "feat", "pos", "ctr") else v
+         for key, v in a.items()}
+    kernel = cuda_pointconv.TILE_KERNELS[selection]
+    before = kernel.launches
+    if selection == "gather":
+        idx = torch.zeros((0, 64, 32), dtype=torch.int32, device=dev)
+        got = sa_gather(a["feat"], a["ctr"], idx, idx.bool(), a["w1"], a["wp"], a["ab1"],
+                        a["w2"], a["ab2"])
+    else:
+        got = set_abstraction(a["x"], a["pos"], a["ctr"], a["wx"], a["wp"], a["ab1"],
+                              a["w2"], a["ab2"], 0.3, 32, select_k=False)
+    assert kernel.launches == before
+    assert got.shape == (0, 64, 128) and got.dtype == dtype
+
+
+def test_sa_gather_all_reject_what_the_kernel_does_not_take(dev):
+    rng = np.random.default_rng(19)
+    a = _sa_level_inputs(rng, dev, torch.float32, 1, 4097, 16, 6, 32, 64)
+    with pytest.raises(ValueError, match="P=4097"):
+        set_abstraction(a["x"], a["pos"], a["ctr"], a["wx"], a["wp"], a["ab1"], a["w2"],
+                        a["ab2"], 0.2, 32, select_k=False)
+    a = _sa_level_inputs(rng, dev, torch.float32, 2, 64, 16, 6, 32, 64)
+    idx = torch.zeros((2, 16, 33), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="K=33"):
+        sa_gather(a["feat"], a["ctr"], idx, idx.bool(), a["w1"], a["wp"], a["ab1"],
+                  a["w2"], a["ab2"])
 
 
 def _mha_args(dev, dtype, b, lq, lk, d, self_attn, seed=2):

@@ -1,6 +1,6 @@
 """The "first" SA kernel's plan and the level it computes, off the card.
 
-The plan (ops/cuda_pointconv.pick_plan, the part of first_plan that needs no
+The plan (ops/cuda_pointconv.pick_plan, the part of tile_plan that needs no
 card, sized here with the occupancy of shared memory alone; on the card the
 occupancy query decides): every level of Config() and small_test_config(),
 in bf16 and f32, gets a tile layout that fits a block's shared memory;
@@ -34,7 +34,7 @@ ATOL = 1e-5
 SMEM_PER_SM, SMEM_RESERVED = 233472, 1024   # an H100 SM's shared memory, kept per block
 
 
-def smem_occupancy(rows, resident, smem):
+def smem_occupancy(rows, resident, smem, budget=0):
     """Blocks one SM holds by its shared memory and its 2048 threads alone
     (the registers unknown off the card)."""
     return min(8, SMEM_PER_SM // (smem + SMEM_RESERVED))
@@ -62,7 +62,8 @@ def test_first_plan_fits_every_config_level(config, level, dtype):
     assert plan.smem == cp.select_smem(p, s, c, h1, h2, k, plan.rows, plan.resident, dtype)
     assert plan.rows % 16 == 0 and k <= plan.rows <= cp.max_rows(h1, h2)
     assert plan.blocks_per_sm >= 1 and plan.slices == 1
-    assert (plan.rows, plan.resident, plan.smem) in cp.first_layouts(p, s, c, h1, h2, k, dtype)
+    assert plan.budget == 0
+    assert (plan.rows, plan.resident, plan.smem, 0) in cp.tile_layouts(p, s, c, h1, h2, k, dtype)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -90,16 +91,19 @@ def test_first_plan_rejects_what_the_kernel_does_not_take(kw, match):
 def test_first_plan_takes_the_most_rows_in_flight():
     level = (128, 64, 67, 128, 128, 32, torch.bfloat16)
     # Two streamed blocks of 128 rows beat one resident block.
-    plan = cp.pick_plan(*level, lambda rows, resident, smem: 1 if resident else 2)
+    plan = cp.pick_plan(*level, lambda rows, resident, smem, budget: 1 if resident else 2)
     assert (plan.rows, plan.resident, plan.blocks_per_sm) == (128, 0, 2)
-    # Four blocks of 64 rows beat two of 128; a tie goes to the resident W2.
-    plan = cp.pick_plan(*level, lambda rows, resident, smem: 4 if rows <= 64 else 2)
+    # Four blocks of 64 rows beat one of 128; a tie goes to the resident W2.
+    plan = cp.pick_plan(*level, lambda rows, resident, smem, budget: 4 if rows <= 64 else 1)
     assert (plan.rows, plan.resident, plan.blocks_per_sm) == (64, 1, 4)
+    # Of equal rows in flight the taller tile: a tile costs a fixed chain.
+    plan = cp.pick_plan(*level, lambda rows, resident, smem, budget: 4 if rows <= 64 else 2)
+    assert (plan.rows, plan.resident, plan.blocks_per_sm) == (128, 1, 2)
     # A layout the card cannot hold once is never taken.
-    plan = cp.pick_plan(*level, lambda rows, resident, smem: 0 if rows == 128 else 1)
+    plan = cp.pick_plan(*level, lambda rows, resident, smem, budget: 0 if rows == 128 else 1)
     assert plan.rows == 64
     with pytest.raises(ValueError, match="no tile layout"):
-        cp.pick_plan(*level, lambda rows, resident, smem: 0)
+        cp.pick_plan(*level, lambda rows, resident, smem, budget: 0)
     # The widest class holds at most 64 rows a tile.
     assert cp.pick_plan(64, 32, 131, 256, 256, 32, torch.bfloat16, lambda *a: 1).rows == 64
 

@@ -9,9 +9,9 @@
 
 // Dynamic shared memory of one block (the wrapper checks it against the
 // card's limit before launching); shared by every selection of
-// sa_level.cuh.
-extern "C" size_t t2l_sa_level_smem(int p, int h1, int g_per, int cap) {
-  return sa_level_smem(p, h1, g_per, cap);
+// sa_level.cuh (bisect, exact).
+extern "C" size_t t2l_sa_level_smem(int p, int h1, int g_per) {
+  return sa_level_smem(p, h1, g_per);
 }
 
 T2L_SA_LEVEL_ENTRY(bisect, kBisect)

@@ -1,21 +1,42 @@
-// The inference set-abstraction level with "first" selection on the tensor
-// cores (sa_select.cu holds the C entries and the design note).
+// The inference set-abstraction level on the tensor cores, one kernel
+// template for three selections, each instantiated in a source of its own
+// with its C entries (T2L_SA_TILE_ENTRY): "first" (sa_select.cu, which
+// holds the design note), "gather" (sa_gather.cu) and "all" (sa_all.cu).
+// Selections "bisect" and "exact" stay on sa_level.cuh.
 //
 // A block of 256 threads (8 warps) walks whole clouds (n = blockIdx.x, +
 // gridDim.x, ...). Per cloud:
-//   1. u = feat @ W1 for the P points on mma.sync (Mma of
-//      sa_train_tiles.cuh), rows in chunks of 64, columns in slices of
-//      kSlice, W1 streamed through the cp.async ring (its rows past C+3
-//      zero-filled); u is rounded to T and kept in shared memory [P][H1 +
-//      pad] in T.
-//   2. The centers in groups of up to kGroup: every warp selects centers
-//      w, w + 8, ... of the group (the first <= K in-radius points in index
-//      order by ballot and popcount, dist2 of sa_level.cuh); then each warp
-//      scans the counts (the rows' exclusive prefix) and writes the row map
-//      (center, point) of its own centers, and warp 0 cuts the rows into
-//      tiles of at most R rows at center boundaries (a center's edges never
-//      straddle two tiles, an empty center takes no row). Two barriers a
-//      group.
+//   1. u for the P points on mma.sync (Mma of sa_train_tiles.cuh), rows in
+//      chunks of 64, columns in slices of kSlice, the weight streamed
+//      through the cp.async ring (its rows past C zero-filled):
+//      first, gather: u = feat @ W1 rounded to T, kept in shared memory
+//        [P][H1 + pad] in T;
+//      all: u = x @ Wx + pos @ Wp, the second term as three f32 FMAs per
+//        element, not rounded, kept [P][H1 + 4] in f32.
+//   2. Rows: a row is an edge (center, point), the row map holds a group's
+//      rows in center order.
+//      first, gather: the centers in groups of up to kGroup. Every warp
+//        selects centers w, w + 8, ... of the group into a list: "first"
+//        the first <= K in-radius points in index order by ballot and
+//        popcount (dist2 of sa_level.cuh); "gather" the valid slots of the
+//        center's idx/mask row in slot order (one lane a slot; no point
+//        positions). Then each warp scans the counts (the rows' exclusive
+//        prefix) and writes the row map of its own centers, and warp 0
+//        cuts the rows into tiles of at most R rows at center boundaries (a
+//        center's edges never straddle two tiles, an empty center takes no
+//        row). Two barriers a group.
+//      all: every in-radius point is an edge, up to P a center. Every warp
+//        counts its centers of the whole cloud (ballot popcounts over
+//        32-point chunks; an empty center's output row is written 0 here),
+//        warp 0 takes the exclusive prefix, and the cloud's centers fall
+//        into groups: the most consecutive centers whose rows fit the row
+//        map's budget (>= P, so one center always does). Per group every
+//        warp writes its centers' rows on a second pass over the distances,
+//        and the rows are cut into tiles of R rows across center
+//        boundaries: a center with more rows than the tile (or straddling
+//        one's end) is split, its partial max carried from one tile to the
+//        next through its own output row (every y >= 0 after the ReLU and
+//        rounding is monotone, so the max of the partial maxima is exact).
 //   3. Per tile: h1 = round(relu((u[j] + sv) * a1 + b1)), sv = -ctr @ Wp
 //      (f32; Wp and the BN1 constants of a thread's columns in registers),
 //      straight into the padded A layout [R][H1k + pad] that
@@ -31,6 +52,8 @@
 //      gives 0. out[n, s, :] in T. Four barriers a tile, besides the ring's.
 #pragma once
 
+#include <type_traits>
+
 #include "sa_level.cuh"        // dist2, sq_norm: the selections' shared distance
 #include "sa_train_tiles.cuh"  // Mma, product, stage_rows, Pad, take, launch
 
@@ -41,16 +64,19 @@ using sat::kKC;
 using sat::kThreads;
 using sat::kWarps;
 
+enum Sel : int { kFirst = 0, kGather = 1, kAll = 2 };
+
 constexpr int kMaxNbr = 32;                       // K <= 32: a lane per slot
 constexpr int kSlice = kWarps * 8 * sat::kMaxNQ;  // output columns of one product
-constexpr int kGroup = 128;                       // centers selected at once
+constexpr int kGroup = 128;                       // centers selected at once (first, gather)
+constexpr int kMaxAllCenters = 32767;             // "all": a row's center in 15 bits
 constexpr size_t kSmemLimit = 232448;             // bytes of shared memory a block may use
 
 struct Args {
-  const void* feat;   // [n, p, c] T: concat(x, pos)
-  const float* pos;   // [n, p, 3]
+  const void* feat;   // [n, p, c] T: concat(x, pos); "all": x
+  const float* pos;   // [n, p, 3] ("gather": unused)
   const float* ctr;   // [n, s, 3]
-  const void* w1;     // [c, h1] T
+  const void* w1;     // [c, h1] T ("all": Wx)
   const void* wp;     // [3, h1] T: the position rows of W1
   const float* ab1;   // [2, h1] folded BN: scale, shift
   const void* w2;     // [h1, h2] T
@@ -59,6 +85,9 @@ struct Args {
   int n, p, s, c, h1, h2, k;
   float r2;
   int rows, resident;
+  const int* idx;         // "gather": [n, s, k] the neighbours
+  const uint8_t* mask;    // "gather": [n, s, k] their validity
+  int budget;             // "all": rows of the row map
 };
 
 __host__ __device__ inline int round_up(int v, int m) { return (v + m - 1) / m * m; }
@@ -76,23 +105,23 @@ __host__ __device__ inline int row_tiles(int nq) { return nq == 4 ? 4 : 8; }
 
 constexpr int kUTiles = 4;  // m16 row tiles of a u pass chunk: 64 points
 
-// Centers of a group: all of the cloud's up to kGroup.
+// Centers of a group (first, gather): all of the cloud's up to kGroup.
 __host__ __device__ inline int group_size(int s) {
   return s < 1 ? 1 : (s < kGroup ? s : kGroup);
 }
 
 struct Smem {
   unsigned char* w2;   // resident: W2 [h1k][h2 + pad], rows past h1 zero
-  unsigned char* u;    // u [p][h1 + pad] T
-  float* pos;          // [p][3]
+  unsigned char* u;    // u [p][h1 + pad] T; "all": [p][h1 + 4] f32
+  float* pos;          // [p][3] (none for "gather")
   float* cst;          // [5][h1]: BN1 scale, shift; the rows of Wp (f32)
-  float* gctr;         // [G][4] the group's centers
-  uint16_t* list;      // [G][k] their selected points
+  float* gctr;         // [G][4] the group's centers ("all": the cloud's)
+  uint16_t* list;      // [G][k] their selected points (none for "all")
   int* cnt;            // [G] their counts
   int* grow;           // [G + 1] their first rows (exclusive prefix of cnt)
-  int* tile;           // [G + 1] the tiles' first centers, then G
-  int* rowmap;         // [G k] a row's (center << 16 | point)
-  int* num;            // [2] tiles of the group
+  int* tile;           // [G + 1] the tiles' first centers, then G (none for "all")
+  int* rowmap;         // [G k] ("all": [budget]) a row's (center << 16 | point)
+  int* num;            // [2] tiles of the group (none for "all")
   // Scratch, per phase: the u pass's feat rows [64][ck + pad] and W1
   // ring; a tile's h1 [rows][h1k + pad] with y over it (y apart where H2 >
   // kSlice), and the W2 ring.
@@ -103,30 +132,34 @@ struct Smem {
   unsigned char* ring2;
 };
 
-// The carve-up of one block's dynamic shared memory (es = sizeof(T)); the
-// host sizes a plan with the same function (ops/cuda_pointconv.select_smem
-// mirrors it). Returns the bytes.
-__host__ __device__ inline size_t layout(int p, int s, int c, int h1, int h2, int k,
-                                         int rows, int resident, int es,
+// The carve-up of one block's dynamic shared memory for selection sel (es
+// = sizeof(T)); the host sizes a plan with the same function
+// (ops/cuda_pointconv.select_smem mirrors it). Returns the bytes.
+__host__ __device__ inline size_t layout(int sel, int p, int s, int c, int h1, int h2, int k,
+                                         int rows, int resident, int budget, int es,
                                          unsigned char* base, Smem* out) {
   using sat::take;
   const int pad = es == 4 ? 4 : 8;
+  const bool all = sel == kAll;
   const int h1k = round_up(h1, kKC), ck = round_up(c, kKC);
   const int w1n = h1 < kSlice ? h1 : kSlice, w2n = h2 < kSlice ? h2 : kSlice;
-  const int g = group_size(s);
+  const int g = all ? (s < 1 ? 1 : s) : group_size(s);
   size_t off = 0;
   Smem sm;
   sm.w2 = take(base, &off, resident ? (size_t)es * h1k * (h2 + pad) : 0);
-  sm.u = take(base, &off, (size_t)es * p * (h1 + pad));
-  sm.pos = reinterpret_cast<float*>(take(base, &off, sizeof(float) * 3 * p));
+  sm.u = take(base, &off, all ? sizeof(float) * p * (h1 + 4) : (size_t)es * p * (h1 + pad));
+  sm.pos = reinterpret_cast<float*>(
+      take(base, &off, sel == kGather ? 0 : sizeof(float) * 3 * p));
   sm.cst = reinterpret_cast<float*>(take(base, &off, sizeof(float) * 5 * h1));
   sm.gctr = reinterpret_cast<float*>(take(base, &off, sizeof(float) * 4 * g));
-  sm.list = reinterpret_cast<uint16_t*>(take(base, &off, sizeof(uint16_t) * g * k));
+  sm.list = reinterpret_cast<uint16_t*>(
+      take(base, &off, all ? 0 : sizeof(uint16_t) * g * k));
   sm.cnt = reinterpret_cast<int*>(take(base, &off, sizeof(int) * g));
   sm.grow = reinterpret_cast<int*>(take(base, &off, sizeof(int) * (g + 1)));
-  sm.tile = reinterpret_cast<int*>(take(base, &off, sizeof(int) * (g + 1)));
-  sm.rowmap = reinterpret_cast<int*>(take(base, &off, sizeof(int) * g * k));
-  sm.num = reinterpret_cast<int*>(take(base, &off, sizeof(int) * 2));
+  sm.tile = reinterpret_cast<int*>(take(base, &off, all ? 0 : sizeof(int) * (g + 1)));
+  sm.rowmap = reinterpret_cast<int*>(
+      take(base, &off, sizeof(int) * (all ? (size_t)budget : (size_t)g * k)));
+  sm.num = reinterpret_cast<int*>(take(base, &off, all ? 0 : sizeof(int) * 2));
   size_t u_end = off, t_end = off;
   sm.fs = take(base, &u_end, (size_t)es * 16 * kUTiles * (ck + pad));
   sm.ring1 = take(base, &u_end, (size_t)es * 2 * kKC * (w1n + pad));
@@ -140,14 +173,21 @@ __host__ __device__ inline size_t layout(int p, int s, int c, int h1, int h2, in
   return u_end > t_end ? u_end : t_end;
 }
 
-// What the kernel relies on; 0 where it holds. K in [1, 32]; P <= 65535
+// What the kernel of selection sel relies on; 0 where it holds. P <= 65535
 // (a row's point in 16 bits); H1 and H2 multiples of 8, H1 <= 1024 (a
-// thread owns one column chunk of h1); R a multiple of 16 in [K, 16 MTR].
-__host__ __device__ inline int check_args(const Args& a) {
-  if (a.k < 1 || a.k > kMaxNbr || a.p < 1 || a.p > 65535 || a.c < 1) return 1;
+// thread owns one column chunk of h1); R a multiple of 16 in [16, 16 MTR].
+// first, gather: K in [1, 32] and R >= K (a center in one tile). all: the
+// row budget >= P (a center in one group), S <= kMaxAllCenters.
+__host__ __device__ inline int check_args(int sel, const Args& a) {
+  if (a.p < 1 || a.p > 65535 || a.c < 1) return 1;
   if (a.h1 < 8 || a.h1 % 8 || a.h1 > 1024 || a.h2 < 8 || a.h2 % 8) return 1;
-  if (a.rows % 16 || a.rows < a.k || a.rows > 16 * row_tiles(width_class(a.h1, a.h2)))
+  if (a.rows % 16 || a.rows < 16 || a.rows > 16 * row_tiles(width_class(a.h1, a.h2)))
     return 1;
+  if (sel == kAll) {
+    if (a.budget < a.p || a.s > kMaxAllCenters) return 1;
+  } else if (a.k < 1 || a.k > kMaxNbr || a.rows < a.k) {
+    return 1;
+  }
   return a.resident == 0 || a.resident == 1 ? 0 : 1;
 }
 
@@ -204,23 +244,26 @@ struct MinBlocks {
   static constexpr int v = sizeof(T) == 4 && NQ >= 2 ? 1 : 2;
 };
 
-template <typename T, int NQ>
-__global__ void __launch_bounds__(kThreads, MinBlocks<T, NQ>::v)
-    sa_select_first_kernel(Args a) {
+// The level of selection SEL (steps 1-5 above): "gather" and "all" branch
+// off "first"'s statements at compile time where they differ.
+template <int SEL, typename T, int NQ>
+__device__ __forceinline__ void sa_level_tc(const Args& a) {
+  using U = std::conditional_t<SEL == kAll, float, T>;  // u in shared memory
   constexpr int MTR = sat::Width<NQ>::MTR;
   constexpr int pad = sat::Pad<T>::v;
   constexpr int V = 16 / sizeof(T);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem sm;
-  layout(a.p, a.s, a.c, a.h1, a.h2, a.k, a.rows, a.resident, (int)sizeof(T), smem_raw, &sm);
+  layout(SEL, a.p, a.s, a.c, a.h1, a.h2, a.k, a.rows, a.resident, a.budget, (int)sizeof(T),
+         smem_raw, &sm);
   const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
   const int p = a.p, s = a.s, c = a.c, h1 = a.h1, h2 = a.h2, k = a.k;
   const int h1k = round_up(h1, kKC), ck = round_up(c, kKC);
-  const int ldu = h1 + pad, ldh = h1k + pad, ldf = ck + pad;
+  const int ldu = h1 + sat::Pad<U>::v, ldh = h1k + pad, ldf = ck + pad;
   const int w1n = h1 < kSlice ? h1 : kSlice, w2n = h2 < kSlice ? h2 : kSlice;
   const int ldy = w2n + pad;
   const int gmax = group_size(s);
-  T* u_s = reinterpret_cast<T*>(sm.u);
+  U* u_s = reinterpret_cast<U*>(sm.u);
   T* fs = reinterpret_cast<T*>(sm.fs);
   T* ring1 = reinterpret_cast<T*>(sm.ring1);
   T* hs = reinterpret_cast<T*>(sm.hs);
@@ -244,11 +287,12 @@ __global__ void __launch_bounds__(kThreads, MinBlocks<T, NQ>::v)
 
   for (int n = blockIdx.x; n < a.n; n += gridDim.x) {
     const T* feat_n = static_cast<const T*>(a.feat) + (size_t)n * p * c;
-    const float* pos_n = a.pos + (size_t)n * p * 3;
+    const float* pos_n = a.pos + (size_t)n * p * 3;  // gather: not read
     const float* ctr_n = a.ctr + (size_t)n * s * 3;
-    for (int i = tid; i < p * 3; i += kThreads) sm.pos[i] = pos_n[i];
+    if constexpr (SEL != kGather)
+      for (int i = tid; i < p * 3; i += kThreads) sm.pos[i] = pos_n[i];
 
-    // 1. u = feat @ W1, rounded to T, in row chunks of 64 points.
+    // 1. u in row chunks of 64 points.
     for (int r0 = 0; r0 < p; r0 += 16 * kUTiles) {
       const int rn = p - r0 < 16 * kUTiles ? p - r0 : 16 * kUTiles;
       for (int r = w; r < 16 * kUTiles; r += kWarps)
@@ -272,92 +316,200 @@ __global__ void __launch_bounds__(kThreads, MinBlocks<T, NQ>::v)
 #pragma unroll
             for (int eh = 0; eh < 2; ++eh) {
               const int r = mt * 16 + 8 * eh + g;
-              if (mt < mts && r < rn)
-                gemm::store2<T>(u_s + (r0 + r) * ldu + col, acc[mt][q][2 * eh],
-                                acc[mt][q][2 * eh + 1]);
+              if (mt < mts && r < rn) {
+                if constexpr (SEL == kAll) {
+                  // x @ Wx + pos @ Wp in f32: three FMAs with Wp's rows.
+                  const float* pr = sm.pos + 3 * (r0 + r);
+                  const float* wp0 = sm.cst + 2 * h1 + col;
+                  const float p0 = fmaf(pr[2], wp0[2 * h1],
+                                        fmaf(pr[1], wp0[h1], pr[0] * wp0[0]));
+                  const float p1 = fmaf(pr[2], wp0[2 * h1 + 1],
+                                        fmaf(pr[1], wp0[h1 + 1], pr[0] * wp0[1]));
+                  *reinterpret_cast<float2*>(u_s + (r0 + r) * ldu + col) =
+                      make_float2(acc[mt][q][2 * eh] + p0, acc[mt][q][2 * eh + 1] + p1);
+                } else {
+                  gemm::store2<T>(u_s + (r0 + r) * ldu + col, acc[mt][q][2 * eh],
+                                  acc[mt][q][2 * eh + 1]);
+                }
+              }
             }
         }
       }
       __syncthreads();  // fs is refilled, u complete
     }
 
-    for (int g0 = 0; g0 < s; g0 += gmax) {
-      const int gn = s - g0 < gmax ? s - g0 : gmax;
-      // 2. Select every center of the group.
-      for (int t = w; t < gn; t += kWarps) {
-        const int si = g0 + t;
-        const float cx = ctr_n[3 * si], cy = ctr_n[3 * si + 1], cz = ctr_n[3 * si + 2];
+    if constexpr (SEL == kAll) {
+      // 2. Every center's count; an empty center's output row is 0.
+      for (int t = w; t < s; t += kWarps) {
+        const float cx = ctr_n[3 * t], cy = ctr_n[3 * t + 1], cz = ctr_n[3 * t + 2];
         const float sc = sq_norm(cx, cy, cz);
-        uint16_t* list = sm.list + t * k;
         int count = 0;
-        for (int base = 0; base < p && count < k; base += 32) {
+        for (int base = 0; base < p; base += 32) {
           const int j = base + lane;
-          const bool in = j < p && dist2(sc, cx, cy, cz, sm.pos, j) <= a.r2;
-          const unsigned ball = __ballot_sync(0xffffffffu, in);
-          const int rank = count + __popc(ball & lt_mask);
-          if (in && rank < k) list[rank] = (uint16_t)j;
-          count += __popc(ball);
+          count += __popc(
+              __ballot_sync(0xffffffffu, j < p && dist2(sc, cx, cy, cz, sm.pos, j) <= a.r2));
         }
         if (lane == 0) {
-          sm.cnt[t] = count < k ? count : k;
+          sm.cnt[t] = count;
           sm.gctr[4 * t] = cx;
           sm.gctr[4 * t + 1] = cy;
           sm.gctr[4 * t + 2] = cz;
         }
+        if (count == 0)
+          for (int col = 2 * lane; col < h2; col += 64)
+            gemm::store2<T>(out + ((size_t)n * s + t) * h2 + col, 0.f, 0.f);
       }
       __syncthreads();
-      // The rows: every warp scans the counts and writes the row map of its
-      // own centers; warp 0 keeps the prefix and cuts the tiles.
-      int base = 0;
-      for (int c0 = 0; c0 < gn; c0 += 32) {
-        const int t = c0 + lane;
-        const int v = t < gn ? sm.cnt[t] : 0;
-        int incl = v;
-#pragma unroll
-        for (int off = 1; off < 32; off <<= 1) {
-          const int o = __shfl_up_sync(0xffffffffu, incl, off);
-          if (lane >= off) incl += o;
-        }
-        if (w == 0 && t < gn) sm.grow[t] = base + incl - v;
-        for (int q = w; q < 32 && c0 + q < gn; q += kWarps) {
-          const int tq = c0 + q;
-          const int rq = base + __shfl_sync(0xffffffffu, incl - v, q);
-          const int cq = __shfl_sync(0xffffffffu, v, q);
-          if (lane < cq) sm.rowmap[rq + lane] = tq << 16 | sm.list[tq * k + lane];
-        }
-        base += __shfl_sync(0xffffffffu, incl, 31);
-      }
+      // The centers' first rows in the cloud (warp 0).
       if (w == 0) {
-        if (lane == 0) sm.grow[gn] = base;
-        __syncwarp();
-        // Tiles: from center t0, the centers before the first t whose rows
-        // end past grow[t0] + R.
-        int nt = 0;
-        for (int t0 = 0; t0 < gn; ++nt) {
-          const int limit = sm.grow[t0] + a.rows;
-          int t1 = gn;
-          for (int cb = t0 + 1; cb < gn; cb += 32) {
-            const unsigned over =
-                __ballot_sync(0xffffffffu, cb + lane < gn && sm.grow[cb + lane + 1] > limit);
-            if (over) {
-              t1 = cb + __ffs(over) - 1;
-              break;
+        int base = 0;
+        for (int c0 = 0; c0 < s; c0 += 32) {
+          const int t = c0 + lane;
+          const int v = t < s ? sm.cnt[t] : 0;
+          int incl = v;
+#pragma unroll
+          for (int off = 1; off < 32; off <<= 1) {
+            const int o = __shfl_up_sync(0xffffffffu, incl, off);
+            if (lane >= off) incl += o;
+          }
+          if (t < s) sm.grow[t] = base + incl - v;
+          base += __shfl_sync(0xffffffffu, incl, 31);
+        }
+        if (lane == 0) sm.grow[s] = base;
+      }
+      __syncthreads();
+    }
+
+    int gstep = gmax;  // "all": the group's centers
+    for (int g0 = 0; g0 < s; g0 += gstep) {
+      int gn = s - g0 < gmax ? s - g0 : gmax;
+      int gb = 0;  // "all": the group's first row in the cloud
+      if constexpr (SEL == kAll) {
+        // The group: centers [g0, g0 + gn), the most whose rows fit the
+        // budget; every warp writes its centers' rows, the in-radius points
+        // in index order.
+        gb = sm.grow[g0];
+        int g1 = g0 + 1, hi = s;
+        while (g1 < hi) {
+          const int mid = (g1 + hi + 1) >> 1;
+          if (sm.grow[mid] - gb <= a.budget) g1 = mid; else hi = mid - 1;
+        }
+        gn = gstep = g1 - g0;
+        for (int t = g0 + w; t < g1; t += kWarps) {
+          if (sm.cnt[t] == 0) continue;
+          const float cx = sm.gctr[4 * t], cy = sm.gctr[4 * t + 1], cz = sm.gctr[4 * t + 2];
+          const float sc = sq_norm(cx, cy, cz);
+          int* rows = sm.rowmap + (sm.grow[t] - gb);
+          int count = 0;
+          for (int base = 0; base < p; base += 32) {
+            const int j = base + lane;
+            const bool in = j < p && dist2(sc, cx, cy, cz, sm.pos, j) <= a.r2;
+            const unsigned ball = __ballot_sync(0xffffffffu, in);
+            if (in) rows[count + __popc(ball & lt_mask)] = t << 16 | j;
+            count += __popc(ball);
+          }
+        }
+        __syncthreads();
+      } else {
+        // 2. Select every center of the group.
+        for (int t = w; t < gn; t += kWarps) {
+          const int si = g0 + t;
+          const float cx = ctr_n[3 * si], cy = ctr_n[3 * si + 1], cz = ctr_n[3 * si + 2];
+          const float sc = sq_norm(cx, cy, cz);
+          uint16_t* list = sm.list + t * k;
+          int count = 0;
+          if constexpr (SEL == kGather) {
+            // The valid slots of the center's idx/mask row, in slot order.
+            const size_t row = ((size_t)n * s + si) * k;
+            const bool valid = lane < k && a.mask[row + lane] != 0;
+            const unsigned ball = __ballot_sync(0xffffffffu, valid);
+            if (valid) list[__popc(ball & lt_mask)] = (uint16_t)a.idx[row + lane];
+            count = __popc(ball);
+          } else {
+            for (int base = 0; base < p && count < k; base += 32) {
+              const int j = base + lane;
+              const bool in = j < p && dist2(sc, cx, cy, cz, sm.pos, j) <= a.r2;
+              const unsigned ball = __ballot_sync(0xffffffffu, in);
+              const int rank = count + __popc(ball & lt_mask);
+              if (in && rank < k) list[rank] = (uint16_t)j;
+              count += __popc(ball);
             }
           }
-          if (lane == 0) sm.tile[nt] = t0;
-          t0 = t1;
+          if (lane == 0) {
+            sm.cnt[t] = count < k ? count : k;
+            sm.gctr[4 * t] = cx;
+            sm.gctr[4 * t + 1] = cy;
+            sm.gctr[4 * t + 2] = cz;
+          }
         }
-        if (lane == 0) {
-          sm.tile[nt] = gn;
-          sm.num[0] = nt;
+        __syncthreads();
+        // The rows: every warp scans the counts and writes the row map of its
+        // own centers; warp 0 keeps the prefix and cuts the tiles.
+        int base = 0;
+        for (int c0 = 0; c0 < gn; c0 += 32) {
+          const int t = c0 + lane;
+          const int v = t < gn ? sm.cnt[t] : 0;
+          int incl = v;
+#pragma unroll
+          for (int off = 1; off < 32; off <<= 1) {
+            const int o = __shfl_up_sync(0xffffffffu, incl, off);
+            if (lane >= off) incl += o;
+          }
+          if (w == 0 && t < gn) sm.grow[t] = base + incl - v;
+          for (int q = w; q < 32 && c0 + q < gn; q += kWarps) {
+            const int tq = c0 + q;
+            const int rq = base + __shfl_sync(0xffffffffu, incl - v, q);
+            const int cq = __shfl_sync(0xffffffffu, v, q);
+            if (lane < cq) sm.rowmap[rq + lane] = tq << 16 | sm.list[tq * k + lane];
+          }
+          base += __shfl_sync(0xffffffffu, incl, 31);
         }
+        if (w == 0) {
+          if (lane == 0) sm.grow[gn] = base;
+          __syncwarp();
+          // Tiles: from center t0, the centers before the first t whose rows
+          // end past grow[t0] + R.
+          int nt = 0;
+          for (int t0 = 0; t0 < gn; ++nt) {
+            const int limit = sm.grow[t0] + a.rows;
+            int t1 = gn;
+            for (int cb = t0 + 1; cb < gn; cb += 32) {
+              const unsigned over =
+                  __ballot_sync(0xffffffffu, cb + lane < gn && sm.grow[cb + lane + 1] > limit);
+              if (over) {
+                t1 = cb + __ffs(over) - 1;
+                break;
+              }
+            }
+            if (lane == 0) sm.tile[nt] = t0;
+            t0 = t1;
+          }
+          if (lane == 0) {
+            sm.tile[nt] = gn;
+            sm.num[0] = nt;
+          }
+        }
+        __syncthreads();
       }
-      __syncthreads();
 
-      const int ntiles = sm.num[0];
+      // "all": tiles of R rows across center boundaries; a row's center,
+      // and the output row, are the cloud's (g0 + t for the others).
+      const int total = SEL == kAll ? sm.grow[g0 + gn] - gb : 0;
+      const int ntiles = SEL == kAll ? (total + a.rows - 1) / a.rows : sm.num[0];
+      const int og = SEL == kAll ? 0 : g0;
       for (int ti = 0; ti < ntiles; ++ti) {
-        const int c0 = sm.tile[ti], c1 = sm.tile[ti + 1];
-        const int row0 = sm.grow[c0], used = sm.grow[c1] - row0;
+        int c0, c1, row0, used;
+        if constexpr (SEL == kAll) {
+          row0 = ti * a.rows;
+          used = total - row0 < a.rows ? total - row0 : a.rows;
+          c0 = sm.rowmap[row0] >> 16;
+          c1 = (sm.rowmap[row0 + used - 1] >> 16) + 1;
+        } else {
+          c0 = sm.tile[ti];
+          c1 = sm.tile[ti + 1];
+          row0 = sm.grow[c0];
+          used = sm.grow[c1] - row0;
+        }
         const int mts = (used + 15) / 16;
         // 3. h1 rows, zero past the used rows and past H1: a thread owns the
         // V columns cc of every kThreads / qv-th row.
@@ -384,7 +536,17 @@ __global__ void __launch_bounds__(kThreads, MinBlocks<T, NQ>::v)
               const float* ct = sm.gctr + 4 * (m >> 16);
               const float cx = ct[0], cy = ct[1], cz = ct[2];
               float uv[V];
-              load16<T>(u_s + (m & 0xffff) * ldu + cc, uv);
+              if constexpr (std::is_same_v<U, T>) {
+                load16<T>(u_s + (m & 0xffff) * ldu + cc, uv);
+              } else {  // f32 u, bf16 h1: two 16-byte loads
+#pragma unroll
+                for (int e0 = 0; e0 < V; e0 += 4) {
+                  float v4[4];
+                  load16<float>(u_s + (m & 0xffff) * ldu + cc + e0, v4);
+#pragma unroll
+                  for (int e = 0; e < 4; ++e) uv[e0 + e] = v4[e];
+                }
+              }
 #pragma unroll
               for (int e = 0; e < V; ++e) {
                 const float sv = -(cx * cst[2][e] + cy * cst[3][e] + cz * cst[4][e]);
@@ -427,15 +589,33 @@ __global__ void __launch_bounds__(kThreads, MinBlocks<T, NQ>::v)
           const int pairs = wn / 2;
           for (int i = tid; i < (c1 - c0) * pairs; i += kThreads) {
             const int t = c0 + i / pairs, col = (i % pairs) * 2;
-            const int ra = sm.grow[t] - row0, rb = ra + sm.cnt[t];
             float m0 = 0.f, m1 = 0.f;
-            for (int r = ra; r < rb; ++r) {
-              float v0, v1;
-              load2<T>(ys + r * ldy + col, v0, v1);
-              m0 = fmaxf(m0, v0);
-              m1 = fmaxf(m1, v1);
+            if constexpr (SEL == kAll) {
+              // The center's rows in this tile; where it began in a tile
+              // before, the max so far from its output row.
+              const int st = sm.grow[t] - gb - row0, en = sm.grow[t + 1] - gb - row0;
+              for (int r = st > 0 ? st : 0; r < (en < used ? en : used); ++r) {
+                float v0, v1;
+                load2<T>(ys + r * ldy + col, v0, v1);
+                m0 = fmaxf(m0, v0);
+                m1 = fmaxf(m1, v1);
+              }
+              if (st < 0) {
+                float v0, v1;
+                load2<T>(out + ((size_t)n * s + t) * h2 + col0 + col, v0, v1);
+                m0 = fmaxf(m0, v0);
+                m1 = fmaxf(m1, v1);
+              }
+            } else {
+              const int ra = sm.grow[t] - row0, rb = ra + sm.cnt[t];
+              for (int r = ra; r < rb; ++r) {
+                float v0, v1;
+                load2<T>(ys + r * ldy + col, v0, v1);
+                m0 = fmaxf(m0, v0);
+                m1 = fmaxf(m1, v1);
+              }
             }
-            gemm::store2<T>(out + ((size_t)n * s + g0 + t) * h2 + col0 + col, m0, m1);
+            gemm::store2<T>(out + ((size_t)n * s + og + t) * h2 + col0 + col, m0, m1);
           }
           __syncthreads();  // the next slice's y, the next tile's h1, the next group
         }
@@ -444,29 +624,109 @@ __global__ void __launch_bounds__(kThreads, MinBlocks<T, NQ>::v)
   }
 }
 
+template <typename T, int NQ>
+__global__ void __launch_bounds__(kThreads, MinBlocks<T, NQ>::v)
+    sa_select_first_kernel(Args a) {
+  sa_level_tc<kFirst, T, NQ>(a);
+}
+
+template <typename T, int NQ>
+__global__ void __launch_bounds__(kThreads, MinBlocks<T, NQ>::v) sa_gather_kernel(Args a) {
+  sa_level_tc<kGather, T, NQ>(a);
+}
+
+template <typename T, int NQ>
+__global__ void __launch_bounds__(kThreads, MinBlocks<T, NQ>::v) sa_all_kernel(Args a) {
+  sa_level_tc<kAll, T, NQ>(a);
+}
+
 using Fn = void (*)(Args);
 
-template <typename T>
+template <int SEL, typename T, int NQ>
+Fn kernel_fn() {
+  if constexpr (SEL == kFirst) return sa_select_first_kernel<T, NQ>;
+  else if constexpr (SEL == kGather) return sa_gather_kernel<T, NQ>;
+  else return sa_all_kernel<T, NQ>;
+}
+
+template <int SEL, typename T>
 Fn kernel_of(int h1, int h2) {
   const int nq = width_class(h1, h2);
-  if (nq == 1) return sa_select_first_kernel<T, 1>;
-  if (nq == 2) return sa_select_first_kernel<T, 2>;
-  return sa_select_first_kernel<T, 4>;
+  if (nq == 1) return kernel_fn<SEL, T, 1>();
+  if (nq == 2) return kernel_fn<SEL, T, 2>();
+  return kernel_fn<SEL, T, 4>();
 }
 
 // The launch (occ null) or the occupancy query (-> *occ) of the plan (rows,
-// resident) on `blocks` blocks; cudaErrorInvalidValue where the kernel does
-// not take the shape or the plan.
-inline int entry(const Args& a, int blocks, int dtype, cudaStream_t st, int* occ) {
-  if (check_args(a)) return (int)cudaErrorInvalidValue;
+// resident, budget) on `blocks` blocks; cudaErrorInvalidValue where the
+// kernel does not take the shape or the plan.
+template <int SEL>
+int entry(const Args& a, int blocks, int dtype, cudaStream_t st, int* occ) {
+  if (check_args(SEL, a)) return (int)cudaErrorInvalidValue;
   const int es = dtype == kBF16 ? 2 : 4;
-  const size_t smem = layout(a.p, a.s, a.c, a.h1, a.h2, a.k, a.rows, a.resident, es,
-                             nullptr, nullptr);
+  const size_t smem = layout(SEL, a.p, a.s, a.c, a.h1, a.h2, a.k, a.rows, a.resident,
+                             a.budget, es, nullptr, nullptr);
   if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
   if (dtype == kBF16)
-    return sat::launch(kernel_of<__nv_bfloat16>(a.h1, a.h2), smem, blocks, st, occ, a);
-  return sat::launch(kernel_of<float>(a.h1, a.h2), smem, blocks, st, occ, a);
+    return sat::launch(kernel_of<SEL, __nv_bfloat16>(a.h1, a.h2), smem, blocks, st, occ, a);
+  return sat::launch(kernel_of<SEL, float>(a.h1, a.h2), smem, blocks, st, occ, a);
+}
+
+inline Args args_of(const void* feat, const void* pos, const void* ctr, const void* idx,
+                    const void* mask, const void* w1, const void* wp, const void* ab1,
+                    const void* w2, const void* ab2, void* out, int n, int p, int s, int c,
+                    int h1, int h2, int k, float r2, int rows, int resident, int budget) {
+  return Args{feat, static_cast<const float*>(pos), static_cast<const float*>(ctr), w1, wp,
+              static_cast<const float*>(ab1), w2, static_cast<const float*>(ab2), out,
+              n, p, s, c, h1, h2, k, r2, rows, resident, static_cast<const int*>(idx),
+              static_cast<const uint8_t*>(mask), budget};
 }
 
 }  // namespace sas
 }  // namespace t2l
+
+// The C entries of selection SEL (kFirst, kGather, kAll), NAME its name:
+//   t2l_sa_NAME_layout: dynamic shared memory of one block of the plan
+//     (rows, resident, budget) for a level of P points, S centers, C input
+//     channels, H1, H2, K; dtype 0 f32, 1 bf16. The largest size_t where the
+//     kernel does not take the shape or the plan.
+//   t2l_sa_NAME_occupancy: blocks of the plan's kernel one SM holds -> *out.
+//   t2l_sa_NAME: feat [n,p,c] T (concat(x, pos) for first and gather with
+//     w1 [c,h1]; x for all with w1 = Wx [c,h1]); pos [n,p,3] f32 (null for
+//     gather); ctr [n,s,3] f32; idx [n,s,k] int32 and mask [n,s,k] bool
+//     (gather only, else null); wp [3,h1] T; ab1 [2,h1] f32; w2 [h1,h2] T;
+//     ab2 [2,h2] f32 -> out [n,s,h2] T. r2: the squared radius as the caller
+//     rounds it to f32; rows, resident, budget: the plan; blocks: the
+//     persistent grid. Returns cudaGetLastError() after the launch.
+#define T2L_SA_TILE_ENTRY(NAME, SEL)                                                        \
+  extern "C" size_t t2l_sa_##NAME##_layout(int p, int s, int c, int h1, int h2, int k,      \
+                                          int rows, int resident, int budget, int dtype) {  \
+    const t2l::sas::Args a = t2l::sas::args_of(nullptr, nullptr, nullptr, nullptr, nullptr, \
+                                               nullptr, nullptr, nullptr, nullptr, nullptr, \
+                                               nullptr, 0, p, s, c, h1, h2, k, 0.f, rows,   \
+                                               resident, budget);                           \
+    if (t2l::sas::check_args(SEL, a)) return ~static_cast<size_t>(0);                      \
+    return t2l::sas::layout(SEL, p, s, c, h1, h2, k, rows, resident, budget,                \
+                            dtype == t2l::kBF16 ? 2 : 4, nullptr, nullptr);                 \
+  }                                                                                         \
+  extern "C" int t2l_sa_##NAME##_occupancy(int p, int s, int c, int h1, int h2, int k,      \
+                                           int rows, int resident, int budget, int dtype,   \
+                                           void* out) {                                     \
+    const t2l::sas::Args a = t2l::sas::args_of(nullptr, nullptr, nullptr, nullptr, nullptr, \
+                                               nullptr, nullptr, nullptr, nullptr, nullptr, \
+                                               nullptr, 0, p, s, c, h1, h2, k, 0.f, rows,   \
+                                               resident, budget);                           \
+    return t2l::sas::entry<SEL>(a, 0, dtype, nullptr, static_cast<int*>(out));              \
+  }                                                                                         \
+  extern "C" int t2l_sa_##NAME(const void* feat, const void* pos, const void* ctr,          \
+                               const void* idx, const void* mask, const void* w1,           \
+                               const void* wp, const void* ab1, const void* w2,             \
+                               const void* ab2, void* out, int n, int p, int s, int c,      \
+                               int h1, int h2, int k, float r2, int rows, int resident,     \
+                               int budget, int blocks, int dtype, void* stream) {           \
+    const t2l::sas::Args a = t2l::sas::args_of(feat, pos, ctr, idx, mask, w1, wp, ab1, w2,  \
+                                               ab2, out, n, p, s, c, h1, h2, k, r2, rows,   \
+                                               resident, budget);                           \
+    return t2l::sas::entry<SEL>(a, blocks, dtype, static_cast<cudaStream_t>(stream),        \
+                                nullptr);                                                   \
+  }

@@ -118,18 +118,21 @@ def build() -> Path:
     return lib
 
 
+# The inference SA level's selections on the tile kernel (sa_select_tc.cuh).
+TILE_SELECTIONS = ("first", "gather", "all")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "t2l_error_string": ([_I], ctypes.c_char_p),
     "t2l_fps": ([_P, _P, _P, _I, _I, _I, _P], _I),
-    "t2l_sa_level_smem": ([_I] * 4, ctypes.c_size_t),
-    **{f"t2l_sa_level_{sel}": ([_P] * 11 + [_I] * 7 + [_F] + [_I] * 4 + [_P], _I)
-       for sel in ("bisect", "gather", "exact", "all")},
-    "t2l_sa_select_layout": ([_I] * 9, ctypes.c_size_t),
-    "t2l_sa_select_occupancy": ([_I] * 9 + [_P], _I),
-    "t2l_sa_select_first": ([_P] * 9 + [_I] * 7 + [_F] + [_I] * 4 + [_P], _I),
+    "t2l_sa_level_smem": ([_I] * 3, ctypes.c_size_t),
+    **{f"t2l_sa_level_{sel}": ([_P] * 9 + [_I] * 7 + [_F] + [_I] * 3 + [_P], _I)
+       for sel in ("bisect", "exact")},
+    **{f"t2l_sa_{sel}_layout": ([_I] * 10, ctypes.c_size_t) for sel in TILE_SELECTIONS},
+    **{f"t2l_sa_{sel}_occupancy": ([_I] * 10 + [_P], _I) for sel in TILE_SELECTIONS},
+    **{f"t2l_sa_{sel}": ([_P] * 11 + [_I] * 7 + [_F] + [_I] * 5 + [_P], _I)
+       for sel in TILE_SELECTIONS},
     "t2l_mha_addln_layout": ([_I] * 8, ctypes.c_size_t),
     "t2l_mha_addln": ([_P] * 14 + [_I] * 5 + [_F, _F] + [_I] * 5 + [_P], _I),
     "t2l_mha_tiled_core_smem": ([_I] * 7, ctypes.c_size_t),

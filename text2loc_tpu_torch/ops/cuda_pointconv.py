@@ -1,8 +1,10 @@
-"""Wrappers of the inference SA kernels: selection "first" on the tensor
-cores (csrc/sa_select.cu, csrc/sa_select_tc.cuh: tiles of packed valid
-edges, the plan from first_plan), and the four other selections on one
-template (csrc/sa_level.cuh), each built from its own source with its own C
-entry point t2l_sa_level_<selection> and its own launch count."""
+"""Wrappers of the inference SA kernels: selections "first", "gather" and
+"all" on the tensor-core tile kernel (csrc/sa_select_tc.cuh, instantiated
+in csrc/sa_select.cu, csrc/sa_gather.cu and csrc/sa_all.cu, each with its
+C entries t2l_sa_<selection>, the plan from tile_plan), and "bisect" and
+"exact" on the older template (csrc/sa_level.cuh, in
+csrc/sa_select_bisect.cu and csrc/sa_exact.cu, C entries
+t2l_sa_level_<selection>). Every selection has its own launch count."""
 
 from __future__ import annotations
 
@@ -26,31 +28,37 @@ KERNEL_GATHER = _kernel("sa_gather", "sa_gather.cu", "242")
 KERNEL_EXACT = _kernel("sa_exact", "sa_exact.cu", "116")
 KERNEL_ALL = _kernel("sa_all", "sa_all.cu", "116")
 KERNELS = (KERNEL_FIRST, KERNEL_BISECT, KERNEL_GATHER, KERNEL_EXACT, KERNEL_ALL)
-_KERNEL_OF = dict(zip(("bisect", "gather", "exact", "all"), KERNELS[1:]))
-MAX_K = 32         # neighbour slots per tile
+TILE_KERNELS = {"first": KERNEL_FIRST, "gather": KERNEL_GATHER, "all": KERNEL_ALL}
+MAX_K = 32         # neighbour slots per center ("first", "gather", "bisect", "exact")
 MAX_P = 256        # points the register-resident selections hold (8 per lane)
 _THREADS = 256
 
-# The "first" kernel (csrc/sa_select_tc.cuh): its limits (check_args) and
-# the constants its shared-memory layout is built from.
+# The tile kernel (csrc/sa_select_tc.cuh): its limits (check_args) and the
+# constants its shared-memory layout is built from.
 SLICE = 256        # output columns of one product: 8 warps x 4 n8 tiles (kSlice)
 KC = 32            # k rows of a ring chunk (kKC): H1 and C+3 are padded to it
-GROUP = 128        # centers selected at once (kGroup)
+GROUP = 128        # centers selected at once by "first" and "gather" (kGroup)
 MAX_H1 = 1024      # a thread owns one column chunk of h1
-MAX_P_FIRST = 65535  # a row's point in 16 bits
+MAX_P_TILES = 65535  # a row's point in 16 bits
+MAX_S_ALL = 32767    # "all": a row's center in 15 bits (kMaxAllCenters)
 # Tile layouts (edge rows, W2 resident in shared memory): the plan takes, of
-# those that hold a center's K edges and fit a block's shared memory, the
-# one with the most rows in flight on an SM (rows x blocks per SM), then
-# the most blocks, then the first in this order.
-FIRST_LAYOUTS = ((128, 1), (128, 0), (64, 1), (64, 0), (32, 1), (32, 0), (16, 1), (16, 0))
+# those the selection takes that fit a block's shared memory, the one with
+# the most rows in flight on an SM (rows x blocks per SM), then the taller
+# tile (a tile costs a fixed chain of phases), then the most blocks, then
+# the first in this order.
+TILE_LAYOUTS = ((128, 1), (128, 0), (64, 1), (64, 0), (32, 1), (32, 0), (16, 1), (16, 0))
+# "all": row map budgets (rows of a group of centers), the largest first; a
+# budget holds any center's up to P rows, so P <= ALL_BUDGETS[0].
+ALL_BUDGETS = (4096, 2048, 1024, 512, 256)
 
 
-class FirstPlan(NamedTuple):
-    rows: int           # edge rows of a tile (a multiple of 16, at least K)
+class TilePlan(NamedTuple):
+    rows: int           # edge rows of a tile (a multiple of 16; first, gather: at least K)
     resident: int       # W2 held in shared memory (1) or streamed through the ring (0)
     smem: int           # dynamic shared bytes of a block
     blocks_per_sm: int  # blocks one SM holds: the persistent grid's wave
     slices: int         # products of at most SLICE output columns a tile takes
+    budget: int         # "all": rows of the row map (a group's rows); 0 for the others
 
 
 def _align16(n: int) -> int:
@@ -73,37 +81,55 @@ def max_rows(h1: int, h2: int) -> int:
     return 64 if width_class(h1, h2) == 4 else 128
 
 
-def check_first(p: int, c: int, h1: int, h2: int, k: int) -> None:
-    """Raise ValueError, with the reason, on a level the "first" kernel does
-    not take (c: the C+3 input channels)."""
-    if not 1 <= k <= MAX_K:
+def check_level(p: int, s: int, c: int, h1: int, h2: int, k: int,
+                selection: str = "first") -> None:
+    """Raise ValueError, with the reason, on a level the tile kernel of
+    `selection` does not take (c: its input channels, C+3 for "first" and
+    "gather", C for "all"; k: the neighbours a center keeps, which "all"
+    does not read)."""
+    if selection not in TILE_KERNELS:
+        raise ValueError(f"selection {selection!r}: the tile kernel takes "
+                         f"{tuple(TILE_KERNELS)}")
+    if selection != "all" and not 1 <= k <= MAX_K:
         raise ValueError(f"K={k}: the kernel keeps 1..{MAX_K} neighbours a center")
     for name, h in (("H1", h1), ("H2", h2)):
         if h < 8 or h % 8:
             raise ValueError(f"{name}={h}: must be a positive multiple of 8 (n8 tiles)")
     if h1 > MAX_H1:
         raise ValueError(f"H1={h1}: at most {MAX_H1}")
-    if not 1 <= p <= MAX_P_FIRST or c < 1:
-        raise ValueError(f"P={p}, C={c}: the kernel takes 1..{MAX_P_FIRST} points and "
+    if not 1 <= p <= MAX_P_TILES or c < 1:
+        raise ValueError(f"P={p}, C={c}: the kernel takes 1..{MAX_P_TILES} points and "
                          f"at least one channel")
+    if selection == "all":
+        if p > ALL_BUDGETS[0]:
+            raise ValueError(f"P={p}: selection 'all' takes at most {ALL_BUDGETS[0]} "
+                             f"points (a center's rows fit one row map)")
+        if s > MAX_S_ALL:
+            raise ValueError(f"S={s}: selection 'all' takes at most {MAX_S_ALL} centers")
 
 
 def select_smem(p: int, s: int, c: int, h1: int, h2: int, k: int, rows: int,
-                resident: int, dtype) -> int:
+                resident: int, dtype, selection: str = "first", budget: int = 0) -> int:
     """Dynamic shared bytes of one block: layout() of csrc/sa_select_tc.cuh
     (every buffer 16-byte aligned). Resident W2 [H1k][H2 + pad] (H1k: H1
-    padded to KC); u [P][H1 + pad] in the dtype; points, BN1 and Wp in f32;
-    a group's G = min(S, GROUP) centers, lists, counts, first rows, tiles
-    and row map; then the larger of the u pass's scratch (feat rows of 64
-    points, the W1 ring) and a tile's (h1 rows with y over them, y apart
+    padded to KC); u [P][H1 + pad] in the dtype ("all": [P][H1 + 4] in f32);
+    points (not for "gather"), BN1 and Wp in f32; the centers of a group (G =
+    min(S, GROUP); "all": the cloud's S), their lists (not for "all"),
+    counts, first rows, tiles (not for "all") and row map (G K entries;
+    "all": `budget`); then the larger of the u pass's scratch (feat rows of
+    64 points, the W1 ring) and a tile's (h1 rows with y over them, y apart
     above SLICE columns, the W2 ring where W2 streams)."""
     es = 2 if dtype == torch.bfloat16 else 4
     pad = 8 if es == 2 else 4
+    is_all = selection == "all"
     h1k, ck = _round_up(h1, KC), _round_up(c, KC)
     w1n, w2n = min(h1, SLICE), min(h2, SLICE)
-    g = min(max(s, 1), GROUP)
-    fixed = (es * h1k * (h2 + pad) if resident else 0, es * p * (h1 + pad), 12 * p, 20 * h1,
-             16 * g, 2 * g * k, 4 * g, 4 * (g + 1), 4 * (g + 1), 4 * g * k, 8)
+    g = max(s, 1) if is_all else min(max(s, 1), GROUP)
+    fixed = (es * h1k * (h2 + pad) if resident else 0,
+             4 * p * (h1 + 4) if is_all else es * p * (h1 + pad),
+             0 if selection == "gather" else 12 * p, 20 * h1, 16 * g,
+             0 if is_all else 2 * g * k, 4 * g, 4 * (g + 1), 0 if is_all else 4 * (g + 1),
+             4 * budget if is_all else 4 * g * k, 0 if is_all else 8)
     u_pass = _align16(es * 64 * (ck + pad)) + _align16(es * 2 * KC * (w1n + pad))
     hs, ys = es * rows * (h1k + pad), es * rows * (w2n + pad)
     tile = _align16(hs) + _align16(ys) if h2 > SLICE else _align16(max(hs, ys))
@@ -111,32 +137,39 @@ def select_smem(p: int, s: int, c: int, h1: int, h2: int, k: int, rows: int,
     return sum(_align16(b) for b in fixed) + max(u_pass, tile)
 
 
-def first_layouts(p: int, s: int, c: int, h1: int, h2: int, k: int, dtype):
-    """[(rows, resident, smem)] of FIRST_LAYOUTS that hold a center's K edges,
-    the level's width class takes and fit a block's shared memory, in that
-    order; raises where the kernel does not take the level."""
-    check_first(p, c, h1, h2, k)
+def tile_layouts(p: int, s: int, c: int, h1: int, h2: int, k: int, dtype,
+                 selection: str = "first"):
+    """[(rows, resident, smem, budget)] of TILE_LAYOUTS (for "all" each with
+    every budget of ALL_BUDGETS that holds P rows, the largest first) that
+    the selection and the level's width class take and that fit a block's
+    shared memory, in that order; raises where the kernel does not take the
+    level. "first" and "gather" need R >= K (a center in one tile)."""
+    check_level(p, s, c, h1, h2, k, selection)
+    budgets = [b for b in ALL_BUDGETS if b >= p] if selection == "all" else [0]
     out = []
-    for rows, resident in FIRST_LAYOUTS:
-        if rows < k or rows > max_rows(h1, h2):
+    for rows, resident in TILE_LAYOUTS:
+        if (selection != "all" and rows < k) or rows > max_rows(h1, h2):
             continue
-        smem = select_smem(p, s, c, h1, h2, k, rows, resident, dtype)
-        if smem <= _cuda.SMEM_LIMIT:
-            out.append((rows, resident, smem))
+        for budget in budgets:
+            smem = select_smem(p, s, c, h1, h2, k, rows, resident, dtype, selection, budget)
+            if smem <= _cuda.SMEM_LIMIT:
+                out.append((rows, resident, smem, budget))
     return out
 
 
 def pick_plan(p: int, s: int, c: int, h1: int, h2: int, k: int, dtype,
-              occupancy: Callable[[int, int, int], int]) -> FirstPlan:
-    """The plan of a level: of first_layouts, the most rows in flight on an
-    SM (rows x blocks per SM), then the most blocks, then the first;
-    `occupancy(rows, resident, smem)` gives the blocks per SM."""
-    best = None
-    for rows, resident, smem in first_layouts(p, s, c, h1, h2, k, dtype):
-        occ = occupancy(rows, resident, smem)
-        if occ > 0 and (best is None or (rows * occ, occ) > (best.rows * best.blocks_per_sm,
-                                                             best.blocks_per_sm)):
-            best = FirstPlan(rows, resident, smem, occ, -(-h2 // SLICE))
+              occupancy: Callable[[int, int, int, int], int],
+              selection: str = "first") -> TilePlan:
+    """The plan of a level: of tile_layouts, the most rows in flight on an
+    SM (rows x blocks per SM), then the taller tile, then the most blocks,
+    then the first; `occupancy(rows, resident, smem, budget)` gives the
+    blocks per SM."""
+    best, key = None, None
+    for rows, resident, smem, budget in tile_layouts(p, s, c, h1, h2, k, dtype, selection):
+        occ = occupancy(rows, resident, smem, budget)
+        if occ > 0 and (best is None or (rows * occ, rows, occ) > key):
+            best = TilePlan(rows, resident, smem, occ, -(-h2 // SLICE), budget)
+            key = (rows * occ, rows, occ)
     if best is None:
         raise ValueError(f"SA level P={p} S={s} C={c} H1={h1} H2={h2} K={k}: no tile "
                          f"layout fits a block's shared memory ({_cuda.SMEM_LIMIT} bytes)")
@@ -144,26 +177,45 @@ def pick_plan(p: int, s: int, c: int, h1: int, h2: int, k: int, dtype,
 
 
 @functools.lru_cache(maxsize=None)
-def first_plan(p: int, s: int, c: int, h1: int, h2: int, k: int, dtype) -> FirstPlan:
+def tile_plan(p: int, s: int, c: int, h1: int, h2: int, k: int, dtype,
+              selection: str = "first") -> TilePlan:
     """pick_plan with the card's occupancy query; the kernel's own layout
     must size each candidate as select_smem does."""
     lib = _cuda.library()
     code = _cuda.DTYPE_CODE[dtype]
 
-    def occupancy(rows, resident, smem):
-        c_smem = lib.t2l_sa_select_layout(p, s, c, h1, h2, k, rows, resident, code)
+    def occupancy(rows, resident, smem, budget):
+        c_smem = getattr(lib, f"t2l_sa_{selection}_layout")(p, s, c, h1, h2, k, rows,
+                                                            resident, budget, code)
         if c_smem != smem:
-            raise RuntimeError(f"sa_select_first layout: {c_smem} bytes on the card, "
+            raise RuntimeError(f"sa {selection} layout: {c_smem} bytes on the card, "
                                f"{smem} by select_smem")
         occ = ctypes.c_int(0)
-        err = lib.t2l_sa_select_occupancy(p, s, c, h1, h2, k, rows, resident, code,
-                                          ctypes.byref(occ))
+        err = getattr(lib, f"t2l_sa_{selection}_occupancy")(
+            p, s, c, h1, h2, k, rows, resident, budget, code, ctypes.byref(occ))
         if err:
-            raise RuntimeError(f"sa_select_first occupancy query failed: "
+            raise RuntimeError(f"sa {selection} occupancy query failed: "
                                f"{lib.t2l_error_string(err).decode()} ({err})")
         return occ.value
 
-    return pick_plan(p, s, c, h1, h2, k, dtype, occupancy)
+    return pick_plan(p, s, c, h1, h2, k, dtype, occupancy, selection)
+
+
+def all_groups(counts, budget: int) -> list:
+    """The groups the "all" kernel cuts a cloud's centers into, [(g0, g1)]:
+    from g0, the most consecutive centers whose rows (counts: in-radius
+    points per center) fit `budget`; every center holds at most P <= budget
+    rows, so a group holds at least one. A group's rows are cut into tiles
+    of the plan's R rows, across center boundaries."""
+    groups, g0, n = [], 0, len(counts)
+    while g0 < n:
+        g1, rows = g0 + 1, counts[g0]
+        while g1 < n and rows + counts[g1] <= budget:
+            rows += counts[g1]
+            g1 += 1
+        groups.append((g0, g1))
+        g0 = g1
+    return groups
 
 
 def _check_level(feat, pos, centers, w1, wp, ab1, w2, ab2, gather):
@@ -188,14 +240,18 @@ def _check_level(feat, pos, centers, w1, wp, ab1, w2, ab2, gather):
     return n, p, c, s, h1, h2
 
 
-def _launch_first(feat, pos, centers, w1, wp, ab1, w2, ab2, radius: float,
-                  k: int) -> torch.Tensor:
-    """Check the arguments and launch the "first" kernel on its plan: [N, S,
-    H2] in feat.dtype."""
-    n, p, c, s, h1, h2 = _check_level(feat, pos, centers, w1, wp, ab1, w2, ab2, False)
+def _launch_tiles(selection: str, feat, pos, centers, idx, mask, w1, wp, ab1, w2, ab2,
+                  radius: float, k: int) -> torch.Tensor:
+    """Check the arguments and launch the tile kernel of `selection` on its
+    plan: [N, S, H2] in feat.dtype."""
+    gather = selection == "gather"
+    n, p, c, s, h1, h2 = _check_level(feat, pos, centers, w1, wp, ab1, w2, ab2, gather)
     dt = feat.dtype
-    check_first(p, c, h1, h2, k)
-    plan = first_plan(p, s, c, h1, h2, k, dt)
+    if gather:
+        _cuda.check(idx, "idx", dtype=torch.int32, shape=(n, s, k))
+        _cuda.check(mask, "mask", dtype=torch.bool, shape=(n, s, k))
+    check_level(p, s, c, h1, h2, k, selection)
+    plan = tile_plan(p, s, c, h1, h2, k, dt, selection)
     for name, t in (("w1", w1), ("w2", w2)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: the kernel copies it 16 bytes at a time; its data "
@@ -204,43 +260,38 @@ def _launch_first(feat, pos, centers, w1, wp, ab1, w2, ab2, radius: float,
     if n and s:
         blocks = max(1, min(n, _cuda.sm_count(feat.device.index) * plan.blocks_per_sm))
         _cuda.launch(
-            KERNEL_FIRST, "t2l_sa_select_first",
-            *(_cuda.ptr(t) for t in (feat, pos, centers, w1, wp, ab1, w2, ab2, out)),
+            TILE_KERNELS[selection], f"t2l_sa_{selection}",
+            *(None if t is None else _cuda.ptr(t)
+              for t in (feat, pos, centers, idx, mask, w1, wp, ab1, w2, ab2, out)),
             n, p, s, c, h1, h2, k, ctypes.c_float(radius * radius), plan.rows,
-            plan.resident, blocks, _cuda.DTYPE_CODE[dt],
+            plan.resident, plan.budget, blocks, _cuda.DTYPE_CODE[dt],
         )
     return out
 
 
-def _launch(sel: str, feat, pos, centers, nidx, nmask, w1, wp, ab1, w2, ab2,
-            radius: float, k: int, iters: int = 0) -> torch.Tensor:
-    """Check the arguments and launch selection `sel` of sa_level.cuh: [N, S,
-    H2] in feat.dtype."""
-    n, p, c, s, h1, h2 = _check_level(feat, pos, centers, w1, wp, ab1, w2, ab2,
-                                      sel == "gather")
+def _launch_level(sel: str, feat, pos, centers, w1, wp, ab1, w2, ab2, radius: float,
+                  k: int, iters: int = 0) -> torch.Tensor:
+    """Check the arguments and launch selection `sel` ("bisect", "exact") of
+    sa_level.cuh: [N, S, H2] in feat.dtype."""
+    n, p, c, s, h1, h2 = _check_level(feat, pos, centers, w1, wp, ab1, w2, ab2, False)
     dt = feat.dtype
-    if sel == "gather":
-        _cuda.check(nidx, "idx", dtype=torch.int32, shape=(n, s, k))
-        _cuda.check(nmask, "mask", dtype=torch.bool, shape=(n, s, k))
     if not 1 <= k <= MAX_K:
         raise ValueError(f"k={k}: the kernel keeps at most {MAX_K} neighbours")
-    if sel in ("bisect", "exact", "all") and p > MAX_P:
+    if p > MAX_P:
         raise ValueError(f"P={p}: selection {sel!r} holds at most {MAX_P} points")
     if h2 % 32 or h2 > 1024:
         raise ValueError(f"H2={h2}: must be a multiple of 32 and at most 1024")
     g_per = max(1, _THREADS // h2)
-    cap = p if sel == "all" else MAX_K
     lib = _cuda.library()
-    smem = lib.t2l_sa_level_smem(p, h1, g_per, cap)
+    smem = lib.t2l_sa_level_smem(p, h1, g_per)
     if smem > _cuda.SMEM_LIMIT:
         raise ValueError(f"SA level needs {smem} B of shared memory per block")
     out = torch.empty((n, s, h2), dtype=dt, device=feat.device)
     if n and s:
         _cuda.launch(
-            _KERNEL_OF[sel], f"t2l_sa_level_{sel}",
-            *(None if t is None else _cuda.ptr(t)
-              for t in (feat, pos, centers, nidx, nmask, w1, wp, ab1, w2, ab2, out)),
-            n, p, s, c, h1, h2, k, ctypes.c_float(radius * radius), iters, g_per, cap,
+            KERNEL_BISECT if sel == "bisect" else KERNEL_EXACT, f"t2l_sa_level_{sel}",
+            *(_cuda.ptr(t) for t in (feat, pos, centers, w1, wp, ab1, w2, ab2, out)),
+            n, p, s, c, h1, h2, k, ctypes.c_float(radius * radius), iters, g_per,
             _cuda.DTYPE_CODE[dt],
         )
     return out
@@ -252,21 +303,23 @@ def sa_select_cuda(feat, pos, centers, w1, wp, ab1, w2, ab2, radius: float, k: i
     if selection not in ("first", "bisect"):
         raise ValueError(f"selection {selection!r}: expected 'first' or 'bisect'")
     if selection == "first":
-        return _launch_first(feat, pos, centers, w1, wp, ab1, w2, ab2, radius, k)
-    return _launch(selection, feat, pos, centers, None, None, w1, wp, ab1, w2, ab2,
-                   radius, k, bisect_iters)
+        return _launch_tiles("first", feat, pos, centers, None, None, w1, wp, ab1, w2, ab2,
+                             radius, k)
+    return _launch_level(selection, feat, pos, centers, w1, wp, ab1, w2, ab2, radius, k,
+                         bisect_iters)
 
 
 def sa_gather_cuda(feat, centers, idx, mask, w1, wp, ab1, w2, ab2) -> torch.Tensor:
     """fused_sa_gather on the card: idx [N, S, K] int32 (each in [0, P)) and
     mask [N, S, K] bool; the other arguments as sa_gather_plain's."""
-    return _launch("gather", feat, None, centers, idx, mask, w1, wp, ab1, w2, ab2,
-                   0.0, idx.shape[-1])
+    return _launch_tiles("gather", feat, None, centers, idx, mask, w1, wp, ab1, w2, ab2,
+                         0.0, idx.shape[-1])
 
 
 def set_abstraction_cuda(x, pos, centers, wx, wp, ab1, w2, ab2, radius: float, k: int,
                          select_k: bool = True) -> torch.Tensor:
     """fused_set_abstraction on the card; the arguments as
     set_abstraction_plain's."""
-    return _launch("exact" if select_k else "all", x, pos, centers, None, None, wx, wp,
-                   ab1, w2, ab2, radius, k)
+    if select_k:
+        return _launch_level("exact", x, pos, centers, wx, wp, ab1, w2, ab2, radius, k)
+    return _launch_tiles("all", x, pos, centers, None, None, wx, wp, ab1, w2, ab2, radius, k)
