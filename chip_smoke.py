@@ -13,9 +13,9 @@ toolkit. Phases, each printing one JSON line:
    at the serve's shapes, bf16 and f32, with median times by CUDA events;
    the inference SA level in every selection (first, bisect, gather over
    the exact and the approximate ball query, exact, all) at the gallery's
-   three levels, the lines of the tensor-core tile kernel (first, gather,
-   all) with its plan (tile rows, W2 resident, shared bytes, blocks per
-   SM, column slices, the row map's budget of "all"), the "all" lines with
+   three levels, on the tensor-core tile kernel, each line with its plan
+   (tile rows, W2 resident, shared bytes, blocks per SM, column slices,
+   the row map's budget of "all"), the "all" lines with
    their groups, tiles and mean filled rows; and "all" at SA1 with a dense
    cluster whose centers hold more edges than a tile (not summed); the
    attention block by its route (mha_addln, the fused
@@ -310,8 +310,8 @@ def phase_sa_kernels(dev, gen, pts, xyz, records) -> None:
     """The inference SA kernel in each selection against its plain version
     at the gallery's three levels (1792 clouds, K=32), bf16 and f32: first
     and bisect (fused_sa_select), gather over the exact and the approximate
-    ball query (fused_sa_gather), exact and all (fused_set_abstraction);
-    the tile kernel's lines (first, gather, all) with their plan. Then
+    ball query (fused_sa_gather), exact and all (fused_set_abstraction),
+    each line with its plan on the tile kernel. Then
     "all" at SA1 with a dense cluster (3/4 of each cloud's points within
     0.01 of its first center), whose centers there hold more edges than the
     plan's tile: a line of its own, not summed. The plain all/exact
@@ -349,7 +349,6 @@ def phase_sa_kernels(dev, gen, pts, xyz, records) -> None:
 
             tag = f"P={lp} S={s} {cin}->{h1}->{h2}"
             args = (feat, pos, ctr, w1, wp, ab1, w2, ab2, radius, k)
-            plan = cp.tile_plan(lp, s, cin, h1, h2, k, dt)
             for sel, name in (("first", "sa_select_first"), ("bisect", "sa_select_bisect")):
                 e = edges[sel]
                 records[name].add(
@@ -359,7 +358,7 @@ def phase_sa_kernels(dev, gen, pts, xyz, records) -> None:
                     lambda a=args, sel=sel: cp.sa_select_cuda(*a, selection=sel),
                     lambda a=args, sel=sel: pc.sa_select_plain(*a, selection=sel),
                     work(e, n * lp * (cin * es + 12) + fixed),
-                    info={"plan": plan._asdict()} if sel == "first" else None)
+                    info={"plan": cp.tile_plan(lp, s, cin, h1, h2, k, dt, sel)._asdict()})
             for approx in (False, True):
                 idx, mask = ball_query_knn(pos, ctr, radius, k, approx=approx)
                 gargs = (feat, ctr, idx.to(torch.int32).contiguous(), mask.contiguous(),
@@ -386,8 +385,9 @@ def phase_sa_kernels(dev, gen, pts, xyz, records) -> None:
                     lambda a=sargs, sk=select_k: cp.set_abstraction_cuda(*a, select_k=sk),
                     lambda a=sargs, sk=select_k: pc.set_abstraction_plain(*a, select_k=sk),
                     work(e, n * lp * ((cin - 3) * es + 12) + fixed),
-                    info=None if select_k else {"plan": all_plan._asdict(),
-                                                **_all_tiles(inr, all_plan)})
+                    info={"plan": cp.tile_plan(lp, s, cin - 3, h1, h2, k, dt,
+                                               "exact")._asdict()}
+                    if select_k else {"plan": all_plan._asdict(), **_all_tiles(inr, all_plan)})
             if lp == SA_LEVELS[0][0]:
                 # A dense cluster: centers with more edges than the tile.
                 dense = pos.clone()

@@ -1,13 +1,15 @@
 """Time the inference SA level on the card in one selection (`sa_select_first`,
-`sa_gather`, `sa_all` on the tensor-core tile kernel; `sa_select_bisect`,
-`sa_exact` on csrc/sa_level.cuh) at chip_smoke.py's three gallery levels.
+`sa_select_bisect`, `sa_gather`, `sa_exact`, `sa_all`, all on the
+tensor-core tile kernel of csrc/sa_select_tc.cuh) at chip_smoke.py's three
+gallery levels.
 
     python3 scripts/probe_torch_sa_select.py
         [--selection first|gather|all|bisect|exact] [--root DIR] [--reps 10]
-        [--layouts]
+        [--layouts] [--bisect_iters 12]
 
 `--selection` (default first): "first" and "bisect" time
-ops/cuda_pointconv.sa_select_cuda with that selection (bisect: 12 rounds);
+ops/cuda_pointconv.sa_select_cuda with that selection (bisect:
+`--bisect_iters` rounds);
 "gather" sa_gather_cuda over the exact and the approximate ball query's
 neighbours (two lines a level); "all" and "exact" set_abstraction_cuda
 with select_k False and True. `--root` names the checkout whose
@@ -29,12 +31,12 @@ For each it prints one JSON line:
 - `plain_ms`: the plain version (ops/pointconv), timed as `ms`;
 - `edges`: the valid edges of the case;
 - `plan`: the tile kernel's plan (tile rows, W2 resident, shared bytes,
-  blocks per SM, column slices, the row map's budget of "all"; null for
-  bisect and exact) and `ptxas`: the instantiation's registers and spill
-  bytes from the build's ptxas output, where the checkout has
-  cuda_pointconv.tile_plan (null otherwise).
+  blocks per SM, column slices, the row map's budget of "all"; null where
+  the checkout runs the selection on an older template) and `ptxas`: the
+  instantiation's registers and spill bytes from the build's ptxas output,
+  where the checkout runs the selection on the tile kernel (null otherwise).
 
-`--layouts` (a tile selection, a checkout with tile_plan) adds, per case,
+`--layouts` (a selection the checkout runs on the tile kernel) adds, per case,
 `layouts`: the kernel alone (no launch count) on every tile layout it
 takes at the level, {"rows,resident,budget": [blocks per SM, ms]}, ms
 timed as `ms` on the persistent grid of that layout's occupancy, the
@@ -58,18 +60,24 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SEED = 0
 SOURCE = {"first": ("sa_select.cu", "sa_select_first_kernel"),
-          "gather": ("sa_gather.cu", "sa_gather_kernel"), "all": ("sa_all.cu", "sa_all_kernel"),
-          "bisect": ("sa_select_bisect.cu", "sa_level_kernel"),
-          "exact": ("sa_exact.cu", "sa_level_kernel")}
-TILE = ("first", "gather", "all")   # the selections with a plan
+          "bisect": ("sa_select_bisect.cu", "sa_select_bisect_kernel"),
+          "gather": ("sa_gather.cu", "sa_gather_kernel"),
+          "exact": ("sa_exact.cu", "sa_exact_kernel"), "all": ("sa_all.cu", "sa_all_kernel")}
+
+
+def tiled(cp, selection):
+    """Whether the checkout runs the selection on the tile kernel (with a plan)."""
+    return selection in getattr(cp, "TILE_KERNELS", {})
 
 
 def ptxas_of(_cuda, cp, selection, dt, h1, h2):
-    """Registers and spill bytes of the level's kernel instantiation."""
+    """Registers and spill bytes of the level's kernel instantiation on the
+    tile kernel (None where the checkout runs it on an older template)."""
+    if not tiled(cp, selection):
+        return None
     source, kernel = SOURCE[selection]
-    # The tile kernel's second template argument is its width class, the
-    # older template's its selection (kBisect 1, kExact 3).
-    second = cp.width_class(h1, h2) if selection in TILE else (1 if selection == "bisect" else 3)
+    # The tile kernel's second template argument is its width class.
+    second = cp.width_class(h1, h2)
     tag = ("If" if dt == torch.float32 else "I13__nv_bfloat16") + f"Li{second}E"
     for name, info in _cuda.ptxas_report(source).items():
         if kernel in name and tag in name:
@@ -77,11 +85,14 @@ def ptxas_of(_cuda, cp, selection, dt, h1, h2):
     return None
 
 
-def layout_times(smoke, _cuda, cp, selection, a, dt, reps):
+def layout_times(smoke, _cuda, cp, selection, a, dt, reps, iters):
     """{"rows,resident,budget": [blocks per SM, ms]} of the kernel alone on
     every tile layout it takes for the case's tile-entry arguments `a`
     (feat, pos, ctr, idx, mask, w1, wp, ab1, w2, ab2, radius, k, s)."""
     feat, pos, ctr, idx, mask, w1, wp, ab1, w2, ab2, radius, k, s = a
+    # The bisection's rounds follow r2 where the entry takes them (every
+    # selection on the tile kernel).
+    r2 = (ctypes.c_float(radius * radius),) + ((iters,) if tiled(cp, "bisect") else ())
     n, p, c = feat.shape
     h1, h2 = w1.shape[1], w2.shape[1]
     lib, code = _cuda.library(), _cuda.DTYPE_CODE[dt]
@@ -96,8 +107,8 @@ def layout_times(smoke, _cuda, cp, selection, a, dt, reps):
                                                       budget, code, ctypes.byref(occ))
         if occ.value < 1:
             continue
-        args = (*ptrs, n, p, s, c, h1, h2, k, ctypes.c_float(radius * radius), rows, resident,
-                budget, min(n, sms * occ.value), code)
+        args = (*ptrs, n, p, s, c, h1, h2, k, *r2, rows, resident, budget,
+                min(n, sms * occ.value), code)
         times[f"{rows},{resident},{budget}"] = [occ.value, smoke.cuda_ms(
             lambda args=args: _cuda.launch(cp.TILE_KERNELS[selection], f"t2l_sa_{selection}",
                                            *args, count=False), reps)]
@@ -111,6 +122,8 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--layouts", action="store_true",
                     help="time the kernel alone on every tile layout it takes")
+    ap.add_argument("--bisect_iters", type=int, default=12,
+                    help="rounds of threshold bisection of selection bisect")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("probe_torch_sa_select: needs a CUDA card", file=sys.stderr)
@@ -135,7 +148,7 @@ def main() -> int:
     _cuda.library()
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(SEED)
-    n, k, sel = 64 * 28, 32, args.selection
+    n, k, sel, iters = 64 * 28, 32, args.selection, args.bisect_iters
     pts = smoke._clouds(gen, n, 256, dev)
     xyz = farthest_point_sampling_plain(pts, 128)[1]
     has_plan = hasattr(cp, "tile_plan")
@@ -159,9 +172,10 @@ def main() -> int:
                          else pc.first_k(pc.bisect_mask(
                              squared_distances(pos, ctr),
                              squared_distances(pos, ctr) <= radius * radius,
-                             radius * radius, k, 12), k)[1])
-                cases.append(("", lambda a=a, sel=sel: cp.sa_select_cuda(*a, selection=sel),
-                              lambda a=a, sel=sel: pc.sa_select_plain(*a, selection=sel),
+                             radius * radius, k, iters), k)[1])
+                kw = {"selection": sel, "bisect_iters": iters}
+                cases.append(("", lambda a=a: cp.sa_select_cuda(*a, **kw),
+                              lambda a=a: pc.sa_select_plain(*a, **kw),
                               int(edges.sum()),
                               (feat, pos, ctr, None, None, w1, wp, ab1, w2, ab2, radius, k, s)))
             elif sel == "gather":
@@ -183,8 +197,8 @@ def main() -> int:
                               int((inr.clamp(max=k) if sk else inr).sum()),
                               (x, pos, ctr, None, None, wx, wp, ab1, w2, ab2, radius, k, s)))
             c = cin - 3 if sel in ("all", "exact") else cin
-            tiled = has_plan and sel in TILE
-            plan = cp.tile_plan(lp, s, c, h1, h2, k, dt, sel) if tiled else None
+            on_tiles = has_plan and tiled(cp, sel)
+            plan = cp.tile_plan(lp, s, c, h1, h2, k, dt, sel) if on_tiles else None
             for tag, call, plain, edges, targs in cases:
                 print(json.dumps({
                     "root": root, "selection": sel,
@@ -195,8 +209,9 @@ def main() -> int:
                     "plain_ms": smoke.cuda_ms(plain, args.reps),
                     "plan": None if plan is None else plan._asdict(),
                     "ptxas": ptxas_of(_cuda, cp, sel, dt, h1, h2) if has_plan else None,
-                    **({"layouts": layout_times(smoke, _cuda, cp, sel, targs, dt, args.reps)}
-                       if args.layouts and tiled else {})}),
+                    **({"layouts": layout_times(smoke, _cuda, cp, sel, targs, dt, args.reps,
+                                                iters)}
+                       if args.layouts and on_tiles else {})}),
                       flush=True)
             pos = ctr
     return 0

@@ -37,9 +37,9 @@ from profile_torch_serve import REPO, SEED, build_map, device_summary, profiled,
 
 MODES = ("off", "first", "full", "gather", "exact", "all", "full,full,all")
 # The inference SA level's kernels: the tile kernel's selections
-# (csrc/sa_select_tc.cuh) and the older template's (csrc/sa_level.cuh).
-SA_KERNELS = ("sa_select_first_kernel", "sa_gather_kernel", "sa_all_kernel",
-              "sa_level_kernel")
+# (csrc/sa_select_tc.cuh).
+SA_KERNELS = ("sa_select_first_kernel", "sa_select_bisect_kernel", "sa_gather_kernel",
+              "sa_exact_kernel", "sa_all_kernel")
 
 
 def main() -> int:

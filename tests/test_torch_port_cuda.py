@@ -278,6 +278,56 @@ def test_sa_select_first_kernel_takes_no_clouds(dev, dtype):
     assert got.shape == (0, 64, 128) and got.dtype == dtype
 
 
+def _check_bisect_exact(args, dtype, selection):
+    """A _first_args case through "bisect" (sa_select, 12 rounds) or "exact"
+    (set_abstraction with select_k, x and Wx without the position columns):
+    one launch of its kernel, the plain version's output."""
+    if selection == "bisect":
+        kernel = cuda_pointconv.KERNEL_BISECT
+        call = lambda: sa_select(*args, selection="bisect")           # noqa: E731
+        plain = lambda: sa_select_plain(*args, selection="bisect")    # noqa: E731
+    else:
+        feat, pos, ctr, w1, wp, ab1, w2, ab2, radius, k = args
+        c = feat.shape[-1] - 3
+        sargs = (feat[..., :c].contiguous(), pos, ctr, w1[:c].contiguous(), wp, ab1, w2, ab2,
+                 radius, k)
+        kernel = cuda_pointconv.KERNEL_EXACT
+        call = lambda: set_abstraction(*sargs, select_k=True)         # noqa: E731
+        plain = lambda: set_abstraction_plain(*sargs, select_k=True)  # noqa: E731
+    before = kernel.launches
+    got = call()
+    assert kernel.launches == before + 1
+    _close(got, plain(), dtype)
+    assert (got[0, 5] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", SA_SHAPES)
+@pytest.mark.parametrize("case", FIRST_CASES)
+@pytest.mark.parametrize("selection", ["bisect", "exact"])
+def test_sa_bisect_exact_kernel_cases(dev, dtype, shape, case, selection):
+    _check_bisect_exact(_first_args(np.random.default_rng(20), dev, dtype, case, *shape),
+                        dtype, selection)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("selection", ["bisect", "exact"])
+def test_sa_bisect_exact_kernels_take_no_clouds(dev, dtype, selection):
+    a = _sa_level_inputs(np.random.default_rng(21), dev, dtype, 1, 128, 64, 67, 128, 128)
+    a = {key: v[:0].contiguous() if key in ("x", "feat", "pos", "ctr") else v
+         for key, v in a.items()}
+    kernel = cuda_pointconv.TILE_KERNELS[selection]
+    before = kernel.launches
+    if selection == "bisect":
+        got = sa_select(a["feat"], a["pos"], a["ctr"], a["w1"], a["wp"], a["ab1"], a["w2"],
+                        a["ab2"], 0.3, 32, selection="bisect")
+    else:
+        got = set_abstraction(a["x"], a["pos"], a["ctr"], a["wx"], a["wp"], a["ab1"],
+                              a["w2"], a["ab2"], 0.3, 32, select_k=True)
+    assert kernel.launches == before
+    assert got.shape == (0, 64, 128) and got.dtype == dtype
+
+
 PLAN_LEVELS = [(256, 128, 6, 32, 64), (128, 64, 67, 128, 128), (64, 32, 131, 256, 256),
                (64, 32, 131, 256, 512), (64, 300, 131, 256, 256)]
 
@@ -321,6 +371,18 @@ def test_sa_select_first_plan_is_the_kernels(dev, dtype, p, s, c, h1, h2):
 def test_sa_gather_all_plans_are_the_kernels(dev, dtype, selection, p, s, c, h1, h2):
     _assert_tile_plan_is_the_kernels(dtype, selection, p, s,
                                      c - 3 if selection == "all" else c, h1, h2)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("selection", ["bisect", "exact"])
+@pytest.mark.parametrize("p,s,c,h1,h2", PLAN_LEVELS)
+def test_sa_bisect_exact_plans_are_the_kernels(dev, dtype, selection, p, s, c, h1, h2):
+    from text2loc_tpu_torch.ops import _cuda
+
+    c = c - 3 if selection == "exact" else c
+    _assert_tile_plan_is_the_kernels(dtype, selection, p, s, c, h1, h2)
+    layout = getattr(_cuda.library(), f"t2l_sa_{selection}_layout")
+    assert layout(257, s, c, h1, h2, 32, 64, 0, 0, _cuda.DTYPE_CODE[dtype]) == 2 ** 64 - 1
 
 
 def test_sa_select_first_rejects_what_the_kernel_does_not_take(dev):

@@ -4,7 +4,9 @@ Each plain version (the CPU path of its dispatch) is held against its
 Pallas kernel run in interpret mode on the same numpy-seeded inputs, in
 f32 at atol 1e-5 (f32 sums taken in another order): fused_sa_select with
 bisect selection, fused_sa_gather fed the JAX ball query's neighbours, and
-fused_set_abstraction with and without K selection. PointNet2 in every
+fused_set_abstraction with and without K selection; bisect and K selection
+also at the card's K = 32, with more than K points in radius and ties at
+the K-th distance. PointNet2 in every
 fused mode is held against the JAX PointNet2 on converted weights; the
 approximate ball query against JAX's by the rule of ops/ballquery.py.
 """
@@ -93,6 +95,45 @@ def test_bisect_plain_matches_pallas_kernel(kind, radius, k, iters):
                           bisect_iters=iters)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
     assert np.all(got.numpy()[0, 3] == 0.0)         # empty row pools to 0
+
+
+# The card's geometry: K = 32 with more than K points in radius; "voxel"
+# ties distances at the K-th, where the lowest-index rule (exact) and the
+# tie expansion (bisect) decide.
+K32_CASES = [("random", 0.45), ("voxel", 0.5)]
+
+
+def _k32_inputs(kind, radius):
+    a = _sa_inputs(11, kind, n=3, p=96, s=16)
+    d2 = ((a["pos"][:, None] - a["centers"][:, :, None]) ** 2).sum(-1)
+    d2 = np.where(d2 <= radius * radius, d2, np.inf)
+    assert (np.isfinite(d2).sum(-1) > 32).any()
+    if kind == "voxel":
+        kth = np.sort(d2, -1)[..., 31:33]
+        assert ((kth[..., 0] == kth[..., 1]) & np.isfinite(kth[..., 1])).any()
+    return a
+
+
+@pytest.mark.parametrize("kind,radius", K32_CASES)
+@pytest.mark.parametrize("iters", [12, 4])
+def test_bisect_plain_matches_pallas_kernel_at_k32(kind, radius, iters):
+    a = _k32_inputs(kind, radius)
+    want = fused_sa_select(*_args(a, SELECT, jnp.asarray), radius=radius, k=32,
+                           interpret=True, selection="bisect", bisect_iters=iters)
+    got = sa_select_plain(*_args(a, SELECT, _t), radius, 32, selection="bisect",
+                          bisect_iters=iters)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
+    assert np.all(got.numpy()[0, 3] == 0.0)
+
+
+@pytest.mark.parametrize("kind,radius", K32_CASES)
+def test_exact_plain_matches_pallas_kernel_at_k32(kind, radius):
+    a = _k32_inputs(kind, radius)
+    want = fused_set_abstraction(*_args(a, SET_ABS, jnp.asarray), radius=radius, k=32,
+                                 interpret=True, select_k=True)
+    got = set_abstraction_plain(*_args(a, SET_ABS, _t), radius, 32, select_k=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
+    assert np.all(got.numpy()[0, 3] == 0.0)
 
 
 @pytest.mark.parametrize("approx", [False, True])

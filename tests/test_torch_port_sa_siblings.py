@@ -1,4 +1,5 @@
-"""The "gather" and "all" SA levels on the tile kernel, off the card.
+"""The "gather", "all", "bisect" and "exact" SA levels on the tile kernel,
+off the card.
 
 The levels: each plain version (the port's CPU path) against its Pallas
 kernel in interpret mode, in f32 at atol 1e-5 (f32 sums taken in another
@@ -7,13 +8,15 @@ tallest tile of 128 rows) where one center holds every point of its cloud,
 and fused_sa_gather with masks that have holes in mid-row, a duplicated
 neighbour and an all-invalid row.
 
-The plans (ops/cuda_pointconv.pick_plan with selection "gather" or "all",
-sized here with the occupancy of shared memory alone; on the card the
-occupancy query decides): every level of Config() and small_test_config(),
-in bf16 and f32, gets a tile layout that fits a block's shared memory;
-what the kernel does not take raises with its reason; "all" cuts a cloud's
-centers into groups whose rows fit the row map's budget
-(cuda_pointconv.all_groups, as the kernel cuts them).
+The plans (ops/cuda_pointconv.pick_plan with selection "gather", "all",
+"bisect" or "exact", sized here with the occupancy of shared memory alone;
+on the card the occupancy query decides): every level of Config() and
+small_test_config(), in bf16 and f32, gets a tile layout that fits a
+block's shared memory; what the kernel does not take raises with its
+reason; "all" cuts a cloud's centers into groups whose rows fit the row
+map's budget (cuda_pointconv.all_groups, as the kernel cuts them);
+"exact" sizes as "first" but for its u in f32. (The bisect and exact
+levels against their Pallas kernels: tests/test_torch_port_sa_modes.py.)
 """
 
 import math
@@ -118,11 +121,12 @@ def test_gather_plain_matches_pallas_kernel_with_holes_and_duplicates():
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("selection", ["gather", "all"])
+@pytest.mark.parametrize("selection", ["gather", "all", "bisect", "exact"])
 @pytest.mark.parametrize("config,level", [(c, i) for c in LEVELS for i in range(3)])
 def test_tile_plans_fit_every_config_level(config, level, selection, dtype):
     p, s, c, h1, h2, k = LEVELS[config][level]
-    c = c - 3 if selection == "all" else c        # "all" reads x, not concat(x, pos)
+    # "all" and "exact" read x, not concat(x, pos).
+    c = c - 3 if selection in cp.U_F32 else c
     plan = cp.pick_plan(p, s, c, h1, h2, k, dtype, smem_occupancy, selection)
     assert plan.smem <= _cuda.SMEM_LIMIT and plan.blocks_per_sm >= 1 and plan.slices == 1
     assert plan.smem == cp.select_smem(p, s, c, h1, h2, k, plan.rows, plan.resident, dtype,
@@ -140,6 +144,9 @@ def test_tile_plans_fit_every_config_level(config, level, selection, dtype):
     ("gather", dict(h2=20), "H2=20"), ("gather", dict(h1=1032), "H1=1032"),
     ("gather", dict(p=65536), "P=65536"), ("all", dict(p=4097), "P=4097"),
     ("all", dict(s=32768), "S=32768"), ("all", dict(h1=12), "H1=12"),
+    ("bisect", dict(p=257), "at most 256"), ("exact", dict(p=257), "at most 256"),
+    ("bisect", dict(k=33), "K=33"), ("exact", dict(k=33), "K=33"),
+    ("bisect", dict(h2=20), "H2=20"), ("exact", dict(h1=1032), "H1=1032"),
     ("nearest", {}, "selection"),
 ])
 def test_tile_plans_reject_what_the_kernel_does_not_take(selection, kw, match):
@@ -148,6 +155,24 @@ def test_tile_plans_reject_what_the_kernel_does_not_take(selection, kw, match):
     with pytest.raises(ValueError, match=match):
         cp.pick_plan(**args, dtype=torch.bfloat16, occupancy=smem_occupancy,
                      selection=selection)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("p,s,c,h1,h2", [(256, 128, 6, 32, 64), (128, 64, 67, 128, 128),
+                                         (64, 32, 131, 256, 256), (64, 300, 131, 256, 512)])
+def test_exact_sizes_as_first_with_u_in_f32(dtype, p, s, c, h1, h2):
+    """Selection "bisect" takes "first"'s layout; "exact" "first"'s lists and
+    row map with "all"'s f32 u [P][H1 + 4] in place of u [P][H1 + pad] in
+    the dtype."""
+    es, pad = (2, 8) if dtype == torch.bfloat16 else (4, 4)
+    u_diff = cp._align16(4 * p * (h1 + 4)) - cp._align16(es * p * (h1 + pad))
+    for rows, resident in cp.TILE_LAYOUTS:
+        first = cp.select_smem(p, s, c, h1, h2, 32, rows, resident, dtype, "first")
+        assert cp.select_smem(p, s, c, h1, h2, 32, rows, resident, dtype, "bisect") == first
+        exact = cp.select_smem(p, s, c, h1, h2, 32, rows, resident, dtype, "exact")
+        assert exact - first == u_diff
+    assert ({l[:2] for l in cp.tile_layouts(p, s, c, h1, h2, 32, dtype, "exact")}
+            <= {l[:2] for l in cp.tile_layouts(p, s, c, h1, h2, 32, dtype, "first")})
 
 
 def test_all_plan_cuts_rows_by_the_budget():

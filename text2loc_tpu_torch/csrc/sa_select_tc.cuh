@@ -1,30 +1,39 @@
 // The inference set-abstraction level on the tensor cores, one kernel
-// template for three selections, each instantiated in a source of its own
+// template for every selection, each instantiated in a source of its own
 // with its C entries (T2L_SA_TILE_ENTRY): "first" (sa_select.cu, which
-// holds the design note), "gather" (sa_gather.cu) and "all" (sa_all.cu).
-// Selections "bisect" and "exact" stay on sa_level.cuh.
+// holds the design note), "bisect" (sa_select_bisect.cu), "gather"
+// (sa_gather.cu), "exact" (sa_exact.cu) and "all" (sa_all.cu).
 //
 // A block of 256 threads (8 warps) walks whole clouds (n = blockIdx.x, +
 // gridDim.x, ...). Per cloud:
 //   1. u for the P points on mma.sync (Mma of sa_train_tiles.cuh), rows in
 //      chunks of 64, columns in slices of kSlice, the weight streamed
 //      through the cp.async ring (its rows past C zero-filled):
-//      first, gather: u = feat @ W1 rounded to T, kept in shared memory
-//        [P][H1 + pad] in T;
-//      all: u = x @ Wx + pos @ Wp, the second term as three f32 FMAs per
-//        element, not rounded, kept [P][H1 + 4] in f32.
+//      first, bisect, gather: u = feat @ W1 rounded to T, kept in shared
+//        memory [P][H1 + pad] in T;
+//      exact, all: u = x @ Wx + pos @ Wp, the second term as three f32 FMAs
+//        per element, not rounded, kept [P][H1 + 4] in f32.
 //   2. Rows: a row is an edge (center, point), the row map holds a group's
 //      rows in center order.
-//      first, gather: the centers in groups of up to kGroup. Every warp
-//        selects centers w, w + 8, ... of the group into a list: "first"
-//        the first <= K in-radius points in index order by ballot and
-//        popcount (dist2 of sa_level.cuh); "gather" the valid slots of the
-//        center's idx/mask row in slot order (one lane a slot; no point
-//        positions). Then each warp scans the counts (the rows' exclusive
-//        prefix) and writes the row map of its own centers, and warp 0
-//        cuts the rows into tiles of at most R rows at center boundaries (a
-//        center's edges never straddle two tiles, an empty center takes no
-//        row). Two barriers a group.
+//      first, bisect, gather, exact: the centers in groups of up to kGroup.
+//        Every warp selects centers w, w + 8, ... of the group into a list
+//        of at most K points: "first" the first <= K in-radius points in
+//        index order by ballot and popcount; "gather" the valid slots of
+//        the center's idx/mask row in slot order (one lane a slot; no point
+//        positions); "bisect" and "exact" hold the center's in-radius d2 in
+//        registers (8 points a lane, P <= 256): "bisect" takes `iters`
+//        rounds of threshold bisection, count(d2 <= mid) <= K by a warp
+//        reduction, then the TPU kernel's tie expansion, then the first
+//        <= K points with d2 <= thr in index order; "exact" the K nearest,
+//        ties to the lowest index (the K-th least d2 by bisection over its
+//        bits, then the points below it and the lowest-index ones at it).
+//        Both take every in-radius point where at most K are, without
+//        rounds.
+//        Then each warp scans the counts (the rows' exclusive prefix) and
+//        writes the row map of its own centers, and warp 0 cuts the rows
+//        into tiles of at most R rows at center boundaries (a center's
+//        edges never straddle two tiles, an empty center takes no row). Two
+//        barriers a group.
 //      all: every in-radius point is an edge, up to P a center. Every warp
 //        counts its centers of the whole cloud (ballot popcounts over
 //        32-point chunks; an empty center's output row is written 0 here),
@@ -50,11 +59,15 @@
 //      pair) takes the max over the center's rows (rounding is monotone, so
 //      the max of rounded values is the rounded max); an empty center
 //      gives 0. out[n, s, :] in T. Four barriers a tile, besides the ring's.
+//
+// The distance is computed with the _rn intrinsics in the same order as the
+// plain PyTorch version (separate tensor ops), and the bisection with
+// __fadd_rn / __fmul_rn, so the in-radius sets and the thresholds agree bit
+// for bit on boundary points.
 #pragma once
 
 #include <type_traits>
 
-#include "sa_level.cuh"        // dist2, sq_norm: the selections' shared distance
 #include "sa_train_tiles.cuh"  // Mma, product, stage_rows, Pad, take, launch
 
 namespace t2l {
@@ -64,19 +77,22 @@ using sat::kKC;
 using sat::kThreads;
 using sat::kWarps;
 
-enum Sel : int { kFirst = 0, kGather = 1, kAll = 2 };
+enum Sel : int { kFirst = 0, kGather = 1, kAll = 2, kBisect = 3, kExact = 4 };
 
 constexpr int kMaxNbr = 32;                       // K <= 32: a lane per slot
+constexpr int kLanePts = 8;                       // bisect, exact: d2 a lane holds
+constexpr int kMaxRegP = 32 * kLanePts;           // bisect, exact: P <= 256
+constexpr float kInf = 3.0e38f;                   // bisect, exact: d2 out of radius
 constexpr int kSlice = kWarps * 8 * sat::kMaxNQ;  // output columns of one product
 constexpr int kGroup = 128;                       // centers selected at once (first, gather)
 constexpr int kMaxAllCenters = 32767;             // "all": a row's center in 15 bits
 constexpr size_t kSmemLimit = 232448;             // bytes of shared memory a block may use
 
 struct Args {
-  const void* feat;   // [n, p, c] T: concat(x, pos); "all": x
+  const void* feat;   // [n, p, c] T: concat(x, pos); "exact", "all": x
   const float* pos;   // [n, p, 3] ("gather": unused)
   const float* ctr;   // [n, s, 3]
-  const void* w1;     // [c, h1] T ("all": Wx)
+  const void* w1;     // [c, h1] T ("exact", "all": Wx)
   const void* wp;     // [3, h1] T: the position rows of W1
   const float* ab1;   // [2, h1] folded BN: scale, shift
   const void* w2;     // [h1, h2] T
@@ -88,7 +104,116 @@ struct Args {
   const int* idx;         // "gather": [n, s, k] the neighbours
   const uint8_t* mask;    // "gather": [n, s, k] their validity
   int budget;             // "all": rows of the row map
+  int iters;              // "bisect": rounds of threshold bisection
 };
+
+// u in f32, x @ Wx + pos @ Wp not rounded ("exact", "all"); else feat @
+// W1 rounded to T.
+__host__ __device__ constexpr bool u_f32(int sel) { return sel == kAll || sel == kExact; }
+
+__device__ __forceinline__ float sq_norm(float x, float y, float z) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z));
+}
+
+// d2 of point j from a center (cx, cy, cz) with |c|^2 = sc, clamped at 0.
+__device__ __forceinline__ float dist2(float sc, float cx, float cy, float cz,
+                                       const float* pos_s, int j) {
+  const float px = pos_s[3 * j], py = pos_s[3 * j + 1], pz = pos_s[3 * j + 2];
+  const float cross = __fadd_rn(__fadd_rn(__fmul_rn(cx, px), __fmul_rn(cy, py)),
+                                __fmul_rn(cz, pz));
+  const float d2 = __fadd_rn(__fsub_rn(sc, __fmul_rn(2.0f, cross)), sq_norm(px, py, pz));
+  return fmaxf(d2, 0.0f);
+}
+
+// The order of a d2 >= 0 (or -0) as an unsigned key: its bits without the
+// sign.
+__device__ __forceinline__ unsigned d2_key(float v) { return __float_as_uint(v) & 0x7fffffffu; }
+
+// Points of the warp's registers d (point i * 32 + lane in d[i]) with d2 <= t
+// (or key <= t).
+template <typename V>
+__device__ __forceinline__ int warp_count_le(const V (&d)[kLanePts], V t) {
+  unsigned n = 0;
+#pragma unroll
+  for (int i = 0; i < kLanePts; ++i) n += d[i] <= t;
+  return (int)__reduce_add_sync(0xffffffffu, n);
+}
+
+// Appends the points i * 32 + lane with take[i] set to `list`, in index
+// order, keeping at most `cap`; returns the number of points set.
+__device__ __forceinline__ int warp_compact(const bool (&take)[kLanePts], uint16_t* list,
+                                            int cap, unsigned lt_mask) {
+  int count = 0;
+#pragma unroll
+  for (int i = 0; i < kLanePts; ++i) {
+    const unsigned ball = __ballot_sync(0xffffffffu, take[i]);
+    const int rank = count + __popc(ball & lt_mask);
+    if (take[i] && rank < cap) list[rank] = (uint16_t)(i * 32 + (threadIdx.x & 31));
+    count += __popc(ball);
+  }
+  return count;
+}
+
+// "bisect": the first <= K points with d2 <= thr in index order, thr the
+// largest of `iters` bisection midpoints in [0, r2] with count(d2 <= thr)
+// <= K, expanded to the next distance where that count falls short of K
+// (the TPU kernel's tie expansion), or r2 where at most K are in radius.
+// d: the in-radius d2, kInf elsewhere. Returns the count before the cap.
+__device__ __forceinline__ int select_bisect(const float (&d)[kLanePts], float r2, int k,
+                                             int iters, uint16_t* list, unsigned lt_mask) {
+  bool take[kLanePts];
+  if (warp_count_le(d, r2) <= k) {  // thr = r2 whatever the rounds find
+#pragma unroll
+    for (int i = 0; i < kLanePts; ++i) take[i] = d[i] < kInf;
+    return warp_compact(take, list, k, lt_mask);
+  }
+  float lo = 0.f, hi = r2;
+  for (int it = 0; it < iters; ++it) {
+    const float mid = __fmul_rn(__fadd_rn(lo, hi), 0.5f);
+    if (warp_count_le(d, mid) <= k) lo = mid; else hi = mid;
+  }
+  unsigned nx = d2_key(kInf);
+#pragma unroll
+  for (int i = 0; i < kLanePts; ++i)
+    if (d[i] > lo && d[i] < kInf) nx = min(nx, d2_key(d[i]));
+  nx = __reduce_min_sync(0xffffffffu, nx);
+  const float thr = warp_count_le(d, lo) < k ? __uint_as_float(nx) : lo;
+#pragma unroll
+  for (int i = 0; i < kLanePts; ++i) take[i] = d[i] <= thr;
+  return warp_compact(take, list, k, lt_mask);
+}
+
+// "exact": the K nearest in-radius points, ties to the lowest index (the
+// set of the TPU kernel's K masked-argmin rounds); every in-radius point
+// where at most K are. Else T, the K-th least key, by bisection over the
+// integer keys [0, key(r2)] (about 30 rounds of a count), then every point
+// below T (fewer than K) and the lowest-index points at T up to K. d: as
+// select_bisect's. The list is in index order per pass (a max pools it).
+// Returns the count, at most K.
+__device__ __forceinline__ int select_exact(const float (&d)[kLanePts], float r2, int k,
+                                            uint16_t* list, unsigned lt_mask) {
+  bool take[kLanePts];
+  if (warp_count_le(d, r2) <= k) {
+#pragma unroll
+    for (int i = 0; i < kLanePts; ++i) take[i] = d[i] < kInf;
+    return warp_compact(take, list, k, lt_mask);
+  }
+  unsigned key[kLanePts];
+#pragma unroll
+  for (int i = 0; i < kLanePts; ++i) key[i] = d2_key(d[i]);
+  unsigned lo = 0, hi = d2_key(r2);  // count(key <= hi) > K
+  while (lo < hi) {
+    const unsigned mid = lo + ((hi - lo) >> 1);
+    if (warp_count_le(key, mid) >= k) hi = mid; else lo = mid + 1;
+  }
+#pragma unroll
+  for (int i = 0; i < kLanePts; ++i) take[i] = key[i] < lo;
+  const int below = warp_compact(take, list, k, lt_mask);
+#pragma unroll
+  for (int i = 0; i < kLanePts; ++i) take[i] = key[i] == lo;
+  warp_compact(take, list + below, k - below, lt_mask);
+  return k;
+}
 
 __host__ __device__ inline int round_up(int v, int m) { return (v + m - 1) / m * m; }
 
@@ -140,14 +265,15 @@ __host__ __device__ inline size_t layout(int sel, int p, int s, int c, int h1, i
                                          unsigned char* base, Smem* out) {
   using sat::take;
   const int pad = es == 4 ? 4 : 8;
-  const bool all = sel == kAll;
+  const bool all = sel == kAll;  // rows by the budget, no lists
   const int h1k = round_up(h1, kKC), ck = round_up(c, kKC);
   const int w1n = h1 < kSlice ? h1 : kSlice, w2n = h2 < kSlice ? h2 : kSlice;
   const int g = all ? (s < 1 ? 1 : s) : group_size(s);
   size_t off = 0;
   Smem sm;
   sm.w2 = take(base, &off, resident ? (size_t)es * h1k * (h2 + pad) : 0);
-  sm.u = take(base, &off, all ? sizeof(float) * p * (h1 + 4) : (size_t)es * p * (h1 + pad));
+  sm.u = take(base, &off,
+              u_f32(sel) ? sizeof(float) * p * (h1 + 4) : (size_t)es * p * (h1 + pad));
   sm.pos = reinterpret_cast<float*>(
       take(base, &off, sel == kGather ? 0 : sizeof(float) * 3 * p));
   sm.cst = reinterpret_cast<float*>(take(base, &off, sizeof(float) * 5 * h1));
@@ -176,8 +302,9 @@ __host__ __device__ inline size_t layout(int sel, int p, int s, int c, int h1, i
 // What the kernel of selection sel relies on; 0 where it holds. P <= 65535
 // (a row's point in 16 bits); H1 and H2 multiples of 8, H1 <= 1024 (a
 // thread owns one column chunk of h1); R a multiple of 16 in [16, 16 MTR].
-// first, gather: K in [1, 32] and R >= K (a center in one tile). all: the
-// row budget >= P (a center in one group), S <= kMaxAllCenters.
+// first, bisect, gather, exact: K in [1, 32] and R >= K (a center in one
+// tile); bisect, exact: P <= kMaxRegP (d2 in registers). all: the row
+// budget >= P (a center in one group), S <= kMaxAllCenters.
 __host__ __device__ inline int check_args(int sel, const Args& a) {
   if (a.p < 1 || a.p > 65535 || a.c < 1) return 1;
   if (a.h1 < 8 || a.h1 % 8 || a.h1 > 1024 || a.h2 < 8 || a.h2 % 8) return 1;
@@ -188,6 +315,7 @@ __host__ __device__ inline int check_args(int sel, const Args& a) {
   } else if (a.k < 1 || a.k > kMaxNbr || a.rows < a.k) {
     return 1;
   }
+  if ((sel == kBisect || sel == kExact) && a.p > kMaxRegP) return 1;  // d2 in registers
   return a.resident == 0 || a.resident == 1 ? 0 : 1;
 }
 
@@ -244,11 +372,11 @@ struct MinBlocks {
   static constexpr int v = sizeof(T) == 4 && NQ >= 2 ? 1 : 2;
 };
 
-// The level of selection SEL (steps 1-5 above): "gather" and "all" branch
-// off "first"'s statements at compile time where they differ.
+// The level of selection SEL (steps 1-5 above): the other selections
+// branch off "first"'s statements at compile time where they differ.
 template <int SEL, typename T, int NQ>
 __device__ __forceinline__ void sa_level_tc(const Args& a) {
-  using U = std::conditional_t<SEL == kAll, float, T>;  // u in shared memory
+  using U = std::conditional_t<u_f32(SEL), float, T>;  // u in shared memory
   constexpr int MTR = sat::Width<NQ>::MTR;
   constexpr int pad = sat::Pad<T>::v;
   constexpr int V = 16 / sizeof(T);
@@ -317,7 +445,7 @@ __device__ __forceinline__ void sa_level_tc(const Args& a) {
             for (int eh = 0; eh < 2; ++eh) {
               const int r = mt * 16 + 8 * eh + g;
               if (mt < mts && r < rn) {
-                if constexpr (SEL == kAll) {
+                if constexpr (u_f32(SEL)) {
                   // x @ Wx + pos @ Wp in f32: three FMAs with Wp's rows.
                   const float* pr = sm.pos + 3 * (r0 + r);
                   const float* wp0 = sm.cst + 2 * h1 + col;
@@ -425,7 +553,7 @@ __device__ __forceinline__ void sa_level_tc(const Args& a) {
             const unsigned ball = __ballot_sync(0xffffffffu, valid);
             if (valid) list[__popc(ball & lt_mask)] = (uint16_t)a.idx[row + lane];
             count = __popc(ball);
-          } else {
+          } else if constexpr (SEL == kFirst) {
             for (int base = 0; base < p && count < k; base += 32) {
               const int j = base + lane;
               const bool in = j < p && dist2(sc, cx, cy, cz, sm.pos, j) <= a.r2;
@@ -434,6 +562,23 @@ __device__ __forceinline__ void sa_level_tc(const Args& a) {
               if (in && rank < k) list[rank] = (uint16_t)j;
               count += __popc(ball);
             }
+          } else {
+            // The in-radius d2 of this lane's points; kInf elsewhere.
+            float d[kLanePts];
+#pragma unroll
+            for (int i = 0; i < kLanePts; ++i) {
+              const int j = i * 32 + lane;
+              float v = kInf;
+              if (j < p) {
+                const float dd = dist2(sc, cx, cy, cz, sm.pos, j);
+                if (dd <= a.r2) v = dd;
+              }
+              d[i] = v;
+            }
+            if constexpr (SEL == kBisect)
+              count = select_bisect(d, a.r2, k, a.iters, list, lt_mask);
+            else
+              count = select_exact(d, a.r2, k, list, lt_mask);
           }
           if (lane == 0) {
             sm.cnt[t] = count < k ? count : k;
@@ -640,12 +785,25 @@ __global__ void __launch_bounds__(kThreads, MinBlocks<T, NQ>::v) sa_all_kernel(A
   sa_level_tc<kAll, T, NQ>(a);
 }
 
+template <typename T, int NQ>
+__global__ void __launch_bounds__(kThreads, MinBlocks<T, NQ>::v)
+    sa_select_bisect_kernel(Args a) {
+  sa_level_tc<kBisect, T, NQ>(a);
+}
+
+template <typename T, int NQ>
+__global__ void __launch_bounds__(kThreads, MinBlocks<T, NQ>::v) sa_exact_kernel(Args a) {
+  sa_level_tc<kExact, T, NQ>(a);
+}
+
 using Fn = void (*)(Args);
 
 template <int SEL, typename T, int NQ>
 Fn kernel_fn() {
   if constexpr (SEL == kFirst) return sa_select_first_kernel<T, NQ>;
   else if constexpr (SEL == kGather) return sa_gather_kernel<T, NQ>;
+  else if constexpr (SEL == kBisect) return sa_select_bisect_kernel<T, NQ>;
+  else if constexpr (SEL == kExact) return sa_exact_kernel<T, NQ>;
   else return sa_all_kernel<T, NQ>;
 }
 
@@ -675,36 +833,39 @@ int entry(const Args& a, int blocks, int dtype, cudaStream_t st, int* occ) {
 inline Args args_of(const void* feat, const void* pos, const void* ctr, const void* idx,
                     const void* mask, const void* w1, const void* wp, const void* ab1,
                     const void* w2, const void* ab2, void* out, int n, int p, int s, int c,
-                    int h1, int h2, int k, float r2, int rows, int resident, int budget) {
+                    int h1, int h2, int k, float r2, int iters, int rows, int resident,
+                    int budget) {
   return Args{feat, static_cast<const float*>(pos), static_cast<const float*>(ctr), w1, wp,
               static_cast<const float*>(ab1), w2, static_cast<const float*>(ab2), out,
               n, p, s, c, h1, h2, k, r2, rows, resident, static_cast<const int*>(idx),
-              static_cast<const uint8_t*>(mask), budget};
+              static_cast<const uint8_t*>(mask), budget, iters};
 }
 
 }  // namespace sas
 }  // namespace t2l
 
-// The C entries of selection SEL (kFirst, kGather, kAll), NAME its name:
+// The C entries of selection SEL (kFirst, kBisect, kGather, kExact, kAll),
+// NAME its name:
 //   t2l_sa_NAME_layout: dynamic shared memory of one block of the plan
 //     (rows, resident, budget) for a level of P points, S centers, C input
 //     channels, H1, H2, K; dtype 0 f32, 1 bf16. The largest size_t where the
 //     kernel does not take the shape or the plan.
 //   t2l_sa_NAME_occupancy: blocks of the plan's kernel one SM holds -> *out.
-//   t2l_sa_NAME: feat [n,p,c] T (concat(x, pos) for first and gather with
-//     w1 [c,h1]; x for all with w1 = Wx [c,h1]); pos [n,p,3] f32 (null for
-//     gather); ctr [n,s,3] f32; idx [n,s,k] int32 and mask [n,s,k] bool
-//     (gather only, else null); wp [3,h1] T; ab1 [2,h1] f32; w2 [h1,h2] T;
-//     ab2 [2,h2] f32 -> out [n,s,h2] T. r2: the squared radius as the caller
-//     rounds it to f32; rows, resident, budget: the plan; blocks: the
+//   t2l_sa_NAME: feat [n,p,c] T (concat(x, pos) for first, bisect and
+//     gather with w1 [c,h1]; x for exact and all with w1 = Wx [c,h1]); pos
+//     [n,p,3] f32 (null for gather); ctr [n,s,3] f32; idx [n,s,k] int32 and
+//     mask [n,s,k] bool (gather only, else null); wp [3,h1] T; ab1 [2,h1]
+//     f32; w2 [h1,h2] T; ab2 [2,h2] f32 -> out [n,s,h2] T. r2: the squared
+//     radius as the caller rounds it to f32; iters: the bisection's rounds
+//     (bisect only); rows, resident, budget: the plan; blocks: the
 //     persistent grid. Returns cudaGetLastError() after the launch.
 #define T2L_SA_TILE_ENTRY(NAME, SEL)                                                        \
   extern "C" size_t t2l_sa_##NAME##_layout(int p, int s, int c, int h1, int h2, int k,      \
                                           int rows, int resident, int budget, int dtype) {  \
     const t2l::sas::Args a = t2l::sas::args_of(nullptr, nullptr, nullptr, nullptr, nullptr, \
                                                nullptr, nullptr, nullptr, nullptr, nullptr, \
-                                               nullptr, 0, p, s, c, h1, h2, k, 0.f, rows,   \
-                                               resident, budget);                           \
+                                               nullptr, 0, p, s, c, h1, h2, k, 0.f, 0,      \
+                                               rows, resident, budget);                     \
     if (t2l::sas::check_args(SEL, a)) return ~static_cast<size_t>(0);                      \
     return t2l::sas::layout(SEL, p, s, c, h1, h2, k, rows, resident, budget,                \
                             dtype == t2l::kBF16 ? 2 : 4, nullptr, nullptr);                 \
@@ -714,19 +875,20 @@ inline Args args_of(const void* feat, const void* pos, const void* ctr, const vo
                                            void* out) {                                     \
     const t2l::sas::Args a = t2l::sas::args_of(nullptr, nullptr, nullptr, nullptr, nullptr, \
                                                nullptr, nullptr, nullptr, nullptr, nullptr, \
-                                               nullptr, 0, p, s, c, h1, h2, k, 0.f, rows,   \
-                                               resident, budget);                           \
+                                               nullptr, 0, p, s, c, h1, h2, k, 0.f, 0,      \
+                                               rows, resident, budget);                     \
     return t2l::sas::entry<SEL>(a, 0, dtype, nullptr, static_cast<int*>(out));              \
   }                                                                                         \
   extern "C" int t2l_sa_##NAME(const void* feat, const void* pos, const void* ctr,          \
                                const void* idx, const void* mask, const void* w1,           \
                                const void* wp, const void* ab1, const void* w2,             \
                                const void* ab2, void* out, int n, int p, int s, int c,      \
-                               int h1, int h2, int k, float r2, int rows, int resident,     \
-                               int budget, int blocks, int dtype, void* stream) {           \
+                               int h1, int h2, int k, float r2, int iters, int rows,        \
+                               int resident, int budget, int blocks, int dtype,             \
+                               void* stream) {                                              \
     const t2l::sas::Args a = t2l::sas::args_of(feat, pos, ctr, idx, mask, w1, wp, ab1, w2,  \
-                                               ab2, out, n, p, s, c, h1, h2, k, r2, rows,   \
-                                               resident, budget);                           \
+                                               ab2, out, n, p, s, c, h1, h2, k, r2, iters,  \
+                                               rows, resident, budget);                     \
     return t2l::sas::entry<SEL>(a, blocks, dtype, static_cast<cudaStream_t>(stream),        \
                                 nullptr);                                                   \
   }

@@ -31,7 +31,7 @@ SOURCES = ("fps.cu", "sa_select.cu", "sa_select_bisect.cu", "sa_gather.cu",
            "sa_exact.cu", "sa_all.cu", "mha_addln.cu", "mha_tiled.cu", "ffn_addln.cu",
            "ffn_tiled.cu", "sa_train_fwd.cu", "sa_train_bwd.cu", "sa_train_e_fwd.cu",
            "sa_train_e_bwd.cu", "add_ln.cu", "gather_rows.cu")
-HEADERS = ("common.cuh", "fused_block.cuh", "gemm_tc.cuh", "layernorm_rows.cuh", "sa_level.cuh",
+HEADERS = ("common.cuh", "fused_block.cuh", "gemm_tc.cuh", "layernorm_rows.cuh",
            "sa_select_tc.cuh", "sa_train_tiles.cuh", "sa_train_fwd.cuh", "sa_train_bwd.cuh")
 # -Xptxas -v: each source's registers, shared memory and spills per kernel,
 # kept beside the library as <source>.log (ptxas_report reads them).
@@ -118,20 +118,17 @@ def build() -> Path:
     return lib
 
 
-# The inference SA level's selections on the tile kernel (sa_select_tc.cuh).
-TILE_SELECTIONS = ("first", "gather", "all")
+# The inference SA level's selections, all on the tile kernel (sa_select_tc.cuh).
+TILE_SELECTIONS = ("first", "bisect", "gather", "exact", "all")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "t2l_error_string": ([_I], ctypes.c_char_p),
     "t2l_fps": ([_P, _P, _P, _I, _I, _I, _P], _I),
-    "t2l_sa_level_smem": ([_I] * 3, ctypes.c_size_t),
-    **{f"t2l_sa_level_{sel}": ([_P] * 9 + [_I] * 7 + [_F] + [_I] * 3 + [_P], _I)
-       for sel in ("bisect", "exact")},
     **{f"t2l_sa_{sel}_layout": ([_I] * 10, ctypes.c_size_t) for sel in TILE_SELECTIONS},
     **{f"t2l_sa_{sel}_occupancy": ([_I] * 10 + [_P], _I) for sel in TILE_SELECTIONS},
-    **{f"t2l_sa_{sel}": ([_P] * 11 + [_I] * 7 + [_F] + [_I] * 5 + [_P], _I)
+    **{f"t2l_sa_{sel}": ([_P] * 11 + [_I] * 7 + [_F] + [_I] * 6 + [_P], _I)
        for sel in TILE_SELECTIONS},
     "t2l_mha_addln_layout": ([_I] * 8, ctypes.c_size_t),
     "t2l_mha_addln": ([_P] * 14 + [_I] * 5 + [_F, _F] + [_I] * 5 + [_P], _I),

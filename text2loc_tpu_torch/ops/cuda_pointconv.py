@@ -1,10 +1,9 @@
-"""Wrappers of the inference SA kernels: selections "first", "gather" and
-"all" on the tensor-core tile kernel (csrc/sa_select_tc.cuh, instantiated
-in csrc/sa_select.cu, csrc/sa_gather.cu and csrc/sa_all.cu, each with its
-C entries t2l_sa_<selection>, the plan from tile_plan), and "bisect" and
-"exact" on the older template (csrc/sa_level.cuh, in
-csrc/sa_select_bisect.cu and csrc/sa_exact.cu, C entries
-t2l_sa_level_<selection>). Every selection has its own launch count."""
+"""Wrappers of the inference SA kernels: the selections "first", "bisect",
+"gather", "exact" and "all" on the tensor-core tile kernel
+(csrc/sa_select_tc.cuh, instantiated in csrc/sa_select.cu,
+csrc/sa_select_bisect.cu, csrc/sa_gather.cu, csrc/sa_exact.cu and
+csrc/sa_all.cu, each with its C entries t2l_sa_<selection>), the plan from
+tile_plan. Every selection has its own launch count."""
 
 from __future__ import annotations
 
@@ -28,16 +27,17 @@ KERNEL_GATHER = _kernel("sa_gather", "sa_gather.cu", "242")
 KERNEL_EXACT = _kernel("sa_exact", "sa_exact.cu", "116")
 KERNEL_ALL = _kernel("sa_all", "sa_all.cu", "116")
 KERNELS = (KERNEL_FIRST, KERNEL_BISECT, KERNEL_GATHER, KERNEL_EXACT, KERNEL_ALL)
-TILE_KERNELS = {"first": KERNEL_FIRST, "gather": KERNEL_GATHER, "all": KERNEL_ALL}
-MAX_K = 32         # neighbour slots per center ("first", "gather", "bisect", "exact")
-MAX_P = 256        # points the register-resident selections hold (8 per lane)
-_THREADS = 256
+TILE_KERNELS = {"first": KERNEL_FIRST, "bisect": KERNEL_BISECT, "gather": KERNEL_GATHER,
+                "exact": KERNEL_EXACT, "all": KERNEL_ALL}
+MAX_K = 32         # neighbour slots per center (every selection but "all")
+MAX_P = 256        # points "bisect" and "exact" hold in registers (8 a lane; kMaxRegP)
+U_F32 = ("exact", "all")   # u = x @ Wx + pos @ Wp kept in f32, not rounded
 
 # The tile kernel (csrc/sa_select_tc.cuh): its limits (check_args) and the
 # constants its shared-memory layout is built from.
 SLICE = 256        # output columns of one product: 8 warps x 4 n8 tiles (kSlice)
 KC = 32            # k rows of a ring chunk (kKC): H1 and C+3 are padded to it
-GROUP = 128        # centers selected at once by "first" and "gather" (kGroup)
+GROUP = 128        # centers selected at once by every selection but "all" (kGroup)
 MAX_H1 = 1024      # a thread owns one column chunk of h1
 MAX_P_TILES = 65535  # a row's point in 16 bits
 MAX_S_ALL = 32767    # "all": a row's center in 15 bits (kMaxAllCenters)
@@ -84,9 +84,9 @@ def max_rows(h1: int, h2: int) -> int:
 def check_level(p: int, s: int, c: int, h1: int, h2: int, k: int,
                 selection: str = "first") -> None:
     """Raise ValueError, with the reason, on a level the tile kernel of
-    `selection` does not take (c: its input channels, C+3 for "first" and
-    "gather", C for "all"; k: the neighbours a center keeps, which "all"
-    does not read)."""
+    `selection` does not take (c: its input channels, C+3 for "first",
+    "bisect" and "gather", C for "exact" and "all"; k: the neighbours a
+    center keeps, which "all" does not read)."""
     if selection not in TILE_KERNELS:
         raise ValueError(f"selection {selection!r}: the tile kernel takes "
                          f"{tuple(TILE_KERNELS)}")
@@ -100,6 +100,9 @@ def check_level(p: int, s: int, c: int, h1: int, h2: int, k: int,
     if not 1 <= p <= MAX_P_TILES or c < 1:
         raise ValueError(f"P={p}, C={c}: the kernel takes 1..{MAX_P_TILES} points and "
                          f"at least one channel")
+    if selection in ("bisect", "exact") and p > MAX_P:
+        raise ValueError(f"P={p}: selection {selection!r} holds at most {MAX_P} points "
+                         f"(8 a lane in registers)")
     if selection == "all":
         if p > ALL_BUDGETS[0]:
             raise ValueError(f"P={p}: selection 'all' takes at most {ALL_BUDGETS[0]} "
@@ -112,21 +115,21 @@ def select_smem(p: int, s: int, c: int, h1: int, h2: int, k: int, rows: int,
                 resident: int, dtype, selection: str = "first", budget: int = 0) -> int:
     """Dynamic shared bytes of one block: layout() of csrc/sa_select_tc.cuh
     (every buffer 16-byte aligned). Resident W2 [H1k][H2 + pad] (H1k: H1
-    padded to KC); u [P][H1 + pad] in the dtype ("all": [P][H1 + 4] in f32);
-    points (not for "gather"), BN1 and Wp in f32; the centers of a group (G =
-    min(S, GROUP); "all": the cloud's S), their lists (not for "all"),
+    padded to KC); u [P][H1 + pad] in the dtype ("exact", "all": [P][H1 + 4]
+    in f32); points (not for "gather"), BN1 and Wp in f32; the centers of a
+    group (G = min(S, GROUP); "all": the cloud's S), their lists (not for "all"),
     counts, first rows, tiles (not for "all") and row map (G K entries;
     "all": `budget`); then the larger of the u pass's scratch (feat rows of
     64 points, the W1 ring) and a tile's (h1 rows with y over them, y apart
     above SLICE columns, the W2 ring where W2 streams)."""
     es = 2 if dtype == torch.bfloat16 else 4
     pad = 8 if es == 2 else 4
-    is_all = selection == "all"
+    is_all = selection == "all"    # rows by the budget, no lists
     h1k, ck = _round_up(h1, KC), _round_up(c, KC)
     w1n, w2n = min(h1, SLICE), min(h2, SLICE)
     g = max(s, 1) if is_all else min(max(s, 1), GROUP)
     fixed = (es * h1k * (h2 + pad) if resident else 0,
-             4 * p * (h1 + 4) if is_all else es * p * (h1 + pad),
+             4 * p * (h1 + 4) if selection in U_F32 else es * p * (h1 + pad),
              0 if selection == "gather" else 12 * p, 20 * h1, 16 * g,
              0 if is_all else 2 * g * k, 4 * g, 4 * (g + 1), 0 if is_all else 4 * (g + 1),
              4 * budget if is_all else 4 * g * k, 0 if is_all else 8)
@@ -143,7 +146,7 @@ def tile_layouts(p: int, s: int, c: int, h1: int, h2: int, k: int, dtype,
     every budget of ALL_BUDGETS that holds P rows, the largest first) that
     the selection and the level's width class take and that fit a block's
     shared memory, in that order; raises where the kernel does not take the
-    level. "first" and "gather" need R >= K (a center in one tile)."""
+    level. Every selection but "all" needs R >= K (a center in one tile)."""
     check_level(p, s, c, h1, h2, k, selection)
     budgets = [b for b in ALL_BUDGETS if b >= p] if selection == "all" else [0]
     out = []
@@ -241,9 +244,10 @@ def _check_level(feat, pos, centers, w1, wp, ab1, w2, ab2, gather):
 
 
 def _launch_tiles(selection: str, feat, pos, centers, idx, mask, w1, wp, ab1, w2, ab2,
-                  radius: float, k: int) -> torch.Tensor:
+                  radius: float, k: int, iters: int = 0) -> torch.Tensor:
     """Check the arguments and launch the tile kernel of `selection` on its
-    plan: [N, S, H2] in feat.dtype."""
+    plan (iters: the bisection's rounds, "bisect" only): [N, S, H2] in
+    feat.dtype."""
     gather = selection == "gather"
     n, p, c, s, h1, h2 = _check_level(feat, pos, centers, w1, wp, ab1, w2, ab2, gather)
     dt = feat.dtype
@@ -263,36 +267,8 @@ def _launch_tiles(selection: str, feat, pos, centers, idx, mask, w1, wp, ab1, w2
             TILE_KERNELS[selection], f"t2l_sa_{selection}",
             *(None if t is None else _cuda.ptr(t)
               for t in (feat, pos, centers, idx, mask, w1, wp, ab1, w2, ab2, out)),
-            n, p, s, c, h1, h2, k, ctypes.c_float(radius * radius), plan.rows,
+            n, p, s, c, h1, h2, k, ctypes.c_float(radius * radius), iters, plan.rows,
             plan.resident, plan.budget, blocks, _cuda.DTYPE_CODE[dt],
-        )
-    return out
-
-
-def _launch_level(sel: str, feat, pos, centers, w1, wp, ab1, w2, ab2, radius: float,
-                  k: int, iters: int = 0) -> torch.Tensor:
-    """Check the arguments and launch selection `sel` ("bisect", "exact") of
-    sa_level.cuh: [N, S, H2] in feat.dtype."""
-    n, p, c, s, h1, h2 = _check_level(feat, pos, centers, w1, wp, ab1, w2, ab2, False)
-    dt = feat.dtype
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"k={k}: the kernel keeps at most {MAX_K} neighbours")
-    if p > MAX_P:
-        raise ValueError(f"P={p}: selection {sel!r} holds at most {MAX_P} points")
-    if h2 % 32 or h2 > 1024:
-        raise ValueError(f"H2={h2}: must be a multiple of 32 and at most 1024")
-    g_per = max(1, _THREADS // h2)
-    lib = _cuda.library()
-    smem = lib.t2l_sa_level_smem(p, h1, g_per)
-    if smem > _cuda.SMEM_LIMIT:
-        raise ValueError(f"SA level needs {smem} B of shared memory per block")
-    out = torch.empty((n, s, h2), dtype=dt, device=feat.device)
-    if n and s:
-        _cuda.launch(
-            KERNEL_BISECT if sel == "bisect" else KERNEL_EXACT, f"t2l_sa_level_{sel}",
-            *(_cuda.ptr(t) for t in (feat, pos, centers, w1, wp, ab1, w2, ab2, out)),
-            n, p, s, c, h1, h2, k, ctypes.c_float(radius * radius), iters, g_per,
-            _cuda.DTYPE_CODE[dt],
         )
     return out
 
@@ -302,11 +278,8 @@ def sa_select_cuda(feat, pos, centers, w1, wp, ab1, w2, ab2, radius: float, k: i
     """fused_sa_select on the card; the arguments as sa_select_plain's."""
     if selection not in ("first", "bisect"):
         raise ValueError(f"selection {selection!r}: expected 'first' or 'bisect'")
-    if selection == "first":
-        return _launch_tiles("first", feat, pos, centers, None, None, w1, wp, ab1, w2, ab2,
-                             radius, k)
-    return _launch_level(selection, feat, pos, centers, w1, wp, ab1, w2, ab2, radius, k,
-                         bisect_iters)
+    return _launch_tiles(selection, feat, pos, centers, None, None, w1, wp, ab1, w2, ab2,
+                         radius, k, bisect_iters if selection == "bisect" else 0)
 
 
 def sa_gather_cuda(feat, centers, idx, mask, w1, wp, ab1, w2, ab2) -> torch.Tensor:
@@ -320,6 +293,5 @@ def set_abstraction_cuda(x, pos, centers, wx, wp, ab1, w2, ab2, radius: float, k
                          select_k: bool = True) -> torch.Tensor:
     """fused_set_abstraction on the card; the arguments as
     set_abstraction_plain's."""
-    if select_k:
-        return _launch_level("exact", x, pos, centers, wx, wp, ab1, w2, ab2, radius, k)
-    return _launch_tiles("all", x, pos, centers, None, None, wx, wp, ab1, w2, ab2, radius, k)
+    return _launch_tiles("exact" if select_k else "all", x, pos, centers, None, None, wx, wp,
+                         ab1, w2, ab2, radius, k)
