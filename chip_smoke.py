@@ -99,7 +99,9 @@ toolkit. Phases, each printing one JSON line:
 Phase 3 also holds the opt-in kernels against their plain versions: add_ln
 at the E=1024 trunk's rows and at D=128/256 (bf16, f32), gather_rows at the
 gallery's three mode-off shapes (bf16, f32) and at the gather probe's
-shapes (f32), gather_rows_scatter at the probe's shapes (f32, 896 clouds),
+shapes (f32), each line with kernel_ms and its plan (copy word, chunk
+bytes, chunks a cloud; the fps line with kernel_ms and its points a lane),
+gather_rows_scatter at the probe's shapes (f32, 896 clouds),
 and the training level of the token "e" (sa_train_e_fwd / _bwd) at the coarse
 step's three levels (f32, bf16), with the time of one PyTorch call that
 computes the same function where there is one (library_ms).
@@ -591,11 +593,14 @@ def phase_kernels(dev) -> dict:
     want_idx, want_xyz = fps.farthest_point_sampling_plain(pts, 128)
     check(torch.equal(idx, want_idx), "fps: indices differ from the plain version")
     # 3 subtractions, 3 products and 2 sums per point and round.
-    records["fps"].add("fps 1792x256->128", torch.float32, [(xyz, want_xyz)],
-                       lambda: cuda_fps.farthest_point_sampling_cuda(pts, 128),
+    def fps_fn():
+        return cuda_fps.farthest_point_sampling_cuda(pts, 128)
+
+    records["fps"].add("fps 1792x256->128", torch.float32, [(xyz, want_xyz)], fps_fn,
                        lambda: fps.farthest_point_sampling_plain(pts, 128),
                        (8.0 * n * 127 * p, n * p * 12 + n * 128 * 16, torch.float32),
-                       exact=True)
+                       exact=True, info={"kernel_ms": kernel_ms(fps_fn),
+                                         "per_lane": cuda_fps.fps_plan(p, 128).per_lane})
     phase_sa_kernels(dev, gen, pts, xyz, records)
 
     # (name, B, Lq, Lk, D, self-attention, one sample with every key masked)
@@ -941,7 +946,7 @@ def phase_optin_kernels(dev) -> dict:
     F.layer_norm(x + res), torch.gather, and ATen's scatter_add_ (the
     backward of torch.gather), both over an expanded view of the int64
     index, cast outside the timing."""
-    from text2loc_tpu_torch.ops import cuda_gather, cuda_ln, gather, ln
+    from text2loc_tpu_torch.ops import _cuda, cuda_gather, cuda_ln, gather, ln
 
     gen = torch.Generator().manual_seed(SEED + 8)
     records = {k: KernelRecord() for k in ("add_ln", "gather_rows", "gather_rows_scatter")}
@@ -969,13 +974,16 @@ def phase_optin_kernels(dev) -> dict:
         idx = torch.randint(0, p, (n, q), generator=gen).to(torch.int32).to(dev)
         full = idx.long()[..., None].expand(n, q, c)      # a view: no [N, Q, C] index
         es = values.element_size()
+        plan = cuda_gather.gather_plan(n, p, q, c * es, sms=_cuda.sm_count(dev.index or 0))
         records["gather_rows"].add(
             f"gather_rows {tag} N={n} P={p} Q={q} C={c}", dt,
             [(cuda_gather.gather_rows_cuda(values, idx), gather.gather_rows_plain(values, idx))],
             lambda: cuda_gather.gather_rows_cuda(values, idx),
             lambda: gather.gather_rows_plain(values, idx),
             (0.0, n * p * c * es + n * q * 4 + n * q * c * es, torch.float32), exact=True,
-            counts=counts, library_fn=lambda: torch.gather(values, 1, full))
+            counts=counts, library_fn=lambda: torch.gather(values, 1, full),
+            info={"kernel_ms": kernel_ms(lambda: cuda_gather.gather_rows_cuda(values, idx)),
+                  "word": plan.word, "chunk_bytes": plan.chunk_bytes, "chunks": plan.chunks})
         return values, idx, full
 
     for dt in (torch.bfloat16, torch.float32):

@@ -34,7 +34,7 @@ import numpy as np
 import pytest
 import torch
 
-from text2loc_tpu_torch.ops import (cuda_ffn, cuda_fps, cuda_gather, cuda_ln, cuda_mha,
+from text2loc_tpu_torch.ops import (_cuda, cuda_ffn, cuda_fps, cuda_gather, cuda_ln, cuda_mha,
                                     cuda_pointconv, cuda_sa_train)
 from text2loc_tpu_torch.ops.ffn import (ffn_addln, ffn_addln_plain, ffn_hidden_plain,
                                         ffn_out_addln_plain)
@@ -94,6 +94,57 @@ def test_fps_kernel_bit_equal(dev):
     assert cuda_fps.KERNEL.launches == before + 1
     want_idx, want_xyz = farthest_point_sampling_plain(pts, 128)
     assert torch.equal(idx, want_idx) and torch.equal(sub, want_xyz)
+
+
+def _fps_clouds(rng, n, p, kind):
+    pts = rng.random((n, p, 3)).astype(np.float32)
+    if kind == "ties":                 # duplicated points: exact distance ties
+        pts[:, p // 2:] = pts[:, : p - p // 2]
+    elif kind == "equal":              # a padded cloud: every point the same
+        pts[:] = pts[:, :1]
+    elif kind == "grid":               # integer grid: many equal distances
+        pts = rng.integers(0, 3, (n, p, 3)).astype(np.float32)
+    return pts
+
+
+def _fps_check(dev, pts, s):
+    pts = torch.from_numpy(pts).to(dev)
+    before = cuda_fps.KERNEL.launches
+    idx, xyz = cuda_fps.farthest_point_sampling_cuda(pts, s)
+    assert cuda_fps.KERNEL.launches == before + 1
+    want_idx, want_xyz = farthest_point_sampling_plain(pts, s)
+    assert torch.equal(idx, want_idx) and torch.equal(xyz, want_xyz)
+
+
+@pytest.mark.parametrize("kind", ["random", "ties", "equal", "grid"])
+@pytest.mark.parametrize("p", [1, 31, 32, 33, 255, 256, 257, 512, 513])
+def test_fps_kernel_variants(dev, p, kind):
+    """Both variants (warp to P=512, block above) at S of 1, 128 and P,
+    N = 1 and N = 37 (a block's second warp without a cloud)."""
+    rng = np.random.default_rng(p)
+    for n in (1, 37):
+        pts = _fps_clouds(rng, n, p, kind)
+        for s in sorted({1, min(p, 128), p}):
+            _fps_check(dev, pts, s)
+
+
+def test_fps_kernel_largest_cloud(dev):
+    """The largest P the wrapper takes (the block variant's shared memory)."""
+    p = (_cuda.SMEM_LIMIT - cuda_fps.BLOCK_STATIC_SMEM) // 4
+    rng = np.random.default_rng(11)
+    pts = _fps_clouds(rng, 2, p, "ties")
+    for s in (1, 128, p):
+        _fps_check(dev, pts, s)
+    with pytest.raises(ValueError):
+        cuda_fps.farthest_point_sampling_cuda(torch.rand(1, p + 1, 3, device=dev), 1)
+
+
+@pytest.mark.parametrize("p", [1, 33, 256, 512, 513, 4096])
+def test_fps_plan_is_the_kernels(dev, p):
+    lib = _cuda.library()
+    for s in (1, p):
+        plan = cuda_fps.fps_plan(p, s)
+        assert lib.t2l_fps_smem(p, s, plan.per_lane, plan.warps) == plan.smem
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -1207,6 +1258,78 @@ def test_gather_rows_kernel_is_bit_equal(dev, dtype, n, p, q, c):
     got = gather_rows(values, idx)
     assert cuda_gather.KERNEL.launches == before + 1
     assert torch.equal(got, gather_rows_plain(values, idx))
+
+
+def _gather_want(values, idx):
+    """torch.gather with a zero row for an index outside [0, P)."""
+    n, p, c = values.shape
+    if p == 0:
+        return values.new_zeros((n, idx.shape[1], c))
+    want = gather_rows_plain(values, idx.clamp(0, p - 1))
+    return want.masked_fill(((idx < 0) | (idx >= p))[..., None], 0)
+
+
+def _gather_check(values, idx, variant):
+    n, p, c = values.shape
+    addr = values.data_ptr()
+    plan = cuda_gather.gather_plan(n, p, idx.shape[1], c * values.element_size(),
+                                   align=min(16, addr & -addr) if addr else 16,
+                                   sms=_cuda.sm_count(values.device.index))
+    assert (plan.chunk_bytes > 0) == (variant == "staged")
+    before = cuda_gather.KERNEL.launches
+    got = gather_rows(values, idx)
+    assert cuda_gather.KERNEL.launches == before + (1 if got.numel() else 0)
+    assert got.shape == (n, idx.shape[1], c) and got.dtype == values.dtype
+    assert torch.equal(got, _gather_want(values, idx))
+
+
+@pytest.mark.parametrize("dtype,c", [(torch.bfloat16, 1), (torch.bfloat16, 3),
+                                     (torch.bfloat16, 67), (torch.bfloat16, 131),
+                                     (torch.float32, 1), (torch.float32, 6),
+                                     (torch.float32, 67)])
+@pytest.mark.parametrize("n,p,q", [(7, 128, 2048 + 37), (3, 64, 5), (1, 21, 1), (40, 256, 999)])
+def test_gather_rows_kernel_odd_widths(dev, dtype, c, n, p, q):
+    """Odd row widths, Q off the chunk, indices -1 and P (zero rows), one
+    cloud, and values starting off a 16-byte boundary."""
+    rng = np.random.default_rng(n * q + c)
+    idx_np = rng.integers(-1, p + 1, (n, q)).astype(np.int32)
+    idx_np[0, 0], idx_np[-1, -1] = -1, p
+    idx = torch.from_numpy(idx_np).to(dev)
+    flat = _randn(rng, (n * p * c + 8,), dev).to(dtype)
+    for shift in (0, 1, 3):          # elements past the allocation's start
+        _gather_check(flat[shift:shift + n * p * c].view(n, p, c), idx, "staged")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_gather_rows_kernel_empty(dev, dtype):
+    values = torch.zeros(4, 16, 8, device=dev, dtype=dtype)
+    for q in (0, 5):
+        got = gather_rows(values[:0], torch.zeros(0, q, dtype=torch.int32, device=dev))
+        assert got.shape == (0, q, 8)
+    before = cuda_gather.KERNEL.launches
+    assert gather_rows(values, torch.zeros(4, 0, dtype=torch.int32, device=dev)).shape == (4, 0, 8)
+    assert cuda_gather.KERNEL.launches == before
+    # No points: every index is out of range, every row zero.
+    _gather_check(values[:, :0], torch.zeros(4, 9, dtype=torch.int32, device=dev), "staged")
+
+
+@pytest.mark.parametrize("dtype,c", [(torch.float32, 64), (torch.bfloat16, 67),
+                                     (torch.float32, 6)])
+def test_gather_rows_kernel_direct_variant(dev, dtype, c):
+    """Clouds too large for a block's shared memory: one warp a row."""
+    rng = np.random.default_rng(c)
+    n, p, q = 3, 1 + _cuda.SMEM_LIMIT // (c * 2), 3000
+    idx_np = rng.integers(-1, p + 1, (n, q)).astype(np.int32)
+    values = _randn(rng, (n, p, c), dev).to(dtype)
+    _gather_check(values, torch.from_numpy(idx_np).to(dev), "direct")
+
+
+@pytest.mark.parametrize("p,c,es", [(256, 6, 2), (128, 67, 2), (64, 131, 4), (128, 128, 4),
+                                    (5, 1, 2), (900, 64, 4)])
+def test_gather_plan_is_the_kernels(dev, p, c, es):
+    lib = _cuda.library()
+    plan = cuda_gather.gather_plan(100, p, 16 * p, c * es)
+    assert lib.t2l_gather_rows_smem(p, c * es, plan.chunk_bytes) == plan.smem
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -125,7 +125,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "t2l_error_string": ([_I], ctypes.c_char_p),
-    "t2l_fps": ([_P, _P, _P, _I, _I, _I, _P], _I),
+    "t2l_fps_smem": ([_I] * 4, ctypes.c_size_t),
+    "t2l_fps": ([_P] * 3 + [_I] * 5 + [_P], _I),
     **{f"t2l_sa_{sel}_layout": ([_I] * 10, ctypes.c_size_t) for sel in TILE_SELECTIONS},
     **{f"t2l_sa_{sel}_occupancy": ([_I] * 10 + [_P], _I) for sel in TILE_SELECTIONS},
     **{f"t2l_sa_{sel}": ([_P] * 11 + [_I] * 7 + [_F] + [_I] * 6 + [_P], _I)
@@ -148,7 +149,8 @@ _SIGNATURES = {
        for e in ("", "_e") for d in ("fwd", "bwd")},
     "t2l_sa_train_reduce": ([_P, _I, _I, _P, _P], _I),
     "t2l_add_ln": ([_P] * 5 + [_I, _I, _F, _I, _P], _I),
-    "t2l_gather_rows": ([_P] * 3 + [_I] * 5 + [_P], _I),
+    "t2l_gather_rows_smem": ([_I] * 3, ctypes.c_size_t),
+    "t2l_gather_rows": ([_P] * 3 + [_I] * 7 + [_P], _I),
     "t2l_scatter_rows_smem": ([_I, _I], ctypes.c_size_t),
     "t2l_scatter_rows": ([_P] * 3 + [_I] * 5 + [_P], _I),
 }
