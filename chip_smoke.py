@@ -63,12 +63,24 @@ toolkit. Phases, each printing one JSON line:
 7. pipeline_vs_cpu: every mode in f32 on the card and on the CPU over an
    8-cell map: top-1 cells equal where the margin exceeds 1e-4, positions
    within 1e-2 m, tables equal where every retrieval agrees;
-8. train: train_coarse at the full width of the default Config (f32 body)
-   on a 96-pose synthetic map, batch 32, 3 steps, then 2 fine train steps
-   at pad_size 16: step times, peak memory, losses; losses finite, every
-   parameter with a nonzero gradient changed (all three SA levels among
-   them), BN running statistics moved, fps / sa_train_fwd / sa_train_bwd
-   launched;
+8. train: both trainers at the full width of the default Config (f32
+   body) on a 96-pose synthetic map, batch 32: train_coarse for one epoch
+   (3 steps) with a 32-pose validation split of the same cells, one
+   retrieval eval and a checkpoint; train_fine (pad_size 16) for 2 epochs
+   of 3 steps over PMC tables on the map's grid neighbours (pmc_prob 0.5),
+   eval_fine every epoch, checkpoints; a third fine epoch resumed from the
+   checkpoint directory. Step times, peak memory, losses, the evaluations,
+   the PMC clones per batch, checkpoint save / restore ms and eval_fine ms,
+   on a line with the card's name and power limit. Checks: losses finite,
+   every parameter with a nonzero gradient changed (all three SA levels
+   among them), BN running statistics moved, an eval in every epoch, some
+   poses cloned, the resumed run trained only the third epoch and saved
+   only past the restored best, the best checkpoint restored into a fresh
+   model and optimizer equals what was saved bit for bit (model, Adam,
+   schedule), eval_fine of the best weights on the card against the CPU
+   (SA mode "first" on both, f32) per pose within 1e-2 m in normalized
+   cell units (FINE_EVAL_LIMIT); fps, sa_train_fwd, sa_train_bwd,
+   sa_select_first, mha_addln and ffn_addln launched;
 9. train_vs_cpu: one coarse step (batch 8, dropout 0, no augmentation, f32)
    from the same seeded weights on the card and on the CPU: loss, every
    gradient leaf and the BN running statistics;
@@ -120,6 +132,7 @@ nothing of the JAX package.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -1406,65 +1419,297 @@ def _check_trained(model, before: dict, what: str) -> dict:
             "bn_stats_moved": len(moved)}
 
 
-def phase_train(dev, kernels) -> dict:
-    """train_coarse for 3 steps and 2 fine train steps at full width."""
+# NEIGHBOR_KEYS order: east, west, north, south, northeast, northwest,
+# southeast, southwest, as grid steps.
+_COMPASS = ((1, 0), (-1, 0), (0, 1), (0, -1), (1, 1), (-1, 1), (1, -1), (-1, -1))
+
+
+def _with_pmc(scene, seed: int):
+    """The scene with PMC tables: each cell's compass neighbours on make_scene's
+    grid, and seeded tables over them (half the (pose, neighbour) pairs
+    valid, random weights, random re-matched slots with misses)."""
+    import dataclasses
+    import math
+
+    rng = np.random.default_rng(seed)
+    c, n = scene.num_cells, scene.num_poses
+    grid = math.ceil(math.sqrt(c))
+    neighbors = np.full((c, 8), -1, np.int32)
+    for i in range(c):
+        for k, (dx, dy) in enumerate(_COMPASS):
+            x, y = i % grid + dx, i // grid + dy
+            if 0 <= x < grid and y >= 0 and y * grid + x < c:
+                neighbors[i, k] = y * grid + x
+    valid = (neighbors[scene.pose_cell_idx] >= 0) & (rng.random((n, 8)) < 0.5)
+    weight = np.where(valid, rng.uniform(0.5, 4.0, (n, 8)), 0.0).astype(np.float32)
+    match = rng.integers(-1, scene.obj_xyz.shape[1],
+                         (n, 8, scene.hint_obj_idx.shape[1])).astype(np.int32)
+    return dataclasses.replace(scene, cell_neighbors=neighbors, pmc_valid=valid,
+                               pmc_weight=weight, pmc_match=match)
+
+
+def _val_map(cfg, num_poses: int):
+    """_train_map's cells with poses of their own (a validation split)."""
+    from text2loc_tpu_torch.data.arrays import MultiSceneArrays
+    from text2loc_tpu_torch.data.synthetic import make_scene
+
+    m = cfg.model
+    return MultiSceneArrays([make_scene(
+        "0100", num_cells=32, num_poses=num_poses, object_slots=m.object_size,
+        num_points=m.pointnet.num_points, num_mentioned=m.num_mentioned, seed=SEED + 5,
+        pose_seed=SEED + 6)])
+
+
+def _host_copy(tree):
+    """A nested state dict with every tensor copied to the host."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, dict):
+        return {k: _host_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_host_copy(v) for v in tree)
+    return tree
+
+
+def _state_equal(a, b) -> bool:
+    """Nested state dicts equal bit for bit (tensors by torch.equal)."""
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(a.cpu(), b.cpu()))
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and set(a) == set(b)
+                and all(_state_equal(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (isinstance(b, (list, tuple)) and len(a) == len(b)
+                and all(_state_equal(x, y) for x, y in zip(a, b)))
+    return a == b
+
+
+# The fine evaluation's card-against-CPU limit: the serve's position limit,
+# 1e-2 m, in normalized cell units (make_scene's 30 m cells).
+FINE_EVAL_LIMIT = 1e-2 / 30.0
+
+
+def phase_train(dev, kernels, smi: str, others=(), absent=()) -> dict:
+    """Both trainers at full width (f32 body, batch 32, 96 poses):
+    train_coarse for one epoch (3 steps) with a validation split, one
+    retrieval eval and a checkpoint; train_fine for 2 epochs of 3 steps
+    with PMC tables (pmc_prob 0.5), eval_fine every epoch and checkpoints;
+    then train_fine with 3 epochs resumed from the checkpoint directory
+    (it continues after the last saved epoch: saves are gated on
+    improvement). `kernels` must launch, `absent` must not; the launches of
+    `others` are reported. The fine trainers' model and optimizer are
+    copied to the host at each save, and the resume's restore is held
+    against the copy of the last save. After the launches are read: the
+    best checkpoint against the copy of its save and against the resumed
+    run's returned best state (model, Adam, schedule bit for bit), a fresh
+    state restored from it, the resumed run's gate, and eval_fine on the
+    card against the CPU."""
+    import dataclasses
+    import tempfile
+
     from text2loc_tpu_torch.convert import build_model, init_weights
+    from text2loc_tpu_torch.data.arrays import MultiSceneArrays
     from text2loc_tpu_torch.models.text_embedding import HintTextEmbedder
+    from text2loc_tpu_torch.training import fine as fine_mod
     from text2loc_tpu_torch.training import steps as steps_lib
     from text2loc_tpu_torch.training.coarse import train_coarse
+    from text2loc_tpu_torch.utils.checkpoint import CheckpointManager
 
     cfg = _train_cfg(batch_size=32)
+    cfg_f = cfg.replace(train=dataclasses.replace(cfg.train, epochs=2, pmc_prob=0.5))
     data = _train_map(cfg, num_poses=96)
+    data_pmc = MultiSceneArrays([_with_pmc(data.scenes[0], SEED + 7)])
+    data_val = _val_map(cfg, num_poses=32)
     emb = HintTextEmbedder.compositional(cfg.model.text_embed_dim,
                                          cfg.model.max_hint_tokens)
     gen = torch.Generator().manual_seed(SEED + 2)
     coarse = init_weights(build_model(cfg, "coarse"), gen).to(dev)
     fine = init_weights(build_model(cfg, "fine"), gen).to(dev)
+    resumed = init_weights(build_model(cfg, "fine"), gen).to(dev)
     before_c, before_f = _snapshot(coarse), _snapshot(fine)
-    for k in kernels:
-        k.launches = 0
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _, history = train_coarse(cfg, data, emb, device=dev, model=coarse)
-    coarse_peak = torch.cuda.max_memory_allocated()
-    coarse_state = _check_trained(coarse, before_c, "coarse")
+    clones = []
 
-    torch.cuda.reset_peak_memory_stats()
-    opt = steps_lib.make_optimizer(fine.parameters(), cfg, steps_per_epoch=3)
-    step = steps_lib.make_fine_train_step(fine, emb, cfg, opt,
-                                          torch.Generator(device=dev).manual_seed(SEED))
-    fine_hist = []
-    for i in range(2):
-        batch = data.gather_fine(np.arange(32 * i, 32 * (i + 1)), cfg.model.pad_size)
+    def counting_pmc(d, idx, rng, prob):
+        cell_idx, hint_obj = sample_pmc(d, idx, rng, prob)
+        clones.append(int((cell_idx != d.pose_cell_idx[idx]).sum()))
+        return cell_idx, hint_obj
+
+    # The fine trainer's own model (`trained[0]`) and optimizer (made by
+    # make_fine_optimizer) copied to the host at each save that happens, and
+    # whether the resume's restore gave them the last save's copy.
+    trained, optimizers, saves, resume_restored = [fine], [], {}, []
+
+    def recording_optimizer(*args, **kw):
+        optimizers.append(make_fine_optimizer(*args, **kw))
+        return optimizers[-1]
+
+    def recording_save(self, step, state, metric):
+        if self.mode == "min" and self._is_better(metric):
+            saves[step] = _host_copy({"model": trained[0].state_dict(),
+                                      "adam": optimizers[-1].adam.state_dict(),
+                                      "schedule": optimizers[-1].schedule.state_dict()})
+        return save(self, step, state, metric)
+
+    def recording_restore(self, state_like=None, step=None):
+        out = restore(self, state_like, step)
+        if state_like is not None:
+            resume_restored.append(
+                _state_equal(_host_copy(state_like.state_dict()), saves[max(saves)]))
+        return out
+
+    sample_pmc, make_fine_optimizer = fine_mod.sample_pmc, steps_lib.make_fine_optimizer
+    save, restore = CheckpointManager.save, CheckpointManager.restore
+    workdir = tempfile.TemporaryDirectory(prefix="t2l_smoke_train_")
+    try:
+        fine_mod.sample_pmc = counting_pmc
+        steps_lib.make_fine_optimizer = recording_optimizer
+        CheckpointManager.save, CheckpointManager.restore = recording_save, recording_restore
+        try:
+            for k in (*kernels, *others, *absent):
+                k.launches = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            _, _, clog = train_coarse(cfg, data, data_val, emb, workdir=workdir.name,
+                                      device=dev, model=coarse)
+            coarse_s = time.perf_counter() - t0
+            coarse_peak = torch.cuda.max_memory_allocated()
+            coarse_state = _check_trained(coarse, before_c, "coarse")
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            best_state, _, flog = fine_mod.train_fine(cfg_f, data_pmc, data_val, emb,
+                                                      workdir=workdir.name, device=dev,
+                                                      model=fine)
+            fine_s = time.perf_counter() - t0
+            fine_peak = torch.cuda.max_memory_allocated()
+            fine_state = _check_trained(fine, before_f, "fine")
+            ckdir = f"{workdir.name}/fine_ckpt"
+            before_resume = CheckpointManager(ckdir, mode="min")
+            best_before, latest_before = before_resume.best_metric, before_resume.latest_step()
+            cfg_r = cfg_f.replace(train=dataclasses.replace(cfg_f.train, epochs=3))
+            trained[0] = resumed
+            t0 = time.perf_counter()
+            resumed_best, _, rlog = fine_mod.train_fine(cfg_r, data_pmc, data_val, emb,
+                                                        workdir=workdir.name, resume=True,
+                                                        device=dev, model=resumed)
+            resume_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            counts = {k.name: k.launches for k in (*kernels, *others, *absent)}
+        finally:
+            fine_mod.sample_pmc = sample_pmc
+            steps_lib.make_fine_optimizer = make_fine_optimizer
+            CheckpointManager.save, CheckpointManager.restore = save, restore
+
+        # The round trip: the best checkpoint on disk holds the trainer's
+        # model and optimizer as they were at its save, and the resumed
+        # run's best state; a fresh model and optimizer restored from it
+        # hold the same, bit for bit.
+        mgr = CheckpointManager(ckdir, mode="min")
+        saved_steps = sorted(os.listdir(ckdir))
+        last_saved = saves[mgr.latest_step()]
+        on_disk = mgr.restore()
+        fresh = init_weights(build_model(cfg, "fine"), gen).to(dev)
+        state = steps_lib.TrainState(fresh, steps_lib.make_fine_optimizer(
+            fresh.parameters(), cfg, steps_per_epoch=3))
         t0 = time.perf_counter()
-        m = step(batch)
-        fine_hist.append({"loss": float(m["loss"]), "pose_error": float(m["pose_error"]),
-                          "seconds": time.perf_counter() - t0})
-    fine_peak = torch.cuda.max_memory_allocated()
-    fine_state = _check_trained(fine, before_f, "fine")
-    counts = {k.name: k.launches for k in kernels}
-    losses = [h["loss"] for h in history] + [h["loss"] for h in fine_hist]
-    emit({"phase": "train", "config": "Config() f32 body", "poses": data.num_poses,
+        mgr.restore(state)
+        restore_s = time.perf_counter() - t0
+        round_trip = {"file_equals_saved": _state_equal(on_disk, last_saved),
+                      "file_equals_resumed_best": _state_equal(on_disk["model"],
+                                                               resumed_best),
+                      "restored_equals_saved": _state_equal(_host_copy(state.state_dict()),
+                                                            last_saved),
+                      "resume_restored_saved": resume_restored}
+        adam_steps = {float(v["step"]) for v in on_disk["adam"]["state"].values()}
+        schedule_pos = on_disk["schedule"]["last_epoch"]
+        latest_after, best_after = mgr.latest_step(), mgr.best_metric
+        with tempfile.TemporaryDirectory(prefix="t2l_smoke_ckpt_") as d:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            CheckpointManager(d, mode="min").save(0, state, 1.0)
+            save_s = time.perf_counter() - t0
+    finally:
+        workdir.cleanup()
+
+    # eval_fine of the best fine state on the card and on the CPU ("first"
+    # on both: the CPU runs its plain version), per pose and in the mean.
+    fresh.load_state_dict(best_state)
+    cpu_model = build_model(cfg, "fine")
+    cpu_model.load_state_dict(best_state)
+    fwd_card = steps_lib.make_fine_forward(fresh, emb, cfg)
+    fwd_cpu = steps_lib.make_fine_forward(cpu_model, emb, cfg)
+    batch = data_val.gather_fine(np.arange(data_val.num_poses), cfg.model.pad_size)
+    pos_err = float((fwd_card(batch).cpu() - fwd_cpu(batch)).abs().max())
+    err_card = fine_mod.eval_fine(data_val, fresh, emb, cfg, forward=fwd_card)
+    err_cpu = fine_mod.eval_fine(data_val, cpu_model, emb, cfg, forward=fwd_cpu)
+    eval_ms = cuda_ms(lambda: fine_mod.eval_fine(data_val, fresh, emb, cfg,
+                                                 forward=fwd_card), reps=5)
+
+    csteps, fsteps = clog.steps, flog.steps
+    # The gate: each resumed epoch saves only when it beats the best so
+    # far, which starts at the restored best.
+    resumed_epochs = list(range(latest_before + 1, 3))
+    best, last = best_before, latest_before
+    for epoch, val in zip(resumed_epochs, rlog.history["val_pose_error"]):
+        if val < best:
+            best, last = val, epoch
+    emit({"phase": "train", "card": smi, "config": "Config() f32 body",
+          "poses": data.num_poses, "val_poses": data_val.num_poses,
           "batch": cfg.train.batch_size, "pad_size": cfg.model.pad_size,
-          "coarse_steps": len(history),
-          "coarse_step_ms": [h["seconds"] * 1e3 for h in history],
-          "coarse_median_step_ms": statistics.median(h["seconds"] * 1e3 for h in history),
-          "coarse_losses": [h["loss"] for h in history],
+          "coarse_steps": len(csteps),
+          "coarse_step_ms": [h["seconds"] * 1e3 for h in csteps],
+          "coarse_median_step_ms": statistics.median(h["seconds"] * 1e3 for h in csteps),
+          "coarse_losses": [h["loss"] for h in csteps],
+          "coarse_val_acc": clog.history["val_acc"], "coarse_seconds": coarse_s,
           "coarse_peak_mem_gb": coarse_peak / 1e9, "coarse": coarse_state,
-          "fine_step_ms": [h["seconds"] * 1e3 for h in fine_hist],
-          "fine_median_step_ms": statistics.median(h["seconds"] * 1e3 for h in fine_hist),
-          "fine_losses": [h["loss"] for h in fine_hist],
-          "fine_pose_error": [h["pose_error"] for h in fine_hist],
-          "fine_peak_mem_gb": fine_peak / 1e9, "fine": fine_state, "launches": counts})
-    check(len(history) == 3, f"train_coarse took {len(history)} steps, not 3")
+          "fine_steps": len(fsteps), "fine_step_ms": [h["seconds"] * 1e3 for h in fsteps],
+          "fine_median_step_ms": statistics.median(h["seconds"] * 1e3 for h in fsteps),
+          "fine_losses": [h["loss"] for h in fsteps],
+          "fine_pose_error": flog.history["pose_error"],
+          "fine_val_pose_error": flog.history["val_pose_error"], "fine_seconds": fine_s,
+          "pmc_clones_per_batch": clones, "fine_peak_mem_gb": fine_peak / 1e9,
+          "fine": fine_state, "resume_seconds": resume_s,
+          "resume_from_epoch": latest_before, "resume_best_before": best_before,
+          "resume_epochs": rlog.epochs["loss"],
+          "resume_val_pose_error": rlog.history["val_pose_error"],
+          "checkpoint_steps": saved_steps,
+          "checkpoint_round_trip_bit_equal": round_trip,
+          "checkpoint_adam_steps": sorted(adam_steps), "checkpoint_schedule_pos": schedule_pos,
+          "checkpoint_save_ms": save_s * 1e3, "checkpoint_restore_ms": restore_s * 1e3,
+          "eval_fine_ms": eval_ms, "eval_fine_card": err_card, "eval_fine_cpu": err_cpu,
+          "eval_fine_max_pos_err": pos_err, "eval_fine_limit": FINE_EVAL_LIMIT,
+          "launches": counts})
+    losses = [h["loss"] for h in csteps + fsteps + rlog.steps]
+    check(len(csteps) == 3, f"train_coarse took {len(csteps)} steps, not 3")
+    check(len(fsteps) == 6 and len(rlog.steps) == 3 * len(resumed_epochs),
+          f"train_fine took {len(fsteps)} + {len(rlog.steps)} steps")
     check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
     check(coarse_state["sa_levels_with_grad"] == 3 and fine_state["sa_levels_with_grad"] == 3,
           "an SA level got no gradient")
-    check(all(v > 0 for v in counts.values()), f"a kernel never launched: {counts}")
+    check(len(clog.history["val_acc"]) == 1 and len(flog.history["val_pose_error"]) == 2,
+          "an evaluation during training did not run")
+    check(sum(clones) > 0, f"no PMC clone in {clones}")
+    check(list(rlog.epochs["loss"]) == resumed_epochs,
+          f"the resumed run trained {rlog.epochs['loss']}, not {resumed_epochs}")
+    check(all(v for k, v in round_trip.items() if k != "resume_restored_saved")
+          and resume_restored == [True],
+          f"the restored model / Adam / schedule state differs from the saved: {round_trip}")
+    check(adam_steps == {3.0 * (latest_after + 1)} and schedule_pos == 3 * (latest_after + 1),
+          f"the checkpoint of epoch {latest_after} holds Adam steps {adam_steps} and "
+          f"schedule position {schedule_pos}, not {3 * (latest_after + 1)}")
+    check(latest_after == last and best_after == best,
+          f"the resumed saves ignored the restored best {best_before}: last saved "
+          f"{latest_after} (expected {last}), best {best_after} (expected {best})")
+    check(pos_err <= FINE_EVAL_LIMIT and abs(err_card - err_cpu) <= FINE_EVAL_LIMIT,
+          f"eval_fine differs between the card and the CPU: {pos_err}, "
+          f"{err_card} / {err_cpu}")
+    check(all(counts[k.name] > 0 for k in kernels), f"a kernel never launched: {counts}")
+    _check_absent(counts, absent, "train")
     return counts, {
-        "coarse_median_step_ms": statistics.median(h["seconds"] * 1e3 for h in history),
+        "coarse_median_step_ms": statistics.median(h["seconds"] * 1e3 for h in csteps),
         "coarse_peak_mem_gb": coarse_peak / 1e9,
-        "fine_median_step_ms": statistics.median(h["seconds"] * 1e3 for h in fine_hist),
+        "fine_median_step_ms": statistics.median(h["seconds"] * 1e3 for h in fsteps),
         "fine_peak_mem_gb": fine_peak / 1e9}
 
 
@@ -1496,7 +1741,8 @@ def phase_train_optin(dev, kernels, f32_default: dict) -> dict:
         k.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    _, history = train_coarse(cfg_b, data, emb, device=dev, model=coarse)
+    _, _, logger = train_coarse(cfg_b, data, None, emb, device=dev, model=coarse)
+    history = logger.steps
     coarse_peak = torch.cuda.max_memory_allocated()
     coarse_state = _check_trained(coarse, before_c, "coarse optin")
     torch.cuda.reset_peak_memory_stats()
@@ -1637,7 +1883,8 @@ def main() -> int:
     optin = [cuda_ln.KERNEL, cuda_gather.KERNEL, cuda_ffn.KERNEL_TILED]
     serve_kernels = [cuda_fps.KERNEL, cuda_pointconv.KERNEL_FIRST, cuda_mha.KERNEL,
                      cuda_mha.KERNEL_TILED, cuda_ffn.KERNEL]
-    train_kernels = [cuda_fps.KERNEL, cuda_sa_train.KERNEL_FWD, cuda_sa_train.KERNEL_BWD]
+    train_kernels = [cuda_fps.KERNEL, cuda_sa_train.KERNEL_FWD, cuda_sa_train.KERNEL_BWD,
+                     cuda_pointconv.KERNEL_FIRST, cuda_mha.KERNEL, cuda_ffn.KERNEL]
     pipeline_kernels = [cuda_fps.KERNEL, *cuda_pointconv.KERNELS, cuda_mha.KERNEL,
                         cuda_mha.KERNEL_TILED, cuda_ffn.KERNEL]
     train_optin_kernels = [cuda_fps.KERNEL, cuda_sa_train.KERNEL_FWD,
@@ -1653,7 +1900,10 @@ def main() -> int:
     phase_serve_vs_cpu(dev)
     counts.append(phase_pipeline(dev, pipeline_kernels, absent=optin))
     phase_pipeline_vs_cpu(dev)
-    train_counts, f32_default = phase_train(dev, train_kernels)
+    train_counts, f32_default = phase_train(
+        dev, train_kernels, smi, absent=optin,
+        others=[cuda_mha.KERNEL_TILED, *cuda_pointconv.KERNELS[1:], cuda_gather.KERNEL_SCATTER,
+                cuda_sa_train.KERNEL_E_FWD, cuda_sa_train.KERNEL_E_BWD])
     counts.append(train_counts)
     phase_train_vs_cpu(dev)
     counts.append(phase_pipeline_optin(dev, pipeline_kernels + optin))
@@ -1663,7 +1913,7 @@ def main() -> int:
     counts.append(phase_train_optin(dev, train_optin_kernels, f32_default))
     phase_train_vs_cpu(dev, fused_train=("e", "e", "e"), phase="train_optin_vs_cpu",
                        grad_cos=ECACHE_GRAD_COS, control=ECACHE_CONTROL)
-    kernels = (serve_kernels + train_kernels[1:] + list(cuda_pointconv.KERNELS[1:])
+    kernels = (serve_kernels + train_kernels[1:3] + list(cuda_pointconv.KERNELS[1:])
                + optin + [cuda_gather.KERNEL_SCATTER, cuda_sa_train.KERNEL_E_FWD,
                           cuda_sa_train.KERNEL_E_BWD])
     launches = {k.name: sum(c.get(k.name, 0) for c in counts) for k in kernels}

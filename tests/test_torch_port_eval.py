@@ -231,7 +231,7 @@ def test_main_pipeline_runs_fused_modes(mode):
         assert all(0.0 <= v <= 1.0 for v in row.values())
 
 
-@pytest.mark.parametrize("flag", [["--coarse_ckpt", "x"], ["--base_path", "x"],
+@pytest.mark.parametrize("flag", [["--t5_snapshot", "x"], ["--base_path", "x"],
                                   ["--styled_hints"], ["--plot_retrievals", "x.png"]])
 def test_cli_flags_the_port_lacks_raise(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -322,7 +322,8 @@ def test_train_coarse_takes_steps_on_the_cpu():
                                          cfg.model.max_hint_tokens)
     model = build_model(cfg, "coarse")
     before = {k: v.detach().clone() for k, v in model.named_parameters()}
-    model, history = train_coarse(cfg, data, emb, device="cpu", model=model)
+    _, model, logger = train_coarse(cfg, data, None, emb, device="cpu", model=model)
+    history = logger.steps
     assert [h["step"] for h in history] == [0, 1]
     assert all(np.isfinite(h["loss"]) for h in history)
     sa = "object_encoder.pointnet.sa1.dense_1.weight"

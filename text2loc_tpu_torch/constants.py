@@ -1,7 +1,7 @@
 """Dataset constants for KITTI360Pose (the port's own copy of the parts of
 text2loc_tpu/constants.py that the port uses: the class and colour
 vocabularies, the direction vocabulary with its flip tables, the point-count
-standardization and the hint-id arithmetic). The values are the reference's
+standardization, the PMC neighbour order and the hint-id arithmetic). The values are the reference's
 public dataset constants; the two copies must stay equal
 (tests/test_torch_port_data.py checks that they do)."""
 
@@ -105,6 +105,13 @@ DIRECTION_H_FLIP = np.array(
 )
 DIRECTION_V_FLIP = np.array(
     [DIRECTION_TO_INDEX[_V_FLIP.get(d, d)] for d in DIRECTIONS], dtype=np.int32
+)
+
+# Compass neighbour-slot order of the PMC tables ([C, 8] cell_neighbors,
+# [N, 8] pmc_valid / pmc_weight, [N, 8, S] pmc_match).
+NEIGHBOR_KEYS = (
+    "east", "west", "north", "south",
+    "northeast", "northwest", "southeast", "southwest",
 )
 
 # Standardization of the point-count ("num") feature.

@@ -1,6 +1,7 @@
 """Scene data as fixed-shape numpy arrays (the port's own copy of
-text2loc_tpu/data/arrays.py: SceneArrays, fill_padding_slots and the batch
-gathers of MultiSceneArrays that the port's serve and trainers call).
+text2loc_tpu/data/arrays.py: SceneArrays with its PMC fields,
+fill_padding_slots and the batch gathers of MultiSceneArrays that the
+port's serve and trainers call).
 
 Shapes: C cells, O object slots per cell, P stored points per object,
 N poses, S hints per pose. Padding object slots carry the reference's
@@ -44,6 +45,14 @@ class SceneArrays:
     offset_closest: np.ndarray   # [N, S, 2]
     best_offset_center: np.ndarray   # [N, S, 2]
     best_offset_closest: np.ndarray  # [N, S, 2]
+    # PMC: the compass neighbour table ([C, 8] scene-local cell indices in
+    # constants.NEIGHBOR_KEYS order, -1 = none) and the precomputed tables
+    # of data/pmc.py; axis 1 indexes the 8 neighbour slots of the pose's
+    # best cell. None: no PMC.
+    cell_neighbors: Optional[np.ndarray] = None
+    pmc_valid: Optional[np.ndarray] = None   # [N, 8] bool: clone candidate ok
+    pmc_weight: Optional[np.ndarray] = None  # [N, 8] f32: 1/dist^2 sampling weight
+    pmc_match: Optional[np.ndarray] = None   # [N, 8, S] int32: re-matched slots, -1
     hint_mask: Optional[np.ndarray] = None   # [N, S] bool; None = all real
 
     def __post_init__(self):
@@ -124,6 +133,18 @@ class MultiSceneArrays:
             [np.full(s.num_poses, si, np.int32) for si, s in enumerate(self.scenes)])
         for name in _POSE_FIELDS:
             setattr(self, name, cat(name))
+        # PMC: the neighbour table re-based to global cell indices; the
+        # tables' slots are cell-local and need no re-basing.
+        self.cell_neighbors = None
+        if all(s.cell_neighbors is not None for s in self.scenes):
+            self.cell_neighbors = np.concatenate([
+                np.where(s.cell_neighbors >= 0, s.cell_neighbors + offsets[si], -1)
+                for si, s in enumerate(self.scenes)], axis=0).astype(np.int32)
+        self.pmc_valid = self.pmc_weight = self.pmc_match = None
+        if all(s.pmc_valid is not None for s in self.scenes):
+            self.pmc_valid = cat("pmc_valid")
+            self.pmc_weight = cat("pmc_weight")
+            self.pmc_match = cat("pmc_match")
 
     @property
     def num_cells(self) -> int:

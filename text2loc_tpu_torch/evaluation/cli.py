@@ -7,7 +7,8 @@ main_pipeline, main_coarse) with the JAX package's flags and --device.
 Weights: a reference-layout .pth per tower (--coarse_torch_ckpt,
 --fine_torch_ckpt), loaded with strict=False semantics; what a checkpoint
 lacks keeps the port's seeded random initialization (convert.init_weights,
-seed 0). The flags of paths the port does not have yet raise an error that
+seed 0). --coarse_ckpt / --fine_ckpt load the best checkpoint of the port's
+trainers (utils/checkpoint.py; not the JAX package's Orbax files). The flags of paths the port does not have yet raise an error that
 names the ROADMAP item they wait for; none is ignored.
 """
 
@@ -22,8 +23,6 @@ from text2loc_tpu_torch.config import Config
 
 # Flag -> the ROADMAP item the port's support of it waits for.
 _NOT_PORTED = {
-    "coarse_ckpt": "Orbax checkpoints (ROADMAP Queue 1 item 3)",
-    "fine_ckpt": "Orbax checkpoints (ROADMAP Queue 1 item 3)",
     "base_path": "a port copy of data/ingest.py (ROADMAP Queue 1 item 4)",
     "array_cache": "a port copy of data/ingest.py (ROADMAP Queue 1 item 4)",
     "use_test_set": "a port copy of data/ingest.py (ROADMAP Queue 1 item 4)",
@@ -40,8 +39,11 @@ def build_argparser():
                     help="torch device; 'cpu' runs the kernels' plain versions")
     ap.add_argument("--base_path", default=None)
     ap.add_argument("--array_cache", default=None)
-    ap.add_argument("--coarse_ckpt", default=None)
-    ap.add_argument("--fine_ckpt", default=None)
+    ap.add_argument("--coarse_ckpt", default=None,
+                    help="the port's coarse checkpoint directory "
+                         "(<workdir>/coarse_ckpt of the coarse trainer)")
+    ap.add_argument("--fine_ckpt", default=None,
+                    help="the port's fine checkpoint directory (<workdir>/fine_ckpt)")
     ap.add_argument("--coarse_torch_ckpt", default=None,
                     help="reference-layout coarse .pth")
     ap.add_argument("--fine_torch_ckpt", default=None,
@@ -121,10 +123,14 @@ def _sa_mode(args, device) -> str:
 def _model(cfg, kind, args, path, gen):
     from text2loc_tpu_torch.convert import build_model, init_weights
     from text2loc_tpu_torch.torch_checkpoint import load_reference_checkpoint
+    from text2loc_tpu_torch.utils.checkpoint import load_model_state
 
     model = init_weights(build_model(cfg, kind, sa_mode=_sa_mode(args, args.device)), gen)
     if path:
         load_reference_checkpoint(model, path, cfg.model, kind)
+    ckpt = args.coarse_ckpt if kind == "coarse" else args.fine_ckpt
+    if ckpt:
+        load_model_state(model, ckpt)
     return model
 
 

@@ -311,3 +311,28 @@ def load_reference_checkpoint(model: torch.nn.Module, path: str, cfg, kind: str)
                          f"{extra[:5]}, shape {bad[:5]}")
     model.load_state_dict(state, strict=False)
     return model
+
+
+def load_pretrained_pointnet(model: torch.nn.Module, path: str) -> torch.nn.Module:
+    """Graft a reference-layout PointNet checkpoint (the published
+    pointnet_acc0.86_lr1_p256.pth layout) into a tower's
+    object_encoder.pointnet, parameters and BatchNorm running statistics
+    (port of text2loc_tpu/models/torch_convert.py:load_pretrained_pointnet);
+    every other entry of `model` keeps its value. Returns the model."""
+    from text2loc_tpu_torch.convert import convert_tree
+
+    sd = to_numpy(torch.load(path, map_location="cpu", weights_only=True))
+    params, stats = convert_pointnet_checkpoint(sd)
+    state = {f"object_encoder.pointnet.{k}": v
+             for k, v in convert_tree(params, stats).items()}
+    own = model.state_dict()
+    extra = sorted(set(state) - set(own))
+    bad = sorted(k for k in set(state) & set(own)
+                 if tuple(state[k].shape) != tuple(own[k].shape))
+    missing = sorted(k for k in own
+                     if k.startswith("object_encoder.pointnet.") and k not in state)
+    if extra or bad or missing:
+        raise ValueError(f"{path}: does not fit the tower's PointNet: extra {extra[:5]}, "
+                         f"shape {bad[:5]}, missing {missing[:5]}")
+    model.load_state_dict(state, strict=False)
+    return model

@@ -1,1 +1,2 @@
-"""Training: the train steps of both stages and the coarse trainer."""
+"""Training: the train steps of both stages and both trainers with their
+CLIs (coarse.py, fine.py)."""

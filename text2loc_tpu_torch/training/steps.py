@@ -1,7 +1,9 @@
 """Train steps of both stages (port of text2loc_tpu/training/steps.py):
 batch preparation with on-device augmentation, the frozen-text lookup, both
 towers' training forward, the loss, the backward and one Adam update, as
-one plain Python function per step.
+one plain Python function per step; the fine stage's warm-up optimizer
+(the JAX training/fine.py's make_fine_optimizer), its eval forward, and
+TrainState, what a checkpoint holds.
 
 The model is in training mode (module.train()): every SA level whose
 fused_train token is not "0" runs ops/sa_train.py (the CUDA kernels on the
@@ -39,6 +41,25 @@ class Optimizer(NamedTuple):
         self.schedule.step()
 
 
+class TrainState(NamedTuple):
+    """What a checkpoint holds of a trainer: the model (parameters and
+    BatchNorm running statistics) and its optimizer (Adam's moments and
+    step counts, the schedule's position)."""
+
+    model: torch.nn.Module
+    optimizer: Optimizer
+
+    def state_dict(self) -> dict:
+        return {"model": self.model.state_dict(),
+                "adam": self.optimizer.adam.state_dict(),
+                "schedule": self.optimizer.schedule.state_dict()}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.model.load_state_dict(state["model"])
+        self.optimizer.adam.load_state_dict(state["adam"])
+        self.optimizer.schedule.load_state_dict(state["schedule"])
+
+
 def make_lr_schedule(cfg, steps_per_epoch: int) -> Callable[[int], float]:
     """Factor of the base learning rate at update i: a staircase decay by
     lr_gamma per epoch ("exponential") or per lr_step epochs ("step")."""
@@ -60,6 +81,25 @@ def make_optimizer(params, cfg, steps_per_epoch: int, lr=None) -> Optimizer:
     adam = torch.optim.Adam(params, lr=base, betas=(0.9, 0.999), eps=1e-8)
     factor = make_lr_schedule(cfg, steps_per_epoch) if lr is None else (lambda i: 1.0)
     return Optimizer(adam, torch.optim.lr_scheduler.LambdaLR(adam, factor))
+
+
+def make_fine_optimizer(params, cfg, steps_per_epoch: int) -> Optimizer:
+    """Adam for the fine stage: the constant cfg.train.warmup_lr for
+    warmup_epochs x steps_per_epoch updates, then the staircase schedule
+    counted from that boundary (optax.join_schedules' count); without a
+    warm-up, make_optimizer. The schedule gives the learning rate itself
+    (Adam's base rate is 1), so every rate is the schedule's value."""
+    t = cfg.train
+    warm = t.warmup_epochs * steps_per_epoch
+    if warm <= 0:
+        return make_optimizer(params, cfg, steps_per_epoch)
+    main = make_lr_schedule(cfg, steps_per_epoch)
+    adam = torch.optim.Adam(params, lr=1.0, betas=(0.9, 0.999), eps=1e-8)
+
+    def rate(i):
+        return t.warmup_lr if i < warm else t.learning_rate * main(i - warm)
+
+    return Optimizer(adam, torch.optim.lr_scheduler.LambdaLR(adam, rate))
 
 
 # What the JAX package's TEXT2LOC_FUSED_SA_TRAIN "auto" resolves to per
@@ -198,3 +238,18 @@ def make_fine_train_step(model, embedder, cfg, optimizer: Optimizer,
                 "pose_error": losses.pose_error(pred.detach(), fb.target)}
 
     return step
+
+
+def make_fine_forward(model, embedder, cfg) -> Callable:
+    """forward(host batch of gather_fine) -> [B, 2] positions: the fine
+    model in eval mode (BN running statistics, no dropout), no gradients."""
+    device = _device(model)
+    embedder = embedder.to(device)
+
+    @torch.no_grad()
+    def forward(batch: dict) -> torch.Tensor:
+        model.eval()
+        fb = prepare_fine_batch(to_device(batch, device), embedder, cfg, None, train=False)
+        return model(fb.objects, fb.text)
+
+    return forward
