@@ -52,8 +52,9 @@ toolkit. Phases, each printing one JSON line:
    count during the build and the queries must be > 0 (mha_addln and
    mha_addln_tiled among them; ffn_addln_tiled launches 0 times);
 5. serve_vs_cpu: the same weights in f32 on the card and on the CPU (plain
-   versions) over an 8-cell map: equal top-1 cells where the top-1/top-2
-   score margin exceeds 1e-4, positions within 1e-2 m;
+   versions) over an 8-cell map, by path (the cached serve, the stepwise
+   path precompute_fine=False, localize_embedded): equal top-1 cells where
+   the top-1/top-2 score margin exceeds 1e-4, positions within 1e-2 m;
 6. pipeline: run_pipeline (coarse retrieval, fine refinement, the two
    tables) at full Config() width (bf16) over the 64-cell map, once per
    mode of scripts/validate_kernels.py's sweep table: wall seconds,
@@ -106,7 +107,26 @@ toolkit. Phases, each printing one JSON line:
 13. train_optin_vs_cpu: one f32 coarse step with ("e","e","e"), card
    against CPU, with phase 9's criteria except the gradients: each leaf's
    cosine above 0.99 (ECACHE_GRAD_COS says why), and a control card step
-   with ("e32","e32","e32") must fail that limit against the CPU's step.
+   with ("e32","e32","e32") must fail that limit against the CPU's step;
+14. serve_paths: serving a map of the published schema at Config() width
+   (bf16), seeded random weights: a 16-cell, 48-pose scene pickled under
+   the reference's module path with its compass neighbour map, converted
+   by data/ingest.load_dataset into an npz cache, and converted again from
+   the npz alone (no pickle read; every array equal); a Localizer with
+   cache_path, then a second one from the file (no fps or sa_select_first
+   launch, results bit-equal) and a file with another digest refused; the
+   stepwise path (precompute_fine=False) at batches 1 and 8 against the
+   cached serve (top-1 where the margin exceeds 1e-4, positions within
+   1e-2 m), its queries launching fps, sa_select_first, mha_addln,
+   mha_addln_tiled and ffn_addln; localize_embedded of the embedder's own
+   token embeddings against localize (the same criteria) and
+   localize_text of rendered descriptions equal to localize bit for bit;
+   64 POSTs from 8 threads (hints and descriptions in turn) through
+   LocalizationServer over a BatchingFrontend, each answer against the
+   single-query localize (the same criteria), p50 / p99 and the mean group
+   size; build seconds with and without the cache, the median ms a batch
+   of each path and the phase's seconds, on a line with the card's name
+   and power limit.
 
 Phase 3 also holds the opt-in kernels against their plain versions: add_ln
 at the E=1024 trunk's rows and at D=128/256 (bf16, f32), gather_rows at the
@@ -119,7 +139,7 @@ step's three levels (f32, bf16), with the time of one PyTorch call that
 computes the same function where there is one (library_ms).
 
 Then the kernels line (launches: the counts during phases 4, 6, 8, 10
-(serve_optin too) and 12, each path's counts set to 0 just before it;
+(serve_optin too), 12 and 14, each path's counts set to 0 just before it;
 max_abs_err, ms, plain_ms, bound_ms and library_ms: over the inference
 kernels' bf16 cases of phase 3 (sa_gather's approximate ball query cases),
 FPS's f32 case, the training kernels' f32 cases, the "e" kernels' bf16
@@ -1106,13 +1126,30 @@ def phase_serve(dev, kernels, absent=(), options=None, phase="serve") -> dict:
     return counts
 
 
+def _top1_agreement(got, want) -> tuple:
+    """(rows compared, top-1 equal, max position error in m over the rows
+    with the same top-1): rows whose top-1/top-2 margin in `want` exceeds
+    1e-4 are compared."""
+    margin = want.scores[:, 0] - want.scores[:, 1]
+    sure = margin > 1e-4
+    top1_equal = bool((got.cell_indices[sure, 0] == want.cell_indices[sure, 0]).all())
+    same = sure & (got.cell_indices[:, 0] == want.cell_indices[:, 0])
+    pos_err = (float(np.abs(got.position_w[same] - want.position_w[same]).max())
+               if same.any() else float("inf"))
+    return int(sure.sum()), top1_equal, pos_err
+
+
 def phase_serve_vs_cpu(dev) -> None:
+    """The f32 serve on the card and on the CPU over an 8-cell map, by path:
+    the cached serve (localize), the stepwise path (precompute_fine=False)
+    and localize_embedded of the embedder's own token embeddings."""
     import dataclasses
 
     from text2loc_tpu_torch.config import Config
     from text2loc_tpu_torch.models.text_embedding import HintTextEmbedder
     from text2loc_tpu_torch.serving import Localizer
 
+    t_phase = time.perf_counter()
     base = Config()
     cfg = base.replace(model=dataclasses.replace(base.model, dtype="float32"))
     data = _map(1, 8, cfg)
@@ -1120,25 +1157,33 @@ def phase_serve_vs_cpu(dev) -> None:
                                          cfg.model.max_hint_tokens)
     q = np.arange(16) % data.num_poses
     args = (data.hint_dir[q], data.hint_color[q], data.hint_label[q], data.hint_mask[q])
+    text = emb.embed(*args)
+    embedded = (text.token_embeds.numpy(), text.token_mask.numpy(),
+                text.sentence_mask.numpy())
     results = {}
     for where in ("cuda", "cpu"):
         coarse, fine = _models(cfg, torch.Generator().manual_seed(SEED + 1))
-        loc = Localizer(data, coarse, fine, emb, cfg, top_k=5,
-                        device=dev if where == "cuda" else "cpu")
-        results[where] = loc.localize(*args)
-    gpu, cpu = results["cuda"], results["cpu"]
-    margin = cpu.scores[:, 0] - cpu.scores[:, 1]
-    sure = margin > 1e-4
-    top1_equal = bool((gpu.cell_indices[sure, 0] == cpu.cell_indices[sure, 0]).all())
-    same = sure & (gpu.cell_indices[:, 0] == cpu.cell_indices[:, 0])
-    pos_err = float(np.abs(gpu.position_w[same] - cpu.position_w[same]).max())
-    emit({"phase": "serve_vs_cpu", "cells": data.num_cells, "queries": len(q),
-          "compared": int(sure.sum()), "top1_equal": top1_equal,
-          "max_pos_err_m": pos_err,
-          "max_score_err": float(np.abs(gpu.scores - cpu.scores).max())})
-    check(top1_equal, "top-1 cell differs between the card and the CPU")
-    check(int(same.sum()) > 0 and pos_err <= 1e-2,
-          f"positions differ by {pos_err} m between the card and the CPU")
+        device = dev if where == "cuda" else "cpu"
+        loc = Localizer(data, coarse, fine, emb, cfg, top_k=5, device=device)
+        step = Localizer(data, coarse, fine, emb, cfg, top_k=5, device=device,
+                         precompute_fine=False)
+        results[where] = {"cached": loc.localize(*args), "stepwise": step.localize(*args),
+                          "embedded": loc.localize_embedded(*embedded)}
+    report = {"phase": "serve_vs_cpu", "cells": data.num_cells, "queries": len(q)}
+    for path, cpu in results["cpu"].items():
+        gpu = results["cuda"][path]
+        compared, top1_equal, pos_err = _top1_agreement(gpu, cpu)
+        report[path] = {"compared": compared, "top1_equal": top1_equal,
+                        "max_pos_err_m": pos_err,
+                        "max_score_err": float(np.abs(gpu.scores - cpu.scores).max())}
+    report["seconds"] = time.perf_counter() - t_phase
+    emit(report)
+    for path in results["cpu"]:
+        r = report[path]
+        check(r["top1_equal"], f"{path}: top-1 cell differs between the card and the CPU")
+        check(r["max_pos_err_m"] <= 1e-2,
+              f"{path}: positions differ by {r['max_pos_err_m']} m between the card "
+              "and the CPU")
 
 
 # ----------------------------------------------------------------- pipeline
@@ -1872,6 +1917,336 @@ def phase_train_vs_cpu(dev, fused_train=None, phase="train_vs_cpu", grad_cos=Non
         check(bool(x_bad), f"the gradient criterion does not reject the control {control}")
 
 
+# -------------------------------------------------------------- serve paths
+
+KITTI_SCENE = "2013_05_28_drive_0010_sync"   # the val split's one scene
+REFERENCE_MODULE = "datapreparation.kitti360pose.imports"
+
+
+def _write_kitti_scene(base: str, name: str, seed: int, grid: int = 4,
+                       num_poses: int = 48) -> None:
+    """One scene of the published schema under `base`: grid x grid 30 m
+    cells of 8-14 objects (64-599 points each), `num_poses` poses of six
+    hints (every third unmatched), pickled under the reference's module path
+    as the published pickles are, and the compass neighbour map in
+    direction/<name>.json."""
+    import pickle
+    import types
+
+    from text2loc_tpu_torch import constants as C
+    from text2loc_tpu_torch.data import structs as S
+
+    rng = np.random.default_rng(seed)
+    labels = [c for c in C.CLASS_TO_INDEX if c != "pad"]
+    cells = []
+    for i in range(grid * grid):
+        x, y = 30.0 * (i % grid), 30.0 * (i // grid)
+        objs = []
+        for j in range(int(rng.integers(8, 15))):
+            n = int(rng.integers(64, 600))
+            objs.append(S.Object3d(j, 1000 * i + j, rng.random((n, 3)).astype(np.float32),
+                                   rng.random((n, 3)).astype(np.float32),
+                                   labels[int(rng.integers(len(labels)))]))
+        cells.append(S.Cell(i, name, objs, 30.0, np.array([x, y, 0.0, x + 30, y + 30, 30])))
+    poses = []
+    for _ in range(num_poses):
+        cell = cells[int(rng.integers(len(cells)))]
+        pose_in_cell = rng.uniform(0.1, 0.9, 2)
+        pose3 = np.r_[pose_in_cell, 0.0]
+        descrs = []
+        for s in range(6):
+            obj = cell.objects[int(rng.integers(len(cell.objects)))]
+            d = S.DescriptionPoseCell()
+            d.object_id, d.object_instance_id, d.object_label = obj.id, obj.instance_id, obj.label
+            d.object_color_rgb, d.object_color_text = obj.get_color_rgb(), obj.get_color_text()
+            d.direction = C.DIRECTIONS[int(rng.integers(C.NUM_DIRECTIONS))]
+            closest = obj.get_closest_point(pose3)
+            d.offset_center = (pose3 - obj.get_center())[:2]
+            d.offset_closest = (pose3 - closest)[:2]
+            d.closest_point = closest[:2]
+            descrs.append(S.DescriptionBestCell.unmatched(d) if s % 3 == 2 else
+                          S.DescriptionBestCell.matched(d, obj.id, closest, d.offset_center,
+                                                        d.offset_closest))
+        poses.append(S.Pose(pose_in_cell, cell.bbox_w[:3] + np.r_[pose_in_cell * 30.0, 0.0],
+                            cell.id, name, descrs))
+    # Pickle under the reference's module path (pickle checks that the
+    # module imports, so stub modules stand in while it writes).
+    classes = (S.Object3d, S.DescriptionPoseCell, S.DescriptionBestCell, S.Pose, S.Cell)
+    own = [c.__module__ for c in classes]
+    parts = REFERENCE_MODULE.split(".")
+    stubs = {".".join(parts[:i + 1]): types.ModuleType(".".join(parts[:i + 1]))
+             for i in range(len(parts))}
+    for c in classes:
+        c.__module__ = REFERENCE_MODULE
+        setattr(stubs[REFERENCE_MODULE], c.__name__, c)
+    sys.modules.update(stubs)
+    try:
+        for kind, obj in (("cells", cells), ("poses", poses)):
+            os.makedirs(os.path.join(base, kind), exist_ok=True)
+            with open(os.path.join(base, kind, f"{name}.pkl"), "wb") as f:
+                pickle.dump(obj, f)
+    finally:
+        for c, m in zip(classes, own):
+            c.__module__ = m
+        for mod in stubs:
+            sys.modules.pop(mod, None)
+    neighbors = {}
+    for i, cell in enumerate(cells):
+        gx, gy = i % grid, i // grid
+        neighbors[cell.id] = {
+            key: (cells[(gy + dy) * grid + gx + dx].id
+                  if 0 <= gx + dx < grid and 0 <= gy + dy < grid else None)
+            for key, (dx, dy) in zip(C.NEIGHBOR_KEYS, _COMPASS)}
+    os.makedirs(os.path.join(base, "direction"), exist_ok=True)
+    with open(os.path.join(base, "direction", f"{name}.json"), "w") as f:
+        json.dump(neighbors, f)
+
+
+def _median_ms(fn, reps: int = 10) -> float:
+    """Median host milliseconds of fn() (a serve call, which ends in a copy
+    to the host), after a warm-up call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def _same_result(a, b) -> bool:
+    return all(np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def _http(addr, path, payload=None):
+    import urllib.request
+
+    host, port = addr
+    req = urllib.request.Request(
+        f"http://{host}:{port}{path}",
+        data=None if payload is None else json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return r.status, json.loads(r.read())
+
+
+def _http_phase(loc, data, report) -> None:
+    """64 POSTs from 8 threads, hint triples and descriptions in turn,
+    through LocalizationServer over a BatchingFrontend: each answer against
+    the direct single-query localize (top-1 where the margin exceeds 1e-4,
+    positions within 1e-2 m), client latency p50 / p99, and the mean group
+    size from /stats."""
+    import threading
+
+    from text2loc_tpu_torch.serving import LocalizationResult
+    from text2loc_tpu_torch.serving_frontend import BatchingFrontend
+    from text2loc_tpu_torch.serving_http import LocalizationServer
+    from text2loc_tpu_torch.text import render_description
+
+    n, threads = 64, 8
+    poses = np.arange(n) % data.num_poses
+    latency, answers, errors = [0.0] * n, [None] * n, []
+    with LocalizationServer(BatchingFrontend(loc, max_batch=16, max_wait_s=0.002),
+                            port=0) as srv:
+        check(_http(srv.address, "/healthz") == (200, {"ok": True}), "/healthz")
+
+        def client(t):
+            try:
+                for i in range(t, n, threads):
+                    p = poses[i]
+                    payload = ({"hints": {"dir": data.hint_dir[p].tolist(),
+                                          "color": data.hint_color[p].tolist(),
+                                          "label": data.hint_label[p].tolist(),
+                                          "mask": data.hint_mask[p].tolist()}}
+                               if i % 2 == 0 else
+                               {"description": render_description(
+                                   data.hint_dir[p], data.hint_color[p],
+                                   data.hint_label[p], data.hint_mask[p])})
+                    t0 = time.perf_counter()
+                    status, out = _http(srv.address, "/localize", payload)
+                    latency[i] = (time.perf_counter() - t0) * 1e3
+                    check(status == 200, f"POST /localize: {status} {out}")
+                    answers[i] = out
+            except Exception as e:  # noqa: BLE001  every client's failure is reported
+                errors.append(repr(e))
+
+        workers = [threading.Thread(target=client, args=(t,)) for t in range(threads)]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(300)
+        check(not any(w.is_alive() for w in workers), "an HTTP client hung")
+        check(not errors, f"HTTP clients failed: {errors[:3]}")
+        _, stats = _http(srv.address, "/stats")
+    got = LocalizationResult(
+        position_w=np.array([a["position"] for a in answers], np.float32),
+        candidates_w=np.array([a["candidates"] for a in answers], np.float32),
+        cell_indices=np.array([a["cells"] for a in answers]),
+        scores=np.array([a["scores"] for a in answers], np.float32))
+    solo = [loc.localize(data.hint_dir[p:p + 1], data.hint_color[p:p + 1],
+                         data.hint_label[p:p + 1], data.hint_mask[p:p + 1]) for p in poses]
+    want = LocalizationResult(*(np.concatenate([getattr(r, f) for r in solo])
+                                for f in LocalizationResult._fields))
+    compared, top1_equal, pos_err = _top1_agreement(got, want)
+    report["http"] = {
+        "requests": n, "threads": threads, "p50_ms": float(np.percentile(latency, 50)),
+        "p99_ms": float(np.percentile(latency, 99)),
+        "mean_group_size": stats["mean_group_size"], "dispatches": stats["dispatches"],
+        "compared": compared, "top1_equal": top1_equal, "max_pos_err_m": pos_err,
+        "bit_equal": int(sum(np.array_equal(got.candidates_w[i], want.candidates_w[i])
+                             and np.array_equal(got.cell_indices[i], want.cell_indices[i])
+                             for i in range(n)))}
+    check(stats["requests"] == n, f"/stats counts {stats['requests']} requests")
+    check(top1_equal and pos_err <= 1e-2,
+          f"HTTP answers differ from localize: {report['http']}")
+
+
+def phase_serve_paths(dev, kernels, smi: str, absent=()) -> dict:
+    """Serving a real-schema map: ingest, the persisted cache, the stepwise,
+    embedded and text paths and the HTTP server, at Config() width (bf16)
+    with seeded random weights. Returns the phase's launches."""
+    import dataclasses
+    import tempfile
+    from unittest import mock
+
+    from text2loc_tpu_torch.config import Config
+    from text2loc_tpu_torch.data import ingest
+    from text2loc_tpu_torch.models.text_embedding import HintTextEmbedder
+    from text2loc_tpu_torch.ops import cuda_fps, cuda_pointconv
+    from text2loc_tpu_torch.serving import Localizer
+    from text2loc_tpu_torch.text import render_description
+
+    t_phase = time.perf_counter()
+    cfg = Config()
+    report = {"phase": "serve_paths", "card": smi, "config": "Config() bf16"}
+    for k in (*kernels, *absent):
+        k.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        # 1. Ingest, then the same conversion from the npz cache alone.
+        base, arrays = os.path.join(tmp, "kitti360pose"), os.path.join(tmp, "arrays")
+        _write_kitti_scene(base, KITTI_SCENE, SEED + 14)
+        t = time.perf_counter()
+        data = ingest.load_dataset(base, "val", out_dir=arrays)
+        report["ingest_s"] = time.perf_counter() - t
+        with mock.patch.object(ingest, "load_compat_pickle",
+                               side_effect=AssertionError("read a pickle")):
+            t = time.perf_counter()
+            again = ingest.load_dataset(base, "val", out_dir=arrays)
+            report["ingest_from_npz_s"] = time.perf_counter() - t
+        scene = data.scenes[0]
+        check(data.num_cells == 16 and data.num_poses == 48,
+              f"ingested {data.num_cells} cells, {data.num_poses} poses")
+        check(scene.pmc_valid is not None and scene.cell_neighbors is not None,
+              "the ingested scene has no PMC tables")
+        for f in dataclasses.fields(scene):
+            a, b = getattr(scene, f.name), getattr(again.scenes[0], f.name)
+            check(a == b if isinstance(a, (str, list)) else np.array_equal(a, b),
+                  f"ingest from the npz cache differs in {f.name}")
+        report["pmc_valid_pairs"] = int(scene.pmc_valid.sum())
+
+        # 2. The cache round trip.
+        coarse, fine = _models(cfg, torch.Generator().manual_seed(SEED + 14))
+        emb = HintTextEmbedder.compositional(cfg.model.text_embed_dim,
+                                             cfg.model.max_hint_tokens)
+        cache = os.path.join(tmp, "gallery.npz")
+
+        def make(path=cache, **kw):
+            t = time.perf_counter()
+            loc = Localizer(data, coarse, fine, emb, cfg, top_k=10, device=dev,
+                            cache_path=path, **kw)
+            torch.cuda.synchronize()
+            return loc, time.perf_counter() - t
+
+        loc, report["build_s"] = make()
+        pointnet = (cuda_fps.KERNEL, cuda_pointconv.KERNEL_FIRST)
+        before = [k.launches for k in pointnet]
+        warm, report["build_from_cache_s"] = make()
+        t = time.perf_counter()
+        warm._cache_digest()
+        report["digest_s"] = time.perf_counter() - t
+        check([k.launches for k in pointnet] == before,
+              "the build from the cache launched a PointNet kernel")
+
+        def hints(b):
+            q = np.arange(b) % data.num_poses
+            return data.hint_dir[q], data.hint_color[q], data.hint_label[q], data.hint_mask[q]
+
+        cached8 = loc.localize(*hints(8))
+        _check_result(cached8, data, 8, loc.top_k)
+        check(_same_result(warm.localize(*hints(8)), cached8),
+              "the build from the cache serves other results")
+        with np.load(cache, allow_pickle=False) as f:
+            stale = {k: f[k] for k in f.files}
+        stale["digest"] = np.asarray("0" * 64)
+        bad = os.path.join(tmp, "stale.npz")
+        with open(bad, "wb") as fh:
+            np.savez(fh, **stale)
+        try:
+            make(bad)
+            refused = False
+        except ValueError:
+            refused = True
+        check(refused, "a cache file with another digest was accepted")
+
+        # 3. The stepwise path, its kernels launched by the queries alone.
+        step, report["build_stepwise_from_cache_s"] = make(precompute_fine=False)
+        check(step.fine_emb is None, "the stepwise Localizer holds a fine cache")
+        latency, per_call = {}, {}
+
+        def launched(name, fn):
+            """fn(), with its launches of the path's kernels in per_call."""
+            before = {k.name: k.launches for k in kernels}
+            out = fn()
+            per_call[name] = {k.name: k.launches - before[k.name] for k in kernels}
+            return out
+
+        report["stepwise"] = {}
+        for b in (1, 8):
+            got = launched(f"stepwise_{b}", lambda b=b: step.localize(*hints(b)))
+            want = launched(f"cached_{b}", lambda b=b: loc.localize(*hints(b)))
+            _check_result(got, data, b, step.top_k)
+            compared, top1_equal, pos_err = _top1_agreement(got, want)
+            report["stepwise"][str(b)] = {"compared": compared, "top1_equal": top1_equal,
+                                          "max_pos_err_m": pos_err}
+            check(top1_equal and pos_err <= 1e-2,
+                  f"stepwise batch {b} differs from the cached serve: "
+                  f"{report['stepwise'][str(b)]}")
+        stepwise = {k.name: per_call["stepwise_1"][k.name] + per_call["stepwise_8"][k.name]
+                    for k in kernels}
+        check(all(v > 0 for v in stepwise.values()),
+              f"a kernel never launched in the stepwise queries: {stepwise}")
+
+        # 4. The embedded and the text paths.
+        text = emb.to(dev).embed(*hints(8))
+        embedded = tuple(t.cpu().numpy() for t in text)
+        got = launched("embedded_8", lambda: loc.localize_embedded(*embedded))
+        compared, top1_equal, pos_err = _top1_agreement(got, cached8)
+        report["embedded"] = {"compared": compared, "top1_equal": top1_equal,
+                              "max_pos_err_m": pos_err}
+        check(top1_equal and pos_err <= 1e-2,
+              f"localize_embedded differs from localize: {report['embedded']}")
+        descs = [render_description(*(a[i] for a in hints(8))) for i in range(8)]
+        check(_same_result(launched("text_8", lambda: loc.localize_text(descs)), cached8),
+              "localize_text of rendered descriptions differs from localize")
+        for b in (1, 8):
+            latency[f"cached_{b}"] = _median_ms(lambda b=b: loc.localize(*hints(b)))
+            latency[f"stepwise_{b}"] = _median_ms(lambda b=b: step.localize(*hints(b)))
+        latency["embedded_8"] = _median_ms(lambda: loc.localize_embedded(*embedded))
+        latency["text_8"] = _median_ms(lambda: loc.localize_text(descs))
+        report["median_ms_per_batch"] = latency
+        report["launches_per_call"] = per_call
+
+        # 5. HTTP.
+        _http_phase(loc, data, report)
+    counts = {k.name: k.launches for k in (*kernels, *absent)}
+    report["launches"] = counts
+    report["seconds"] = time.perf_counter() - t_phase
+    emit(report)
+    check(all(counts[k.name] > 0 for k in kernels), f"a kernel never launched: {counts}")
+    _check_absent(counts, absent, "serve_paths")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on a card",
@@ -1913,6 +2288,7 @@ def main() -> int:
     counts.append(phase_train_optin(dev, train_optin_kernels, f32_default))
     phase_train_vs_cpu(dev, fused_train=("e", "e", "e"), phase="train_optin_vs_cpu",
                        grad_cos=ECACHE_GRAD_COS, control=ECACHE_CONTROL)
+    counts.append(phase_serve_paths(dev, serve_kernels, smi, absent=optin))
     kernels = (serve_kernels + train_kernels[1:3] + list(cuda_pointconv.KERNELS[1:])
                + optin + [cuda_gather.KERNEL_SCATTER, cuda_sa_train.KERNEL_E_FWD,
                           cuda_sa_train.KERNEL_E_BWD])

@@ -1508,3 +1508,58 @@ def test_train_coarse_on_the_card_evaluates_and_checkpoints(dev, tmp_path):
     assert cuda_sa_train.KERNEL_BWD.launches > before
     assert len(log.history["val_acc"]) == 1 and "train_recall@1" in log.history
     assert (tmp_path / "coarse_ckpt" / "metrics.json").exists()
+
+
+def test_serve_paths_launch_their_kernels_and_the_cache_skips_pointnet(dev, tmp_path):
+    """At the default Config()'s widths: the second build from the cache
+    launches no PointNet kernel and serves the first build's results bit for
+    bit; the stepwise path's queries launch FPS, the SA level and the
+    attention and feed-forward blocks (the E=1024 intra stack among them);
+    localize_embedded launches the text trunk's kernels."""
+    from text2loc_tpu_torch.config import Config
+    from text2loc_tpu_torch.convert import build_model, init_weights
+    from text2loc_tpu_torch.data.arrays import MultiSceneArrays
+    from text2loc_tpu_torch.data.synthetic import make_scene
+    from text2loc_tpu_torch.models.text_embedding import HintTextEmbedder
+    from text2loc_tpu_torch.serving import Localizer
+
+    cfg = Config()
+    m = cfg.model
+    data = MultiSceneArrays([make_scene("0005", num_cells=8, num_poses=8,
+                                        object_slots=m.object_size,
+                                        num_points=m.pointnet.num_points,
+                                        num_mentioned=m.num_mentioned, seed=5)])
+    gen = torch.Generator().manual_seed(0)
+    coarse = init_weights(build_model(cfg, "coarse"), gen)
+    fine = init_weights(build_model(cfg, "fine"), gen)
+    emb = HintTextEmbedder.compositional(m.text_embed_dim, m.max_hint_tokens)
+    path = str(tmp_path / "gallery.npz")
+
+    def make(**kw):
+        return Localizer(data, coarse, fine, emb, cfg, top_k=3, device=dev,
+                         cache_path=path, **kw)
+
+    q = np.arange(4)
+    hints = (data.hint_dir[q], data.hint_color[q], data.hint_label[q], data.hint_mask[q])
+    pointnet = (cuda_fps.KERNEL, cuda_pointconv.KERNEL_FIRST)
+    first = make()
+    before = [k.launches for k in pointnet]
+    warm = make()
+    assert [k.launches for k in pointnet] == before
+    a, b = first.localize(*hints), warm.localize(*hints)
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x, y)
+    step = make(precompute_fine=False)
+    assert [k.launches for k in pointnet] == before
+    kernels = (*pointnet, cuda_mha.KERNEL, cuda_mha.KERNEL_TILED, cuda_ffn.KERNEL)
+    before = [k.launches for k in kernels]
+    res = step.localize(*hints)
+    assert all(k.launches > n for k, n in zip(kernels, before)), [k.name for k in kernels]
+    assert np.isfinite(res.candidates_w).all()
+    text = emb.to(dev).embed(*hints)
+    before = [k.launches for k in kernels]
+    res = first.localize_embedded(text.token_embeds.cpu(), text.token_mask.cpu(),
+                                  text.sentence_mask.cpu())
+    assert [k.launches for k in pointnet] == before[:2]
+    assert all(k.launches > n for k, n in zip(kernels[2:], before[2:]))
+    assert np.isfinite(res.candidates_w).all()

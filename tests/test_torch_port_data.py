@@ -23,7 +23,9 @@ SCENE = dict(num_cells=5, num_poses=9, object_slots=7, num_points=12, num_mentio
 @pytest.mark.parametrize("name", [
     "CLASS_TO_INDEX", "INDEX_TO_CLASS", "NUM_CLASSES", "PAD_CLASS_INDEX", "COLORS",
     "COLOR_NAMES", "NUM_COLORS", "DIRECTIONS", "DIRECTION_TO_INDEX", "NUM_DIRECTIONS",
-    "DIRECTION_H_FLIP", "DIRECTION_V_FLIP", "NUM_POINTS_MEAN", "NUM_POINTS_STD"])
+    "DIRECTION_H_FLIP", "DIRECTION_V_FLIP", "NUM_POINTS_MEAN", "NUM_POINTS_STD",
+    "SCENE_NAMES", "SCENE_NAMES_TRAIN", "SCENE_NAMES_VAL", "SCENE_NAMES_TEST",
+    "HINT_TEMPLATE"])
 def test_constants_equal_the_jax_package(name):
     got, want = getattr(PC, name), getattr(JC, name)
     if isinstance(want, np.ndarray):

@@ -505,9 +505,7 @@ def test_training_cli_runs_without_jax(trainer, tmp_path):
 
 
 @pytest.mark.parametrize("trainer", ["coarse", "fine"])
-@pytest.mark.parametrize("flag,item", [(["--base_path", "x"], "item 4"),
-                                       (["--array_cache", "x"], "item 4"),
-                                       (["--dp", "2"], "item 7"),
+@pytest.mark.parametrize("flag,item", [(["--dp", "2"], "item 7"),
                                        (["--debug_nans"], "item 8")])
 def test_training_cli_flags_the_port_lacks_raise(trainer, flag, item):
     main = coarse.main if trainer == "coarse" else fine.main

@@ -1,13 +1,40 @@
 """Dataset constants for KITTI360Pose (the port's own copy of the parts of
 text2loc_tpu/constants.py that the port uses: the class and colour
 vocabularies, the direction vocabulary with its flip tables, the point-count
-standardization, the PMC neighbour order and the hint-id arithmetic). The values are the reference's
+standardization, the PMC neighbour order, the scene splits, the hint
+template and the hint-id arithmetic). The values are the reference's
 public dataset constants; the two copies must stay equal
 (tests/test_torch_port_data.py checks that they do)."""
 
 from __future__ import annotations
 
 import numpy as np
+
+# Scene names and their train / val / test splits.
+SCENE_NAMES = [
+    "2013_05_28_drive_0000_sync",
+    "2013_05_28_drive_0002_sync",
+    "2013_05_28_drive_0003_sync",
+    "2013_05_28_drive_0004_sync",
+    "2013_05_28_drive_0005_sync",
+    "2013_05_28_drive_0006_sync",
+    "2013_05_28_drive_0007_sync",
+    "2013_05_28_drive_0009_sync",
+    "2013_05_28_drive_0010_sync",
+]
+SCENE_NAMES_TRAIN = [
+    "2013_05_28_drive_0000_sync",
+    "2013_05_28_drive_0002_sync",
+    "2013_05_28_drive_0004_sync",
+    "2013_05_28_drive_0006_sync",
+    "2013_05_28_drive_0007_sync",
+]
+SCENE_NAMES_VAL = ["2013_05_28_drive_0010_sync"]
+SCENE_NAMES_TEST = [
+    "2013_05_28_drive_0003_sync",
+    "2013_05_28_drive_0005_sync",
+    "2013_05_28_drive_0009_sync",
+]
 
 # Class vocabulary. Index 0..21; "pad" (index 21) marks padding objects.
 CLASS_TO_INDEX = {
@@ -113,6 +140,16 @@ NEIGHBOR_KEYS = (
     "east", "west", "north", "south",
     "northeast", "northwest", "southeast", "southwest",
 )
+
+HINT_TEMPLATE = "The pose is {direction} of a {color} {label}."
+
+
+def render_hint(direction_idx: int, color_idx: int, label_idx: int) -> str:
+    """The canonical hint sentence of an integer hint triple."""
+    return HINT_TEMPLATE.format(direction=DIRECTIONS[direction_idx],
+                                color=COLOR_NAMES[color_idx],
+                                label=INDEX_TO_CLASS[label_idx])
+
 
 # Standardization of the point-count ("num") feature.
 NUM_POINTS_MEAN = 1826.6844940968194

@@ -1,6 +1,6 @@
 """Scene data as fixed-shape numpy arrays (the port's own copy of
-text2loc_tpu/data/arrays.py: SceneArrays with its PMC fields,
-fill_padding_slots and the batch gathers of MultiSceneArrays that the
+text2loc_tpu/data/arrays.py: SceneArrays with its PMC fields and its npz
+round trip, fill_padding_slots and the batch gathers of MultiSceneArrays that the
 port's serve and trainers call).
 
 Shapes: C cells, O object slots per cell, P stored points per object,
@@ -11,6 +11,7 @@ nearest colour "black", 8 points.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence
 
@@ -66,6 +67,22 @@ class SceneArrays:
     @property
     def num_poses(self) -> int:
         return self.pose_w.shape[0]
+
+    def save_npz(self, path: str):
+        arrays = dataclasses.asdict(self)
+        arrays["cell_ids"] = np.array(self.cell_ids)
+        for name in ("cell_neighbors", "pmc_valid", "pmc_weight", "pmc_match"):
+            if arrays[name] is None:
+                del arrays[name]
+        np.savez_compressed(path, **arrays)
+
+    @classmethod
+    def load_npz(cls, path: str) -> "SceneArrays":
+        with np.load(path, allow_pickle=False) as f:
+            data = {k: f[k] for k in f.files}
+        data["scene_name"] = str(data["scene_name"])
+        data["cell_ids"] = [str(x) for x in data["cell_ids"]]
+        return cls(**data)
 
 
 def fill_padding_slots(scene: SceneArrays, rng: np.random.Generator) -> SceneArrays:

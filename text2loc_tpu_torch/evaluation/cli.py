@@ -3,13 +3,21 @@ main_pipeline, main_coarse) with the JAX package's flags and --device.
 
     python -m text2loc_tpu_torch.evaluation.pipeline --synthetic --device cpu \
         --fused_sa full,full,all
+    python -m text2loc_tpu_torch.evaluation.pipeline --base_path DATA \
+        --array_cache DATA/arrays [--use_test_set]
+
+Data: --synthetic builds an 8-cell scene at the small test config; else
+--base_path is a KITTI360Pose pickle root, converted once by data/ingest.py
+into --array_cache, and the val split (--use_test_set: test) is served at
+the default Config.
 
 Weights: a reference-layout .pth per tower (--coarse_torch_ckpt,
 --fine_torch_ckpt), loaded with strict=False semantics; what a checkpoint
 lacks keeps the port's seeded random initialization (convert.init_weights,
 seed 0). --coarse_ckpt / --fine_ckpt load the best checkpoint of the port's
-trainers (utils/checkpoint.py; not the JAX package's Orbax files). The flags of paths the port does not have yet raise an error that
-names the ROADMAP item they wait for; none is ignored.
+trainers (utils/checkpoint.py; not the JAX package's Orbax files). The
+flags of paths the port does not have yet raise an error that names the
+ROADMAP item they wait for; none is ignored.
 """
 
 from __future__ import annotations
@@ -23,9 +31,6 @@ from text2loc_tpu_torch.config import Config
 
 # Flag -> the ROADMAP item the port's support of it waits for.
 _NOT_PORTED = {
-    "base_path": "a port copy of data/ingest.py (ROADMAP Queue 1 item 4)",
-    "array_cache": "a port copy of data/ingest.py (ROADMAP Queue 1 item 4)",
-    "use_test_set": "a port copy of data/ingest.py (ROADMAP Queue 1 item 4)",
     "styled_hints": "the online T5 encoder (ROADMAP Queue 1 item 6)",
     "t5_snapshot": "the online T5 encoder (ROADMAP Queue 1 item 6)",
     "plot_retrievals": "a port copy of evaluation/visualize.py (ROADMAP Queue 1 item 8)",
@@ -37,8 +42,10 @@ def build_argparser():
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the kernels' plain versions")
-    ap.add_argument("--base_path", default=None)
-    ap.add_argument("--array_cache", default=None)
+    ap.add_argument("--base_path", default=None,
+                    help="KITTI360Pose pickle root (data/ingest.py converts it)")
+    ap.add_argument("--array_cache", default=None,
+                    help="npz cache directory of the converted scenes")
     ap.add_argument("--coarse_ckpt", default=None,
                     help="the port's coarse checkpoint directory "
                          "(<workdir>/coarse_ckpt of the coarse trainer)")
@@ -48,7 +55,8 @@ def build_argparser():
                     help="reference-layout coarse .pth")
     ap.add_argument("--fine_torch_ckpt", default=None,
                     help="reference-layout fine .pth")
-    ap.add_argument("--use_test_set", action="store_true")
+    ap.add_argument("--use_test_set", action="store_true",
+                    help="evaluate the test split of --base_path instead of val")
     ap.add_argument("--synthetic", action="store_true",
                     help="an 8-cell synthetic scene at the small test config")
     ap.add_argument("--plot_retrievals", default=None)
@@ -73,13 +81,17 @@ def build_argparser():
     return ap
 
 
-def _parse(argv):
-    args = build_argparser().parse_args(argv)
+def _check_flags(args):
+    """Raise on a flag of a path the port does not have yet."""
     for flag, item in _NOT_PORTED.items():
         if getattr(args, flag):
             raise NotImplementedError(f"--{flag}: the port does not have it yet; it "
                                       f"waits for {item}")
     return args
+
+
+def _parse(argv):
+    return _check_flags(build_argparser().parse_args(argv))
 
 
 def _apply_model_flags(cfg, args):
@@ -98,20 +110,29 @@ def _apply_model_flags(cfg, args):
 
 
 def _load(args):
-    if not args.synthetic:
-        raise NotImplementedError("only --synthetic data: real data waits for "
-                                  f"{_NOT_PORTED['base_path']}")
-    from text2loc_tpu_torch.config import small_test_config
-    from text2loc_tpu_torch.data.arrays import MultiSceneArrays
-    from text2loc_tpu_torch.data.synthetic import make_scene
+    """(cfg, data): with --synthetic, an 8-cell scene at the small test
+    config; else the val (--use_test_set: test) split of --base_path at the
+    default Config, converted once into --array_cache."""
+    if args.synthetic:
+        from text2loc_tpu_torch.config import small_test_config
+        from text2loc_tpu_torch.data.arrays import MultiSceneArrays
+        from text2loc_tpu_torch.data.synthetic import make_scene
 
-    cfg = small_test_config()
-    cfg = cfg.replace(eval=dataclasses.replace(cfg.eval, top_k=(1, 2, 3)))
-    data = MultiSceneArrays([
-        make_scene("0009", num_cells=8, num_poses=24, object_slots=cfg.model.object_size,
-                   num_points=cfg.model.pointnet.num_points,
-                   num_mentioned=cfg.model.num_mentioned, seed=9)])
-    return cfg, data
+        cfg = small_test_config()
+        cfg = cfg.replace(eval=dataclasses.replace(cfg.eval, top_k=(1, 2, 3)))
+        data = MultiSceneArrays([
+            make_scene("0009", num_cells=8, num_poses=24,
+                       object_slots=cfg.model.object_size,
+                       num_points=cfg.model.pointnet.num_points,
+                       num_mentioned=cfg.model.num_mentioned, seed=9)])
+        return cfg, data
+    if not args.base_path:
+        raise ValueError("--base_path or --synthetic required")
+    from text2loc_tpu_torch.data.ingest import load_dataset
+
+    split = "test" if args.use_test_set else "val"
+    return Config().validate(), load_dataset(args.base_path, split,
+                                             out_dir=args.array_cache)
 
 
 def _sa_mode(args, device) -> str:

@@ -57,15 +57,16 @@ def encode_gallery(data, model, cfg, device) -> torch.Tensor:
 
 
 @torch.no_grad()
-def encode_fine_gallery(data, model, cfg, device, cell_indices=None):
+def encode_fine_gallery(data, model, cfg, device, cell_indices=None, chunk=FINE_CHUNK):
     """(cell_emb [C, pad, D], cell_mask [C, pad]) of the gallery cells (all,
     or `cell_indices`) for the fine stage: CrossMatch.encode_objects over
     pad_size slots, then the CCT's layer-0 object self-attention block
-    (cct_obj_pre), a pure function of the cell that the serve caches."""
+    (cct_obj_pre), a pure function of the cell that the serve caches;
+    `chunk` cells per encoder call."""
     pad = cfg.model.pad_size
     cells = np.arange(data.num_cells) if cell_indices is None else np.asarray(cell_indices)
     rows = []
-    for ids in _chunks(len(cells), FINE_CHUNK):
+    for ids in _chunks(len(cells), chunk):
         objects = object_set(data.gather_cell_objects(cells[ids], pad),
                              cfg.model.pointnet.num_points, device)
         rows.append(model.cct_obj_pre(model.encode_objects(objects), objects.mask))

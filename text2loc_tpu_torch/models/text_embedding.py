@@ -1,6 +1,6 @@
 """Frozen text embeddings as a lookup table over the hint vocabulary (port of
 text2loc_tpu/models/text_embedding.py: make_embedder, compositional,
-from_npz, embed).
+from_npz, embed, checksum).
 
 The compositional stand-in is built by the same numpy recipe as the JAX
 package's, so the two tables are byte-equal."""
@@ -98,6 +98,16 @@ class HintTextEmbedder:
             sentence_mask = torch.ones(ids.shape, dtype=torch.bool, device=dev)
         return TextSet(self.table[ids], self.token_mask[ids],
                        torch.as_tensor(sentence_mask, device=dev).bool())
+
+    def checksum(self) -> str:
+        """SHA-256 hex digest of the table's and the token mask's host bytes
+        (f32, bool): the JAX embedder's digest for the same table."""
+        import hashlib
+
+        h = hashlib.sha256()
+        h.update(np.ascontiguousarray(self.table.cpu().numpy()).tobytes())
+        h.update(np.ascontiguousarray(self.token_mask.cpu().numpy()).tobytes())
+        return h.hexdigest()
 
     @classmethod
     def compositional(cls, embed_dim: int = 1024, max_tokens: int = 16,

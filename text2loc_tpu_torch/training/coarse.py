@@ -10,8 +10,12 @@ generators) on a prefetch worker and takes one step per batch; every
 (evaluation/retrieval.eval_retrieval), keeps the best state by the mean
 recall and checkpoints it.
 
-CLI:
+CLI (--synthetic: synthetic scenes at the small test config; --base_path:
+the KITTI360Pose train / val / test splits, converted once into
+--array_cache by data/ingest.py):
     python -m text2loc_tpu_torch.training.coarse --synthetic --device cpu --epochs 1
+    python -m text2loc_tpu_torch.training.coarse --base_path DATA \
+        --array_cache DATA/arrays --workdir W
 """
 
 from __future__ import annotations
@@ -130,8 +134,6 @@ def train_coarse(cfg, data_train, data_val, embedder, workdir: Optional[str] = N
 
 # Flag -> the ROADMAP item the port's support of it waits for.
 _NOT_PORTED = {
-    "base_path": "a port copy of data/ingest.py (ROADMAP Queue 1 item 4)",
-    "array_cache": "a port copy of data/ingest.py (ROADMAP Queue 1 item 4)",
     "dp": "data parallelism (ROADMAP Queue 1 item 7)",
     "debug_nans": "utils/debug.py (ROADMAP Queue 1 item 8)",
 }
@@ -191,23 +193,30 @@ def _apply_overrides(cfg, args):
 
 def _load_data(cfg, args):
     """(cfg, train, val, test): with --synthetic, three 8-cell scenes at the
-    small test config (with the flags' overrides)."""
-    if not args.synthetic:
-        raise NotImplementedError("only --synthetic data: real data waits for "
-                                  f"{_NOT_PORTED['base_path']}")
-    from text2loc_tpu_torch.config import small_test_config
-    from text2loc_tpu_torch.data.arrays import MultiSceneArrays
-    from text2loc_tpu_torch.data.synthetic import make_scene
+    small test config (with the flags' overrides); else the train, val and
+    test splits of --base_path, converted once into --array_cache, with
+    `cfg` as given."""
+    if args.synthetic:
+        from text2loc_tpu_torch.config import small_test_config
+        from text2loc_tpu_torch.data.arrays import MultiSceneArrays
+        from text2loc_tpu_torch.data.synthetic import make_scene
 
-    cfg = _apply_overrides(small_test_config(), args)
+        cfg = _apply_overrides(small_test_config(), args)
 
-    def split(seed):
-        return MultiSceneArrays([make_scene(
-            scene_name=f"{seed:04d}", num_cells=8, num_poses=32,
-            object_slots=cfg.model.object_size, num_points=cfg.model.pointnet.num_points,
-            num_mentioned=cfg.model.num_mentioned, seed=seed)])
+        def split(seed):
+            return MultiSceneArrays([make_scene(
+                scene_name=f"{seed:04d}", num_cells=8, num_poses=32,
+                object_slots=cfg.model.object_size,
+                num_points=cfg.model.pointnet.num_points,
+                num_mentioned=cfg.model.num_mentioned, seed=seed)])
 
-    return cfg, split(0), split(1), split(2)
+        return cfg, split(0), split(1), split(2)
+    if not args.base_path:
+        raise ValueError("--base_path or --synthetic required")
+    from text2loc_tpu_torch.data.ingest import load_dataset
+
+    return (cfg, *(load_dataset(args.base_path, name, out_dir=args.array_cache)
+                   for name in ("train", "val", "test")))
 
 
 def main(argv=None):
