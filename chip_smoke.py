@@ -127,6 +127,24 @@ toolkit. Phases, each printing one JSON line:
    size; build seconds with and without the cache, the median ms a batch
    of each path and the phase's seconds, on a line with the card's name
    and power limit.
+15. t5_text: the online T5 text path over phase 14's ingested scene: a
+   T5-large encoder (the published widths of huggingface.co/t5-large:
+   vocab 32128, d_model 1024, d_kv 64, 16 heads, d_ff 4096, ReLU, 24
+   layers, 32 buckets, max distance 128; weights seeded with numpy at HF's
+   initialisation scales; the vendored tiny tokenizer; T = 16) written as
+   an HF snapshot (pytorch_model.bin, config.json, the tokenizer's files)
+   and loaded by T5OnlineEncoder.from_snapshot on the card (write and load
+   seconds); the same weights cut to 2 layers, card against CPU in f32
+   over 48 styled sentences (TF32 off; largest absolute difference at most
+   1e-3) and, as the online encoder of f32 Localizers over the scene,
+   localize_text of 8 styled descriptions card against CPU (phase 5's
+   criteria); the median ms of encode at 48 and 8 sentences, token
+   positions a second and peak memory; localize_text of the 8 styled
+   descriptions at Config() width (bf16) through the full encoder (median
+   ms, top-1, launches a call; one T5 call a batch), and of 8 canonical
+   descriptions bit-equal to localize with no T5 call; eval_styled_retrieval
+   over the scene through the compositional stand-in and through T5
+   (recall at k, seconds); on a line with the card's name and power limit.
 
 Phase 3 also holds the opt-in kernels against their plain versions: add_ln
 at the E=1024 trunk's rows and at D=128/256 (bf16, f32), gather_rows at the
@@ -139,7 +157,7 @@ step's three levels (f32, bf16), with the time of one PyTorch call that
 computes the same function where there is one (library_ms).
 
 Then the kernels line (launches: the counts during phases 4, 6, 8, 10
-(serve_optin too), 12 and 14, each path's counts set to 0 just before it;
+(serve_optin too), 12, 14 and 15, each path's counts set to 0 just before it;
 max_abs_err, ms, plain_ms, bound_ms and library_ms: over the inference
 kernels' bf16 cases of phase 3 (sa_gather's approximate ball query cases),
 FPS's f32 case, the training kernels' f32 cases, the "e" kernels' bf16
@@ -2101,10 +2119,11 @@ def _http_phase(loc, data, report) -> None:
           f"HTTP answers differ from localize: {report['http']}")
 
 
-def phase_serve_paths(dev, kernels, smi: str, absent=()) -> dict:
+def phase_serve_paths(dev, kernels, smi: str, absent=()) -> tuple:
     """Serving a real-schema map: ingest, the persisted cache, the stepwise,
     embedded and text paths and the HTTP server, at Config() width (bf16)
-    with seeded random weights. Returns the phase's launches."""
+    with seeded random weights. Returns the phase's launches and the
+    ingested scene."""
     import dataclasses
     import tempfile
     from unittest import mock
@@ -2244,6 +2263,219 @@ def phase_serve_paths(dev, kernels, smi: str, absent=()) -> dict:
     emit(report)
     check(all(counts[k.name] > 0 for k in kernels), f"a kernel never launched: {counts}")
     _check_absent(counts, absent, "serve_paths")
+    return counts, data
+
+
+
+# ------------------------------------------------------------------ T5 text
+
+# huggingface.co/t5-large config.json: the encoder's published widths.
+T5_LARGE = dict(vocab_size=32128, d_model=1024, d_kv=64, num_heads=16, d_ff=4096,
+                num_layers=24, feed_forward_proj="relu",
+                relative_attention_num_buckets=32, relative_attention_max_distance=128)
+T5_CPU_LAYERS = 2      # the card-vs-CPU encoder: the same weights cut to two layers
+T5_CPU_LIMIT = 1e-3    # its largest absolute embedding difference, f32
+
+
+def t5_state_dict(widths: dict, seed: int) -> dict:
+    """A T5 encoder's HF state dict (HF key names) at `widths`, seeded with
+    numpy at HF's initialisation scales (T5PreTrainedModel._init_weights,
+    factor 1): embedding std 1; q (d_model·d_kv)^-0.5; k, v d_model^-0.5; o
+    (heads·d_kv)^-0.5; wi d_model^-0.5; wo d_ff^-0.5; the relative bias
+    d_model^-0.5; norms 1. scripts/profile_torch_t5.py builds its encoder
+    from it too."""
+    rng = np.random.default_rng(seed)
+    d, dkv, h, ff = widths["d_model"], widths["d_kv"], widths["num_heads"], widths["d_ff"]
+    inner = h * dkv
+
+    def normal(shape, std):
+        a = rng.standard_normal(shape, dtype=np.float32)
+        a *= np.float32(std)
+        return torch.from_numpy(a)
+
+    emb = normal((widths["vocab_size"], d), 1.0)
+    sd = {"shared.weight": emb, "encoder.embed_tokens.weight": emb}
+    for i in range(widths["num_layers"]):
+        a, f = f"encoder.block.{i}.layer.0", f"encoder.block.{i}.layer.1"
+        sd[f"{a}.SelfAttention.q.weight"] = normal((inner, d), (d * dkv) ** -0.5)
+        sd[f"{a}.SelfAttention.k.weight"] = normal((inner, d), d ** -0.5)
+        sd[f"{a}.SelfAttention.v.weight"] = normal((inner, d), d ** -0.5)
+        sd[f"{a}.SelfAttention.o.weight"] = normal((d, inner), inner ** -0.5)
+        if i == 0:
+            sd[f"{a}.SelfAttention.relative_attention_bias.weight"] = normal(
+                (widths["relative_attention_num_buckets"], h), d ** -0.5)
+        sd[f"{a}.layer_norm.weight"] = torch.ones(d)
+        sd[f"{f}.DenseReluDense.wi.weight"] = normal((ff, d), d ** -0.5)
+        sd[f"{f}.DenseReluDense.wo.weight"] = normal((d, ff), ff ** -0.5)
+        sd[f"{f}.layer_norm.weight"] = torch.ones(d)
+    sd["encoder.final_layer_norm.weight"] = torch.ones(d)
+    return sd
+
+
+def _write_t5_snapshot(path: str, sd: dict, widths: dict) -> None:
+    """An HF snapshot directory: pytorch_model.bin, config.json and the
+    vendored tiny tokenizer's files."""
+    import shutil
+
+    from text2loc_tpu_torch.assets import tiny_t5_tokenizer_path
+
+    torch.save(sd, os.path.join(path, "pytorch_model.bin"))
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({"model_type": "t5", "architectures": ["T5EncoderModel"], **widths,
+                   "num_decoder_layers": 0, "layer_norm_epsilon": 1e-6,
+                   "dropout_rate": 0.0}, f)
+    src = tiny_t5_tokenizer_path()
+    for name in os.listdir(src):
+        shutil.copy(os.path.join(src, name), path)
+
+
+class _CountingEncoder:
+    """An online encoder that counts its encode calls."""
+
+    def __init__(self, inner):
+        self.inner, self.calls, self.embed_dim = inner, 0, inner.embed_dim
+
+    def encode(self, sentences):
+        self.calls += 1
+        return self.inner.encode(sentences)
+
+
+def phase_t5_text(dev, kernels, smi: str, data, absent=()) -> dict:
+    """The online T5 text path over phase 14's ingested scene: a T5-large
+    encoder (seeded random weights, the vendored tokenizer) loaded from a
+    written snapshot, its two-layer cut card against CPU in f32, encode
+    times, localize_text of styled and canonical descriptions, the f32
+    card-vs-CPU localize_text through the two-layer cut, and
+    eval_styled_retrieval through the compositional stand-in and through
+    T5. Returns the phase's launches."""
+    import dataclasses
+    import tempfile
+
+    from text2loc_tpu_torch import text_styles
+    from text2loc_tpu_torch.config import Config
+    from text2loc_tpu_torch.evaluation.styled import (eval_styled_retrieval,
+                                                      render_canonical_queries,
+                                                      render_styled_queries)
+    from text2loc_tpu_torch.models import t5_encoder as T5
+    from text2loc_tpu_torch.models.text_embedding import HintTextEmbedder
+    from text2loc_tpu_torch.serving import Localizer
+
+    t_phase = time.perf_counter()
+    cfg = Config()
+    tokens = cfg.model.max_hint_tokens
+    widths = T5_LARGE
+    check(widths["d_model"] == cfg.model.text_embed_dim,
+          "the T5 width differs from the table's text_embed_dim")
+    report = {"phase": "t5_text", "card": smi, "t5": widths, "max_tokens": tokens,
+              "config": "Config() bf16"}
+    for k in (*kernels, *absent):
+        k.launches = 0
+
+    # 1. The snapshot, written and loaded.
+    t = time.perf_counter()
+    sd = t5_state_dict(widths, SEED + 15)
+    with tempfile.TemporaryDirectory() as tmp:
+        _write_t5_snapshot(tmp, sd, widths)
+        report["snapshot_write_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        full = T5.T5OnlineEncoder.from_snapshot(tmp, max_tokens=tokens, device=dev)
+        torch.cuda.synchronize()
+        report["load_s"] = time.perf_counter() - t
+    check(full.cfg == T5.T5Config(**widths), f"the snapshot loaded as {full.cfg}")
+    check(full.model.token_embed.device.type == torch.device(dev).type,
+          "the encoder's weights are not on the card")
+
+    # 2. The two-layer cut, card against CPU, f32.
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on for f32 products")
+    cut = {k: v.numpy() for k, v in sd.items()
+           if not k.startswith("encoder.block.")
+           or int(k.split(".")[2]) < T5_CPU_LAYERS}
+    del sd
+    params, cut_cfg = T5.convert_t5_encoder(cut, widths["relative_attention_max_distance"])
+    small = {"cuda": T5.T5OnlineEncoder(params, cut_cfg, full.tokenizer, tokens, device=dev),
+             "cpu": T5.T5OnlineEncoder(params, cut_cfg, full.tokenizer, tokens, device="cpu")}
+    del cut, params
+    rng = np.random.default_rng(SEED + 15)
+    poses = np.arange(8)
+    sentences = [text_styles.render_styled_hint(data.hint_dir[p, s], data.hint_color[p, s],
+                                                data.hint_label[p, s], rng)
+                 for p in poses for s in range(data.hint_dir.shape[1])]
+    check(len(sentences) == 48, f"{len(sentences)} styled sentences")
+    (e_card, m_card), (e_cpu, m_cpu) = (small[w].encode(sentences) for w in ("cuda", "cpu"))
+    err = float(np.abs(e_card - e_cpu).max())
+    report["card_vs_cpu"] = {"layers": T5_CPU_LAYERS, "sentences": len(sentences),
+                             "max_abs_err": err, "limit": T5_CPU_LIMIT,
+                             "real_tokens": int(m_cpu.sum())}
+    check(np.array_equal(m_card, m_cpu), "the card's token mask differs from the CPU's")
+    check(err <= T5_CPU_LIMIT, f"T5 card vs CPU: {err} > {T5_CPU_LIMIT}")
+
+    # The f32 localize_text through the two-layer cut, card against CPU.
+    emb = HintTextEmbedder.compositional(cfg.model.text_embed_dim, tokens)
+    styled = render_styled_queries(data, np.random.default_rng(SEED + 16), poses)
+    canonical = render_canonical_queries(data, poses)
+    check(all(a != b for a, b in zip(styled, canonical)), "a styled description is canonical")
+    cfg32 = cfg.replace(model=dataclasses.replace(cfg.model, dtype="float32"))
+    f32 = {}
+    for where, device in (("cuda", dev), ("cpu", "cpu")):
+        c32, fine32 = _models(cfg32, torch.Generator().manual_seed(SEED + 15))
+        f32[where] = Localizer(data, c32, fine32, emb, cfg32, top_k=5, device=device,
+                               online_encoder=small[where]).localize_text(styled)
+    compared, top1_equal, pos_err = _top1_agreement(f32["cuda"], f32["cpu"])
+    report["localize_text_vs_cpu"] = {
+        "compared": compared, "top1_equal": top1_equal, "max_pos_err_m": pos_err,
+        "max_score_err": float(np.abs(f32["cuda"].scores - f32["cpu"].scores).max())}
+    check(top1_equal and pos_err <= 1e-2,
+          f"f32 localize_text differs between the card and the CPU: "
+          f"{report['localize_text_vs_cpu']}")
+    del small, f32
+    torch.cuda.empty_cache()
+
+    # 3. The full encoder on the card.
+    torch.cuda.reset_peak_memory_stats()
+    encode_ms = {str(n): _median_ms(lambda n=n: full.encode(sentences[:n])) for n in (48, 8)}
+    report["encode_ms"] = encode_ms
+    report["tokens_per_s"] = {n: int(n) * tokens / (ms / 1e3) for n, ms in encode_ms.items()}
+    report["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+
+    # 4. localize_text at Config() width with the full encoder.
+    coarse, fine = _models(cfg, torch.Generator().manual_seed(SEED + 14))
+    counting = _CountingEncoder(full)
+    loc = Localizer(data, coarse, fine, emb, cfg, top_k=10, device=dev,
+                    online_encoder=counting)
+    before = {k.name: k.launches for k in kernels}
+    got = loc.localize_text(styled)
+    report["launches_per_call"] = {k.name: k.launches - before[k.name] for k in kernels}
+    check(counting.calls == 1, f"{counting.calls} T5 calls for one styled batch")
+    _check_result(got, data, len(poses), loc.top_k)
+    report["styled_top1"] = float(np.mean(got.cell_indices[:, 0] == data.pose_cell_idx[poses]))
+    report["localize_text_ms"] = _median_ms(lambda: loc.localize_text(styled))
+    calls = counting.calls
+    table = loc.localize_text(canonical)
+    check(counting.calls == calls, "canonical descriptions went through T5")
+    check(_same_result(table, loc.localize(data.hint_dir[poses], data.hint_color[poses],
+                                           data.hint_label[poses], data.hint_mask[poses])),
+          "localize_text of canonical descriptions differs from localize")
+    report["canonical_ms"] = _median_ms(lambda: loc.localize_text(canonical))
+
+    # 5. eval_styled_retrieval through each online encoder.
+    report["styled_eval"] = {}
+    for name, enc in (("compositional",
+                       T5.CompositionalOnlineEncoder(cfg.model.text_embed_dim, tokens)),
+                      ("t5", full)):
+        loc.online_encoder = enc
+        t = time.perf_counter()
+        out = eval_styled_retrieval(loc, data, seed=SEED, top_k=cfg.eval.top_k)
+        report["styled_eval"][name] = {
+            "styled_recall": out["styled"]["recall"],
+            "canonical_recall": out["canonical"]["recall"],
+            "styled_mean_error_m": out["styled"]["mean_error_m"],
+            "seconds": time.perf_counter() - t}
+    counts = {k.name: k.launches for k in (*kernels, *absent)}
+    report["launches"] = counts
+    report["seconds"] = time.perf_counter() - t_phase
+    emit(report)
+    check(all(counts[k.name] > 0 for k in kernels), f"a kernel never launched: {counts}")
+    _check_absent(counts, absent, "t5_text")
     return counts
 
 
@@ -2288,7 +2520,9 @@ def main() -> int:
     counts.append(phase_train_optin(dev, train_optin_kernels, f32_default))
     phase_train_vs_cpu(dev, fused_train=("e", "e", "e"), phase="train_optin_vs_cpu",
                        grad_cos=ECACHE_GRAD_COS, control=ECACHE_CONTROL)
-    counts.append(phase_serve_paths(dev, serve_kernels, smi, absent=optin))
+    serve_paths_counts, scene = phase_serve_paths(dev, serve_kernels, smi, absent=optin)
+    counts.append(serve_paths_counts)
+    counts.append(phase_t5_text(dev, serve_kernels, smi, scene, absent=optin))
     kernels = (serve_kernels + train_kernels[1:3] + list(cuda_pointconv.KERNELS[1:])
                + optin + [cuda_gather.KERNEL_SCATTER, cuda_sa_train.KERNEL_E_FWD,
                           cuda_sa_train.KERNEL_E_BWD])

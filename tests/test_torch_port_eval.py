@@ -231,11 +231,35 @@ def test_main_pipeline_runs_fused_modes(mode):
         assert all(0.0 <= v <= 1.0 for v in row.values())
 
 
-@pytest.mark.parametrize("flag", [["--t5_snapshot", "x"], ["--styled_hints"],
-                                  ["--plot_retrievals", "x.png"]])
+@pytest.mark.parametrize("flag", [["--plot_retrievals", "x.png"]])
 def test_cli_flags_the_port_lacks_raise(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="item 8"):
         cli.main_pipeline(["--synthetic", "--device", "cpu"] + flag)
+
+
+@pytest.mark.parametrize("encoder", ["compositional", "t5_snapshot"])
+def test_main_pipeline_styled_hints_matches_the_jax_cli(encoder, tmp_path):
+    """--styled_hints, with the compositional stand-in or the --t5_snapshot
+    encoder: the JAX CLI's "styled" dict (recalls equal, mean errors within
+    POS_ATOL)."""
+    from test_torch_port_t5 import write_t5_snapshot
+    from text2loc_tpu.config import small_test_config
+    from text2loc_tpu.evaluation.cli import main_pipeline as jax_main_pipeline
+
+    a, b = _write_checkpoints(tmp_path)
+    argv = ["--synthetic", "--coarse_torch_ckpt", a, "--fine_torch_ckpt", b,
+            "--styled_hints", "--styled_seed", "5"]
+    if encoder == "t5_snapshot":
+        argv += ["--t5_snapshot", write_t5_snapshot(
+            tmp_path / "t5", d_model=small_test_config().model.text_embed_dim)]
+    want = jax_main_pipeline(argv)["styled"]
+    got = cli.main_pipeline(argv + ["--device", "cpu"])["styled"]
+    assert got["recall_gap"] == want["recall_gap"]
+    for name in ("styled", "canonical"):
+        assert got[name]["recall"] == want[name]["recall"]
+        assert got[name]["recall_close"] == want[name]["recall_close"]
+        np.testing.assert_allclose(got[name]["mean_error_m"], want[name]["mean_error_m"],
+                                   atol=POS_ATOL, rtol=0)
 
 
 def test_cli_rejects_a_wrong_mode_list():

@@ -1,10 +1,12 @@
 """The port's HTTP endpoint over its micro-batching frontend: the three cases
 of tests/test_serving_http.py (request and response formats, concurrent
 clients coalescing, error codes) on port 0, and `main(argv)` started on a
-thread with --synthetic --device cpu --no_warmup, queried and shut down.
+thread with --synthetic --device cpu --no_warmup, queried and shut down
+(with --t5_snapshot, an out-of-vocabulary description answered).
 HTTP answers are held against the direct Localizer call: cells equal,
 positions at atol 1e-3 m."""
 
+import contextlib
 import json
 import threading
 import time
@@ -15,7 +17,11 @@ import numpy as np
 import pytest
 
 from test_torch_port_frontend import port_localizer
+from test_torch_port_t5 import write_t5_snapshot
 from text2loc_tpu_torch import constants as C
+from text2loc_tpu_torch import serving
+from text2loc_tpu_torch.config import small_test_config
+from text2loc_tpu_torch.models.t5_encoder import T5OnlineEncoder
 from text2loc_tpu_torch.serving_frontend import BatchingFrontend
 from text2loc_tpu_torch.serving_http import LocalizationServer, main
 
@@ -108,15 +114,16 @@ def test_error_paths(server):
     assert e.value.code == 404
 
 
-def test_main_serves_and_shuts_down(capsys, tmp_path):
+@contextlib.contextmanager
+def _serving_main(capsys, argv):
+    """main(argv) on a thread; yields the (host, port) it serves on, and
+    stops and joins it on exit."""
     stop = threading.Event()
     errors = []
-    cache = str(tmp_path / "gallery.npz")
 
     def run():
         try:
-            main(["--synthetic", "--device", "cpu", "--no_warmup", "--port", "0",
-                  "--max_batch", "4", "--cache_path", cache], stop=stop)
+            main(argv, stop=stop)
         except Exception as e:  # noqa: BLE001
             errors.append(e)
 
@@ -131,20 +138,45 @@ def test_main_serves_and_shuts_down(capsys, tmp_path):
         assert not errors, errors
         line = next(x for x in printed.splitlines() if x.startswith("serving on"))
         addr = line.split("http://")[1].split()[0]
-        host, port = addr.rsplit(":", 1)
-        assert _get((host, port), "/healthz") == (200, {"ok": True})
-        status, out = _post((host, port), {"hints": {"dir": [0, 1, 2], "color": [1, 2, 3],
-                                                     "label": [3, 4, 5]}})
-        assert status == 200 and len(out["cells"]) == 3
-        assert np.isfinite(out["position"]).all()
+        yield tuple(addr.rsplit(":", 1))
     finally:
         stop.set()
         thread.join(60)
     assert not thread.is_alive() and not errors
+
+
+def test_main_serves_and_shuts_down(capsys, tmp_path):
+    cache = str(tmp_path / "gallery.npz")
+    with _serving_main(capsys, ["--synthetic", "--device", "cpu", "--no_warmup", "--port",
+                                "0", "--max_batch", "4", "--cache_path", cache]) as addr:
+        assert _get(addr, "/healthz") == (200, {"ok": True})
+        status, out = _post(addr, {"hints": {"dir": [0, 1, 2], "color": [1, 2, 3],
+                                             "label": [3, 4, 5]}})
+        assert status == 200 and len(out["cells"]) == 3
+        assert np.isfinite(out["position"]).all()
     with np.load(cache) as f:
         assert int(f["num_cells"]) == 8
 
 
-def test_main_flags_of_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        main(["--synthetic", "--device", "cpu", "--t5_snapshot", "x"])
+def test_main_t5_snapshot_answers_out_of_vocabulary_posts(capsys, tmp_path, monkeypatch):
+    """--t5_snapshot: the Localizer gets the snapshot's T5OnlineEncoder, and
+    a description outside the hint vocabulary is answered (without an
+    online encoder it is a 400)."""
+    built = []
+
+    class Recording(serving.Localizer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            built.append(self)
+
+    monkeypatch.setattr(serving, "Localizer", Recording)
+    snap = write_t5_snapshot(tmp_path / "t5", d_model=small_test_config().model.text_embed_dim)
+    with _serving_main(capsys, ["--synthetic", "--device", "cpu", "--no_warmup", "--port",
+                                "0", "--max_batch", "4", "--t5_snapshot", snap]) as addr:
+        status, out = _post(addr, {"description": "The pose is west of a beige pole. "
+                                                  "A zeppelin hovers over the square."})
+        assert status == 200, out
+        assert len(out["cells"]) == 3 and np.isfinite(out["position"]).all()
+    (loc,) = built
+    assert isinstance(loc.online_encoder, T5OnlineEncoder)
+    assert loc.online_encoder.embed_dim == loc.embedder.embed_dim

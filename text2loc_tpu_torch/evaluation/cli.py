@@ -15,9 +15,14 @@ Weights: a reference-layout .pth per tower (--coarse_torch_ckpt,
 --fine_torch_ckpt), loaded with strict=False semantics; what a checkpoint
 lacks keeps the port's seeded random initialization (convert.init_weights,
 seed 0). --coarse_ckpt / --fine_ckpt load the best checkpoint of the port's
-trainers (utils/checkpoint.py; not the JAX package's Orbax files). The
-flags of paths the port does not have yet raise an error that names the
-ROADMAP item they wait for; none is ignored.
+trainers (utils/checkpoint.py; not the JAX package's Orbax files).
+
+Styled hints: --styled_hints re-renders every pose's description through
+the paraphrase banks and serves it through Localizer.localize_text, with the
+frozen T5 encoder of --t5_snapshot (a local HF snapshot, read without
+transformers) or the compositional stand-in. The flags of paths the port
+does not have yet raise an error that names the ROADMAP item they wait for;
+none is ignored.
 """
 
 from __future__ import annotations
@@ -31,8 +36,6 @@ from text2loc_tpu_torch.config import Config
 
 # Flag -> the ROADMAP item the port's support of it waits for.
 _NOT_PORTED = {
-    "styled_hints": "the online T5 encoder (ROADMAP Queue 1 item 6)",
-    "t5_snapshot": "the online T5 encoder (ROADMAP Queue 1 item 6)",
     "plot_retrievals": "a port copy of evaluation/visualize.py (ROADMAP Queue 1 item 8)",
 }
 
@@ -73,9 +76,18 @@ def build_argparser():
                     help="retrieval depths (default 1 3 5 10)")
     ap.add_argument("--threshs", type=float, nargs="*", default=None,
                     help="localization error thresholds in meters (default 5 10 15)")
-    ap.add_argument("--styled_hints", action="store_true")
-    ap.add_argument("--styled_seed", type=int, default=0)
-    ap.add_argument("--t5_snapshot", default=None)
+    ap.add_argument("--styled_hints", action="store_true",
+                    help="paraphrase-robustness eval: re-render every query through "
+                         "the sentence_style_* banks (text_styles.py) and serve the "
+                         "styled (out-of-vocabulary) strings through localize_text's "
+                         "online encoder; prints styled vs canonical recall")
+    ap.add_argument("--styled_seed", type=int, default=0,
+                    help="paraphrase sampling seed for --styled_hints")
+    ap.add_argument("--t5_snapshot", default=None,
+                    help="local HF T5 snapshot directory (config.json, "
+                         "model.safetensors or pytorch_model.bin, tokenizer.json) for "
+                         "the online encoder; default: the compositional stand-in "
+                         "matched to the table embedder")
     ap.add_argument("--sentence_table", action="store_true",
                     help="encode eval queries via the [V, D] sentence table")
     return ap
@@ -174,7 +186,43 @@ def main_pipeline(argv=None) -> dict:
     gen = torch.Generator().manual_seed(0)
     coarse = _model(cfg, "coarse", args, args.coarse_torch_ckpt, gen)
     fine = _model(cfg, "fine", args, args.fine_torch_ckpt, gen)
-    return run_pipeline(data, coarse, fine, embedder, cfg, device=args.device)
+    result = run_pipeline(data, coarse, fine, embedder, cfg, device=args.device)
+    if args.styled_hints:
+        result["styled"] = run_styled(args, cfg, data, coarse, fine, embedder)
+    return result
+
+
+def online_encoder(args, cfg):
+    """The online encoder of --t5_snapshot (on --device), or None."""
+    if not args.t5_snapshot:
+        return None
+    from text2loc_tpu_torch.models.t5_encoder import T5OnlineEncoder
+
+    return T5OnlineEncoder.from_snapshot(args.t5_snapshot,
+                                         max_tokens=cfg.model.max_hint_tokens,
+                                         device=args.device)
+
+
+def run_styled(args, cfg, data, coarse, fine, embedder) -> dict:
+    """--styled_hints: paraphrased queries through the serving front door,
+    with the --t5_snapshot encoder or the compositional stand-in."""
+    from text2loc_tpu_torch.evaluation.styled import eval_styled_retrieval
+    from text2loc_tpu_torch.models.t5_encoder import CompositionalOnlineEncoder
+    from text2loc_tpu_torch.serving import Localizer
+
+    online = online_encoder(args, cfg) or CompositionalOnlineEncoder(
+        embed_dim=cfg.model.text_embed_dim, max_tokens=cfg.model.max_hint_tokens)
+    localizer = Localizer(data, coarse, fine, embedder, cfg, top_k=max(cfg.eval.top_k),
+                          online_encoder=online, device=args.device)
+    out = eval_styled_retrieval(localizer, data, seed=args.styled_seed,
+                                top_k=cfg.eval.top_k)
+    for name in ("canonical", "styled"):
+        r = out[name]
+        ks = " ".join(f"R@{k}={v:.3f}" for k, v in r["recall"].items())
+        print(f"[styled_hints] {name:9s} {ks} mean_err={r['mean_error_m']:.2f}m")
+    gaps = " ".join(f"@{k}={v:+.3f}" for k, v in out["recall_gap"].items())
+    print(f"[styled_hints] canonical-minus-styled recall gap: {gaps}")
+    return out
 
 
 def main_coarse(argv=None):

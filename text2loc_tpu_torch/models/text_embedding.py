@@ -1,6 +1,6 @@
 """Frozen text embeddings as a lookup table over the hint vocabulary (port of
 text2loc_tpu/models/text_embedding.py: make_embedder, compositional,
-from_npz, embed, checksum).
+from_npz, from_t5, embed, checksum).
 
 The compositional stand-in is built by the same numpy recipe as the JAX
 package's, so the two tables are byte-equal."""
@@ -119,3 +119,38 @@ class HintTextEmbedder:
         """A prebuilt frozen-text table (scripts/build_t5_table.py)."""
         with np.load(path) as data:
             return cls(data["table"], data["token_mask"], device=device)
+
+    @classmethod
+    def from_t5(cls, model_name_or_path=None, max_tokens: int = 32, batch_size: int = 64,
+                cache_path=None, model=None, tokenizer=None,
+                device="cuda") -> "HintTextEmbedder":
+        """Build the table by running the frozen T5 encoder over the hint
+        vocabulary once: the port's own `models.t5_encoder.T5Encoder`, given
+        as `model` (with any `tokenizer` that speaks the HF call) or read
+        from the local snapshot `model_name_or_path` on `device`. An
+        existing `cache_path` npz is loaded instead; a missing one is
+        written."""
+        import os
+
+        if cache_path is not None and os.path.exists(cache_path):
+            return cls.from_npz(cache_path)
+
+        from text2loc_tpu_torch.models.t5_encoder import T5OnlineEncoder, encode_sentences
+
+        if model is None or tokenizer is None:
+            online = T5OnlineEncoder.from_snapshot(model_name_or_path, max_tokens=max_tokens,
+                                                   device=device)
+            model, tokenizer = online.model, online.tokenizer
+        sentences = [C.render_hint(d, col, lab)
+                     for d in range(C.NUM_DIRECTIONS)
+                     for col in range(C.NUM_COLORS)
+                     for lab in range(C.NUM_CLASSES)]
+        table = np.zeros((len(sentences), max_tokens, model.cfg.d_model), np.float32)
+        token_mask = np.zeros((len(sentences), max_tokens), bool)
+        for start in range(0, len(sentences), batch_size):
+            chunk = sentences[start:start + batch_size]
+            table[start:start + len(chunk)], token_mask[start:start + len(chunk)] = (
+                encode_sentences(model, tokenizer, chunk, max_tokens))
+        if cache_path is not None:
+            np.savez_compressed(cache_path, table=table, token_mask=token_mask)
+        return cls(table, token_mask)

@@ -183,12 +183,13 @@ def main(argv=None, stop: Optional[threading.Event] = None):
     """`python -m text2loc_tpu_torch.serving_http`: load the map and the
     models through the evaluation CLI's stack (--synthetic or --base_path
     with --array_cache; --coarse_ckpt / --fine_ckpt for the port's trainer
-    checkpoints, --*_torch_ckpt for reference .pth files; --text_table),
+    checkpoints, --*_torch_ckpt for reference .pth files; --text_table;
+    --t5_snapshot for the online encoder of out-of-vocabulary descriptions),
     build a cached Localizer (persisted by --cache_path), warm it, and serve
     it through the micro-batching dispatcher until `stop` is set (or an
     interrupt, with stop=None)."""
     from text2loc_tpu_torch.evaluation.cli import (_apply_model_flags, _check_flags,
-                                                   _load, _model)
+                                                   _load, _model, online_encoder)
     from text2loc_tpu_torch.models.text_embedding import make_embedder
     from text2loc_tpu_torch.serving import Localizer
 
@@ -201,7 +202,8 @@ def main(argv=None, stop: Optional[threading.Event] = None):
     fine = _model(cfg, "fine", args, args.fine_torch_ckpt, gen)
     loc = Localizer(data, coarse, fine, embedder, cfg,
                     top_k=args.serve_top_k or max(cfg.eval.top_k),
-                    cache_path=args.cache_path, device=args.device)
+                    cache_path=args.cache_path, online_encoder=online_encoder(args, cfg),
+                    device=args.device)
     # Warm the two bucket extremes (a lone request and a full drain) before
     # accepting traffic: on the card the first calls build the kernels and
     # fill their plan caches.
