@@ -85,6 +85,26 @@ toolkit. Phases, each printing one JSON line:
 9. train_vs_cpu: one coarse step (batch 8, dropout 0, no augmentation, f32)
    from the same seeded weights on the card and on the CPU: loss, every
    gradient leaf and the BN running statistics;
+9b. dp: data parallelism (parallel/) at phase 8's shapes (f32 body, batch
+   32, dropout and augmentation on, the training SA kernels): a coarse and
+   a fine step from seeded weights (a) over a world of 1 rank on NCCL in
+   this process and (b) over 2 spawned ranks on gloo, both on cuda:0, half
+   the batch each, each against the same step without a mesh with phase
+   9's limits (loss rel 1e-4; each gradient leaf rel-L2 1e-3 or cosine
+   0.9999; BN running statistics rel 1e-4), sa_train_fwd and sa_train_bwd
+   launched on every rank, and each leaf's norm within 1e-2 of the step's
+   without a mesh (a leaf counted on every rank has a cosine of 1); (c) in
+   the same 2 ranks, the sharded serve (f32, Config() width, phase 4's
+   map) against the dense serve over 64 queries (top-1 equal where the
+   margin exceeds 1e-4, positions within 1e-4 m); (d) in the same 2
+   ranks, sa_train alone (the card's backward) at the coarse step's three
+   levels on half the clouds each: statistics and the parameters'
+   gradients summed over the ranks within rel-L2 1e-5 / 1e-3 of one
+   rank's (one rank with its clouds rolled by half beside), and a control
+   whose backward returns dgamma / dbeta reduced over the ranks (the
+   double count) must fail that comparison; ms of a step per rank,
+   launches and collectives per step, batch-8 ms of both serves, on a
+   line with the card's name and power limit;
 10. pipeline_optin: the opt-in kernel paths of the evaluation at full
    Config() width (bf16) over the 64-cell map and phase 6's weights:
    run_pipeline with fused_ln="all" and fused_ffn="0" (mode first), and
@@ -156,8 +176,9 @@ and the training level of the token "e" (sa_train_e_fwd / _bwd) at the coarse
 step's three levels (f32, bf16), with the time of one PyTorch call that
 computes the same function where there is one (library_ms).
 
-Then the kernels line (launches: the counts during phases 4, 6, 8, 10
-(serve_optin too), 12, 14 and 15, each path's counts set to 0 just before it;
+Then the kernels line (launches: the counts during phases 4, 6, 8, 9b (every
+rank), 10 (serve_optin too), 12, 14 and 15, each path's counts set to 0 just
+before it;
 max_abs_err, ms, plain_ms, bound_ms and library_ms: over the inference
 kernels' bf16 cases of phase 3 (sa_gather's approximate ball query cases),
 FPS's f32 case, the training kernels' f32 cases, the "e" kernels' bf16
@@ -1935,6 +1956,465 @@ def phase_train_vs_cpu(dev, fused_train=None, phase="train_vs_cpu", grad_cos=Non
         check(bool(x_bad), f"the gradient criterion does not reject the control {control}")
 
 
+# ----------------------------------------------------------------------- dp
+
+DP_WORLD = 2
+DP_TIMEOUT = 240      # seconds for the spawned ranks, their start-up included
+DP_STEPS_TIMED = 3
+# A DP step's gradient leaf against the step's without a mesh: its norm
+# within this share. The leaf criterion of phase 9 holds a leaf by its
+# cosine where its rel-L2 exceeds 1e-3, and a leaf scaled by the world
+# size has a cosine of 1; by the triangle inequality the norm moves no
+# more than the rel-L2, which phase 9's near-ties keep below this.
+DP_LEAF_NORM_REL = 1e-2
+# sa_train's statistics and parameter gradients at 2 ranks (summed over
+# the ranks) against 1 rank, rel-L2 per tensor: only the order of the f32
+# sums differs. The statistics are held to DP_SA_TRAIN_STATS_REL, the
+# gradients to DP_SA_TRAIN_GRAD_REL: dgamma1 / dbeta1 are sums over the
+# edges of dz W2^T, and dz sums to about 0 (BatchNorm's backward), so they
+# cancel and carry the f32 noise of the order of the sums (about 1e-4
+# on an H100); one rank with its clouds in another order (rolled by half)
+# shows it beside. A gradient below 1e-6 x its level's gradient norm (db2, whose
+# exact value is 0 by BatchNorm's shift invariance) only has to stay below
+# 10 x that floor, phase 9's rule (_grad_report). Returning dgamma / dbeta
+# reduced over the ranks (the control, _reduced_dgamma) puts them 1.0 off.
+DP_SA_TRAIN_STATS_REL = 1e-5
+DP_SA_TRAIN_GRAD_REL = 1e-3
+
+
+def _dp_step(cfg, kind, batch, dev, mesh=None) -> dict:
+    """One train step of `kind` from the seeded weights (SEED + 4) with the
+    generator seeded SEED, on this rank's rows of `batch` under `mesh`:
+    the loss, the gradient leaves and BN running statistics (on the host),
+    the launches and collectives of that step, then the median ms of
+    DP_STEPS_TIMED more steps."""
+    from text2loc_tpu_torch.convert import build_model, init_weights
+    from text2loc_tpu_torch.ops import cuda_fps, cuda_sa_train
+    from text2loc_tpu_torch.parallel.mesh import shard_batch
+    from text2loc_tpu_torch.parallel.train import (make_dp_coarse_train_step,
+                                                   make_dp_fine_train_step, replicate_state)
+    from text2loc_tpu_torch.training import steps as steps_lib
+
+    model = init_weights(build_model(cfg, kind), torch.Generator().manual_seed(SEED + 4)).to(dev)
+    make_opt = steps_lib.make_optimizer if kind == "coarse" else steps_lib.make_fine_optimizer
+    opt = make_opt(model.parameters(), cfg, steps_per_epoch=1)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    emb = _dp_embedder(cfg)
+    out = {}
+    if mesh is None:
+        make = (steps_lib.make_coarse_train_step if kind == "coarse"
+                else steps_lib.make_fine_train_step)
+        step = make(model, emb, cfg, opt, gen)
+    else:
+        t0 = time.perf_counter()
+        replicate_state(steps_lib.TrainState(model, opt), mesh)
+        out["replicate_s"] = time.perf_counter() - t0
+        make = make_dp_coarse_train_step if kind == "coarse" else make_dp_fine_train_step
+        step = make(model, emb, cfg, opt, gen, mesh)
+        batch = shard_batch(batch, mesh)
+    kernels = (cuda_fps.KERNEL, cuda_sa_train.KERNEL_FWD, cuda_sa_train.KERNEL_BWD)
+    for k in kernels:
+        k.launches = 0
+    calls = dict(mesh.calls) if mesh is not None else {}
+    out["loss"] = float(step(batch)["loss"])
+    torch.cuda.synchronize()
+    out["launches"] = {k.name: k.launches for k in kernels}
+    out["collectives"] = ({k: v - calls.get(k, 0) for k, v in mesh.calls.items()}
+                          if mesh is not None else {})
+    out["grads"] = {k: p.grad.detach().to("cpu", copy=True)
+                    for k, p in model.named_parameters() if p.grad is not None}
+    out["stats"] = {k: v.detach().to("cpu", copy=True) for k, v in model.state_dict().items()
+                    if "running_" in k}
+    times = []
+    for _ in range(DP_STEPS_TIMED):
+        t0 = time.perf_counter()
+        step(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["ms"] = statistics.median(times)
+    out["all_launches"] = {k.name: k.launches for k in kernels}
+    return out
+
+
+def _dp_embedder(cfg):
+    from text2loc_tpu_torch.models.text_embedding import HintTextEmbedder
+
+    return HintTextEmbedder.compositional(cfg.model.text_embed_dim, cfg.model.max_hint_tokens)
+
+
+def _dp_batches(cfg) -> dict:
+    data = _train_map(cfg, num_poses=96)
+    b = cfg.train.batch_size
+    return {"coarse": data.gather_coarse(np.arange(b), cfg.model.object_size),
+            "fine": data.gather_fine(np.arange(b), cfg.model.pad_size)}
+
+
+def _serve_cfg():
+    import dataclasses
+
+    from text2loc_tpu_torch.config import Config
+
+    base = Config()
+    return base.replace(model=dataclasses.replace(base.model, dtype="float32"))
+
+
+def _serve_queries(data, n):
+    q = np.arange(n) % data.num_poses
+    return (data.hint_dir[q], data.hint_color[q], data.hint_label[q], data.hint_mask[q])
+
+
+def _serve_ms(loc, data) -> float:
+    args = _serve_queries(data, 8)
+    loc.localize(*args)
+    times = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        loc.localize(*args)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+SA_TRAIN_LEVELS = [(256, 128, 32, 64, 0.2), (128, 64, 128, 128, 0.3), (64, 32, 256, 256, 0.4)]
+SA_TRAIN_PARAMS = ("w2", "b2", "g1", "be1", "g2", "be2")
+
+
+def _dp_sa_levels(dev, cells=32) -> list:
+    """The coarse train step's three training SA levels at phase 8's batch
+    (`cells` x 28 object clouds, a quarter padding, exact nearest-32
+    neighbours of FPS centers: phase_sa_train_kernels' shapes at 32),
+    drawn from SEED + 7: per level a dict of sa_train's inputs and a
+    cotangent `dout`; the same on every rank."""
+    from text2loc_tpu_torch.ops import cuda_fps
+    from text2loc_tpu_torch.ops.ballquery import ball_query_knn
+
+    gen = torch.Generator().manual_seed(SEED + 7)
+    n, k = cells * 28, 32
+    pts = _clouds(gen, n, 256, dev)
+    _, xyz = cuda_fps.farthest_point_sampling_cuda(pts, 128)
+    obj = (torch.arange(n, device=dev) % 28) < 21
+    pos, levels = pts, []
+    for p, s, h1, h2, radius in SA_TRAIN_LEVELS:
+        ctr = xyz[:, :s].contiguous()
+        idx, maskm = ball_query_knn(pos, ctr, radius, k)
+        levels.append({
+            "u": _rand(gen, (n, p, h1), 1.0, dev), "sv": _rand(gen, (n, s, h1), 0.5, dev),
+            "w2": _rand(gen, (h1, h2), h1 ** -0.5, dev), "b2": _rand(gen, h2, 0.1, dev),
+            "g1": _rand(gen, h1, 0.1, dev, 1.0), "be1": _rand(gen, h1, 0.1, dev),
+            "g2": _rand(gen, h2, 0.1, dev, 1.0), "be2": _rand(gen, h2, 0.1, dev),
+            "idx": idx.to(torch.int32).contiguous(), "maskm": maskm,
+            "maskf": maskm & obj[:, None, None], "dout": _rand(gen, (n, s, h2), 1.0, dev)})
+        pos = ctr
+    return levels
+
+
+def _dp_sa_ties(levels) -> list:
+    """Per level, sa_train.near_ties at one rank's forward (bool [N, S, H2],
+    on the host): the pairs whose gradient is not defined to within f32
+    rounding (see SA_TRAIN_GRAD_FLOOR), where dout is zeroed."""
+    from text2loc_tpu_torch.ops import cuda_sa_train, sa_train
+
+    out = []
+    for lv in levels:
+        level = cuda_sa_train.Level(lv["u"], lv["sv"], lv["w2"], lv["idx"], lv["maskm"],
+                                    lv["maskf"], torch.float32)
+        _, _, aux1, aux2 = sa_train.forward_cuda(level, lv["b2"], lv["g1"], lv["be1"],
+                                                 lv["g2"], lv["be2"], lv["maskf"], 1e-5)
+        out.append(sa_train.near_ties(lv["u"], lv["sv"], lv["w2"], lv["idx"], lv["maskm"],
+                                      aux1, aux2, torch.float32).cpu())
+    return out
+
+
+def _dp_sa_train(levels, ties, mesh=None, roll=0) -> list:
+    """Per level, ops/sa_train.sa_train (the CUDA kernels, f32) on this
+    rank's clouds under `mesh`: its statistics (mean1, var1, mean2, var2,
+    count) and the parameters' gradients of sum(out * dout), dout zero at
+    `ties`, summed over the ranks as the DP step sums them; on the host.
+    `roll`: the clouds rolled by this many first (the same sums in another
+    order)."""
+    from text2loc_tpu_torch.ops.sa_train import sa_train
+    from text2loc_tpu_torch.parallel.mesh import all_reduce_, shard_batch
+
+    out = []
+    for lv, tie in zip(levels, ties):
+        clouds = {k: lv[k] for k in ("u", "sv", "idx", "maskm", "maskf")}
+        clouds["dout"] = lv["dout"].masked_fill(tie.to(lv["dout"].device), 0.0)
+        clouds = {k: torch.roll(v, roll, 0) for k, v in clouds.items()}
+        if mesh is not None:
+            clouds = shard_batch(clouds, mesh)
+        params = [lv[k].clone().requires_grad_() for k in SA_TRAIN_PARAMS]
+        y, stats = sa_train(clouds["u"], clouds["sv"], *params, clouds["idx"], clouds["maskm"],
+                            clouds["maskf"], mesh=mesh)
+        (y * clouds["dout"]).sum().backward()
+        grads = [p.grad for p in params]
+        if mesh is not None:
+            grads = [all_reduce_(g.clone(), mesh) for g in grads]
+        out.append({"stats": [s.detach().cpu() for s in stats],
+                    "dparams": [g.detach().cpu() for g in grads]})
+    return out
+
+
+def _reduced_dgamma(backward):
+    """`backward` (sa_train.backward_cuda) returning dgamma / dbeta summed
+    over the ranks: the double count under the gradient all-reduce that
+    the comparison must reject (a control)."""
+    from text2loc_tpu_torch.parallel.mesh import global_sums
+
+    def wrapped(level, aux1, aux2, n1, dout, mesh=None):
+        grads = list(backward(level, aux1, aux2, n1, dout, mesh))
+        grads[4:] = global_sums(mesh, *grads[4:])
+        return tuple(grads)
+
+    return wrapped
+
+
+def _dp_sa_errs(got, want) -> dict:
+    """rel-L2 of each level's statistics and parameter gradients against
+    one rank's: {"stats": worst, "dparams": worst, per name: worst,
+    "zero_failed": [(level, name) of gradients below the floor (see
+    DP_SA_TRAIN_STATS_REL) that did not stay below 10 x it]}."""
+    errs = {"stats": 0.0, "dparams": 0.0, **{k: 0.0 for k in SA_TRAIN_PARAMS},
+            "zero_failed": []}
+    for i, (g, w) in enumerate(zip(got, want)):
+        for a, b in zip(g["stats"], w["stats"]):
+            e = float((a.double() - b.double()).norm() / (b.double().norm() + 1e-30))
+            errs["stats"] = max(errs["stats"], e)
+        floor = 1e-6 * float(torch.sqrt(sum(b.double().pow(2).sum() for b in w["dparams"])))
+        for name, a, b in zip(SA_TRAIN_PARAMS, g["dparams"], w["dparams"]):
+            if float(b.norm()) < floor:
+                if not float(a.norm()) < 10 * floor:
+                    errs["zero_failed"].append((i, name))
+                continue
+            e = float((a.double() - b.double()).norm() / b.double().norm())
+            errs[name] = max(errs[name], e)
+            errs["dparams"] = max(errs["dparams"], e)
+    return errs
+
+
+def _dp_rank(mesh, sa_ties) -> dict:
+    """What each spawned rank of phase dp runs (gloo, cuda:0): the DP coarse
+    and fine steps on half the batch, then the sharded serve (f32,
+    Config() width) over phase 4's map, then sa_train alone at the coarse
+    step's levels on half the clouds, and again with the control backward
+    (_reduced_dgamma). Rank 0 returns the gradients."""
+    from text2loc_tpu_torch.ops import (cuda_ffn, cuda_fps, cuda_mha, cuda_pointconv,
+                                        cuda_sa_train)
+    from text2loc_tpu_torch.serving import Localizer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = mesh.device
+    cfg = _train_cfg(batch_size=32)
+    out = {}
+    for kind, batch in _dp_batches(cfg).items():
+        r = _dp_step(cfg, kind, batch, dev, mesh)
+        if mesh.rank != 0:
+            r.pop("grads"), r.pop("stats")
+        out[kind] = r
+    serve_kernels = (cuda_fps.KERNEL, cuda_pointconv.KERNEL_FIRST, cuda_mha.KERNEL,
+                     cuda_mha.KERNEL_TILED, cuda_ffn.KERNEL, cuda_sa_train.KERNEL_FWD,
+                     cuda_sa_train.KERNEL_BWD)
+    for k in serve_kernels:
+        k.launches = 0
+    scfg = _serve_cfg()
+    data = _map(2, 32, scfg)
+    coarse, fine = _models(scfg, torch.Generator().manual_seed(SEED))
+    t0 = time.perf_counter()
+    loc = Localizer(data, coarse, fine, _dp_embedder(scfg), scfg, top_k=10, mesh=mesh)
+    torch.cuda.synchronize()
+    out["serve"] = {"build_s": time.perf_counter() - t0, "rows": int(loc.gallery.shape[0]),
+                    "result": loc.localize(*_serve_queries(data, 64)),
+                    "ms_batch8": _serve_ms(loc, data),
+                    "launches": {k.name: k.launches for k in serve_kernels}}
+    out.update(_dp_sa_rank(mesh, sa_ties))
+    return out
+
+
+def _dp_sa_rank(mesh, sa_ties, cells=32) -> dict:
+    """Part (d) on one rank: _dp_sa_train over its half of the clouds, and
+    again with the control backward (_reduced_dgamma)."""
+    from text2loc_tpu_torch.ops import sa_train
+
+    levels = _dp_sa_levels(mesh.device, cells)
+    out = {"sa_train": _dp_sa_train(levels, sa_ties, mesh)}
+    backward = sa_train.backward_cuda
+    sa_train.backward_cuda = _reduced_dgamma(backward)
+    try:
+        out["sa_train_control"] = _dp_sa_train(levels, sa_ties, mesh)
+    finally:
+        sa_train.backward_cuda = backward
+    return out
+
+
+def _leaf_norms(got: dict, want: dict, floor: float):
+    """(worst |(|g| / |w|) - 1| over the leaves above `floor`, the leaves
+    beyond DP_LEAF_NORM_REL)."""
+    worst, bad = 0.0, []
+    for k, w in want.items():
+        nw = float(w.double().norm())
+        if nw < floor:
+            continue
+        dev = abs(float(got[k].double().norm()) / nw - 1.0)
+        worst = max(worst, dev)
+        if not dev <= DP_LEAF_NORM_REL:
+            bad.append(k)
+    return worst, bad
+
+
+def _dp_compare(report, name, got, want, tag) -> list:
+    """Phase 9's criteria for one DP step against the step without a mesh:
+    loss rel 1e-4, each gradient leaf rel-L2 1e-3 or cosine 0.9999 (above
+    the floor), BN running statistics rel 1e-4; and each leaf's norm within
+    DP_LEAF_NORM_REL of the step's without a mesh, which a leaf counted on
+    every rank (the cosine of a scaled leaf is 1) fails. Returns the
+    failures."""
+    loss_rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    worst_rel, worst_cos, floor, bad = _grad_report(got["grads"], want["grads"])
+    worst_norm, bad_norm = _leaf_norms(got["grads"], want["grads"], floor)
+    stat_rel = max(float((got["stats"][k] - v).norm() / (v.norm() + 1e-30))
+                   for k, v in want["stats"].items())
+    report[name] = {"loss": got["loss"], "loss_rel_err": loss_rel,
+                    "worst_grad_rel_l2": worst_rel, "worst_grad_cos": worst_cos,
+                    "grad_leaves_failed": bad, "worst_leaf_norm_rel": worst_norm,
+                    "leaf_norms_failed": bad_norm, "worst_bn_stat_rel": stat_rel,
+                    "ms_per_step": got["ms"], "launches_per_step": got["launches"],
+                    "collectives_per_step": got["collectives"]}
+    fails = []
+    if set(got["grads"]) != set(want["grads"]):
+        fails.append(f"{tag}: gradient leaves differ")
+    if not loss_rel <= 1e-4:
+        fails.append(f"{tag}: loss differs by {loss_rel} (rel)")
+    if bad:
+        fails.append(f"{tag}: gradients differ: {bad[:5]}")
+    if bad_norm:
+        fails.append(f"{tag}: gradient norms differ: {bad_norm[:5]}")
+    if not stat_rel <= 1e-4:
+        fails.append(f"{tag}: BN running statistics differ by {stat_rel} (rel)")
+    return fails
+
+
+def phase_dp(dev, smi: str) -> dict:
+    """Data parallelism on the card (phase 8's training shapes: f32 body,
+    batch 32, the training SA kernels on): (a) world 1 on NCCL in this
+    process, a DP coarse and fine step against the same steps without a
+    mesh; (b) world 2 on gloo, two spawned ranks on cuda:0 with half the
+    batch each, the same comparison, sa_train_fwd and sa_train_bwd launched
+    on every rank, each gradient leaf's norm within DP_LEAF_NORM_REL; (c)
+    the sharded serve at world 2 (f32, Config() width, phase 4's map)
+    against the dense serve: top-1 equal (rows whose dense top-1/top-2
+    margin exceeds 1e-4, phase 5's rule; every row's agreement is
+    reported), positions within 1e-4 m; (d) sa_train alone (the card's
+    hand-derived backward) at the coarse step's three levels, world 2
+    against one rank: statistics and parameter gradients summed over the
+    ranks within DP_SA_TRAIN_STATS_REL / DP_SA_TRAIN_GRAD_REL, and the
+    control that returns dgamma / dbeta reduced over the ranks rejected.
+    Returns the phase's launches (every rank's; (d) launches for its
+    comparison and counts none)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from text2loc_tpu_torch.dryrun import run_ranks
+    from text2loc_tpu_torch.ops import cuda_sa_train
+    from text2loc_tpu_torch.parallel.mesh import make_mesh
+    from text2loc_tpu_torch.serving import Localizer
+
+    t_phase = time.perf_counter()
+    cfg = _train_cfg(batch_size=32)
+    batches = _dp_batches(cfg)
+    want = {kind: _dp_step(cfg, kind, batch, dev) for kind, batch in batches.items()}
+    report = {"phase": "dp", "nvidia_smi": smi, "batch": cfg.train.batch_size,
+              "ms_per_step_no_mesh": {k: v["ms"] for k, v in want.items()}}
+    fails, launches = [], {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    with tempfile.TemporaryDirectory(prefix="t2l_smoke_dp_") as tmp:
+        mesh = make_mesh(1, device=dev, backend="nccl", init_method=f"file://{tmp}/store",
+                         rank=0, world_size=1)
+        try:
+            world1 = {kind: _dp_step(cfg, kind, batch, dev, mesh)
+                      for kind, batch in batches.items()}
+        finally:
+            dist.destroy_process_group()
+    for kind in batches:
+        fails += _dp_compare(report, f"nccl_world1_{kind}", world1[kind], want[kind],
+                             f"world 1 {kind}")
+        add(world1[kind]["all_launches"])
+
+    sa_levels = _dp_sa_levels(dev)
+    sa_ties = _dp_sa_ties(sa_levels)
+    sa_want = _dp_sa_train(sa_levels, sa_ties)
+    half = sa_levels[0]["u"].shape[0] // 2
+    sa_rolled = _dp_sa_errs(_dp_sa_train(sa_levels, sa_ties, roll=half), sa_want)
+    del sa_levels
+    t0 = time.perf_counter()
+    ranks = run_ranks(_dp_rank, DP_WORLD, args=(sa_ties,), timeout=DP_TIMEOUT,
+                      backend="gloo", device=dev)
+    report["world2_ranks_s"] = time.perf_counter() - t0
+    sa_report = {"levels": [f"P={p} S={s} H={h1}->{h2}" for p, s, h1, h2, _ in SA_TRAIN_LEVELS],
+                 "near_ties": [int(t.sum()) for t in sa_ties],
+                 "limits": {"stats": DP_SA_TRAIN_STATS_REL, "dparams": DP_SA_TRAIN_GRAD_REL},
+                 "one_rank_rolled_rel_l2": sa_rolled}
+    for rank, r in enumerate(ranks):
+        errs = _dp_sa_errs(r["sa_train"], sa_want)
+        ctrl = _dp_sa_errs(r["sa_train_control"], sa_want)
+        sa_report[f"rank{rank}"] = {"rel_l2": errs, "control_rel_l2": ctrl}
+        if not (errs["stats"] <= DP_SA_TRAIN_STATS_REL
+                and errs["dparams"] <= DP_SA_TRAIN_GRAD_REL and not errs["zero_failed"]):
+            fails.append(f"sa_train world 2 rank {rank}: statistics {errs['stats']}, "
+                         f"parameter gradients {errs['dparams']} (rel) from one rank, "
+                         f"zero gradients not held: {errs['zero_failed']}")
+        if not all(ctrl[k] > DP_SA_TRAIN_GRAD_REL for k in ("g1", "be1", "g2", "be2")):
+            fails.append(f"sa_train world 2 rank {rank}: the comparison does not reject "
+                         f"dgamma / dbeta reduced over the ranks: {ctrl}")
+    report["sa_train_world2"] = sa_report
+    for kind in batches:
+        fails += _dp_compare(report, f"gloo_world2_{kind}", ranks[0][kind], want[kind],
+                             f"world 2 {kind}")
+        per_rank = [r[kind] for r in ranks]
+        report[f"gloo_world2_{kind}"].update(
+            ms_per_step_per_rank=[r["ms"] for r in per_rank],
+            launches_per_step_per_rank=[r["launches"] for r in per_rank],
+            replicate_s_per_rank=[r["replicate_s"] for r in per_rank])
+        for rank, r in enumerate(per_rank):
+            add(r["all_launches"])
+            if r["loss"] != per_rank[0]["loss"]:
+                fails.append(f"world 2 {kind}: rank {rank} reports another loss")
+            for k in (cuda_sa_train.KERNEL_FWD, cuda_sa_train.KERNEL_BWD):
+                if not r["launches"][k.name] > 0:
+                    fails.append(f"world 2 {kind}: rank {rank} launched no {k.name}")
+
+    scfg = _serve_cfg()
+    data = _map(2, 32, scfg)
+    coarse, fine = _models(scfg, torch.Generator().manual_seed(SEED))
+    dense = Localizer(data, coarse, fine, _dp_embedder(scfg), scfg, top_k=10, device=dev)
+    want_res = dense.localize(*_serve_queries(data, 64))
+    serve = {"dense_ms_batch8": _serve_ms(dense, data), "queries": 64,
+             "cells": data.num_cells}
+    for rank, r in enumerate(ranks):
+        got = r["serve"]["result"]
+        compared, top1_equal, pos_err = _top1_agreement(got, want_res)
+        serve[f"rank{rank}"] = {
+            "rows_held": r["serve"]["rows"], "build_s": r["serve"]["build_s"],
+            "ms_batch8": r["serve"]["ms_batch8"], "launches": r["serve"]["launches"],
+            "compared": compared, "top1_equal": top1_equal, "max_pos_err_m": pos_err,
+            "top1_equal_all_rows": bool((got.cell_indices[:, 0]
+                                         == want_res.cell_indices[:, 0]).all()),
+            "max_score_err": float(np.abs(got.scores - want_res.scores).max())}
+        add(r["serve"]["launches"])
+        if not (top1_equal and pos_err <= 1e-4):
+            fails.append(f"sharded serve rank {rank}: top-1 {top1_equal}, positions "
+                         f"{pos_err} m from the dense serve")
+    report["serve_world2"] = serve
+    report["launches"] = launches
+    report["seconds"] = time.perf_counter() - t_phase
+    emit(report)
+    check(not fails, "; ".join(fails))
+    return launches
+
+
 # -------------------------------------------------------------- serve paths
 
 KITTI_SCENE = "2013_05_28_drive_0010_sync"   # the val split's one scene
@@ -2513,6 +2993,7 @@ def main() -> int:
                 cuda_sa_train.KERNEL_E_FWD, cuda_sa_train.KERNEL_E_BWD])
     counts.append(train_counts)
     phase_train_vs_cpu(dev)
+    counts.append(phase_dp(dev, smi))
     counts.append(phase_pipeline_optin(dev, pipeline_kernels + optin))
     counts.append(phase_serve(dev, serve_kernels + [cuda_ffn.KERNEL_TILED],
                               options=dict(fused_ffn="all"), phase="serve_optin"))

@@ -1,6 +1,6 @@
 """Where the time of the port's train steps goes on one CUDA card.
 
-    python3 scripts/profile_torch_train.py [--reps 5] [--out chiprun_out/profile_torch_train.txt]
+    python3 scripts/profile_torch_train.py [--reps 5] [--dp] [--out FILE]
 
 Run from the root of a checkout. It builds the training that chip_smoke.py
 drives (the default Config with its f32 body, batch 32, a synthetic map of
@@ -20,8 +20,12 @@ reduce launches not counted), and
 sa_levels: per training SA level of one more step, its shape and its valid
 edges (maskm) and statistics edges (maskf), the work the sa_train kernels
 scale with. Batches are gathered on
-the host before the timing, as train_coarse times its steps. The
-profiler's full tables go to --out. It imports nothing of JAX.
+the host before the timing, as train_coarse times its steps. Each line
+also holds host_ops, the host's aten ops a step. With --dp, each phase
+runs again from the same weights as the data-parallel step over a mesh of
+one rank (NCCL, parallel/mesh.py; phases coarse_dp1 and fine_dp1, with
+the collectives a step). The profiler's full tables go to --out. It
+imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 
 import numpy as np
 import torch
@@ -79,9 +84,17 @@ def level_edges(train_step) -> list:
     return seen
 
 
+def host_ops(prof, per: int) -> float:
+    """The host's aten ops of one profile, divided by `per`."""
+    return sum(1 for evt in prof.events()
+               if evt.device_type == DeviceType.CPU and evt.name.startswith("aten::")) / per
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--reps", type=int, default=5)
+    parser.add_argument("--dp", action="store_true",
+                        help="also each phase as the DP step over a mesh of one rank (NCCL)")
     parser.add_argument("--out", default=os.path.join(REPO, "chiprun_out",
                                                       "profile_torch_train.txt"))
     args = parser.parse_args()
@@ -106,30 +119,50 @@ def main() -> int:
     gen = torch.Generator().manual_seed(SEED)
     b = cfg.train.batch_size
     rows = [np.arange(b * i, b * (i + 1)) % data.num_poses for i in range(3)]
+    mesh = None
+    if args.dp:
+        from text2loc_tpu_torch.parallel.mesh import make_mesh
+
+        store = os.path.join(tempfile.mkdtemp(prefix="t2l_profile_dp_"), "store")
+        mesh = make_mesh(1, device=dev, backend="nccl", init_method=f"file://{store}",
+                         rank=0, world_size=1)
     phases = []
     for kind in ("coarse", "fine"):
-        model = init_weights(build_model(cfg, kind), gen).to(dev)
-        opt = steps_lib.make_optimizer(model.parameters(), cfg, steps_per_epoch=3)
-        make = (steps_lib.make_coarse_train_step if kind == "coarse"
-                else steps_lib.make_fine_train_step)
-        step = make(model, emb, cfg, opt, torch.Generator(device=dev).manual_seed(SEED))
+        weights = init_weights(build_model(cfg, kind), gen).state_dict()
         if kind == "coarse":
             batches = [data.gather_coarse(r, cfg.model.object_size) for r in rows]
         else:
             batches = [data.gather_fine(r, cfg.model.pad_size) for r in rows]
-        calls = iter(range(1 << 30))
+        for name, on in ((kind, None), (kind + "_dp1", mesh)):
+            if name != kind and mesh is None:
+                continue
+            model = build_model(cfg, kind).to(dev)
+            model.load_state_dict(weights)
+            opt = steps_lib.make_optimizer(model.parameters(), cfg, steps_per_epoch=3)
+            make = (steps_lib.make_coarse_train_step if kind == "coarse"
+                    else steps_lib.make_fine_train_step)
+            step = make(model, emb, cfg, opt, torch.Generator(device=dev).manual_seed(SEED),
+                        mesh=on)
+            calls = iter(range(1 << 30))
 
-        def train_step(step=step, batches=batches, calls=calls):
-            return step(batches[next(calls) % len(batches)])
+            def train_step(step=step, batches=batches, calls=calls):
+                return step(batches[next(calls) % len(batches)])
 
-        train_step()                              # warm-up: allocator, cuBLAS handles
-        wall = prof_lib.timed(train_step, args.reps)
-        prof, wall_prof = prof_lib.profiled(train_step, args.reps)
-        phases.append((kind, wall, wall_prof, prof, level_edges(train_step)))
+            train_step()                          # warm-up: allocator, cuBLAS handles
+            wall = prof_lib.timed(train_step, args.reps)
+            before = dict(on.calls) if on is not None else {}
+            prof, wall_prof = prof_lib.profiled(train_step, args.reps)
+            coll = ({k: (v - before.get(k, 0)) / args.reps for k, v in on.calls.items()}
+                    if on is not None else {})
+            phases.append((name, wall, wall_prof, prof, level_edges(train_step), coll))
+    if mesh is not None:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
 
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:
-        for name, wall, wall_prof, prof, levels in phases:
+        for name, wall, wall_prof, prof, levels, coll in phases:
             s = prof_lib.device_summary(prof, args.reps)
             sa = sa_train_ms(prof, args.reps)
             print(json.dumps({"phase": name, "per": "step", "wall_ms": wall,
@@ -139,6 +172,7 @@ def main() -> int:
                               "sa_train_fwd_ms": sa_train_ms(prof, args.reps,
                                                              SA_TRAIN_FWD_KERNELS),
                               "sa_train_bwd_ms": sa_train_ms(prof, args.reps, ("sa_bwd",)),
+                              "host_ops": host_ops(prof, args.reps), "collectives": coll,
                               "sa_levels": levels, **s}),
                   flush=True)
             f.write(f"== {name} ({args.reps} steps)\n")

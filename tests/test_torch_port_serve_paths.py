@@ -196,7 +196,7 @@ def test_localize_text_oov(env):
 def test_online_encoder_dim_and_mesh_raise(env):
     with pytest.raises(ValueError, match="embed_dim"):
         env["make"](online_encoder=StubEncoder(env["cfg"].model.text_embed_dim + 1, 4))
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         env["make"](mesh=object())
 
 

@@ -361,7 +361,7 @@ def test_trainers_refuse_a_mesh_and_default_to_the_card():
 
     for fn in (coarse.train_coarse, fine.train_fine):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
-        with pytest.raises(NotImplementedError, match="item 7"):
+        with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
             fn(small_test_config(), None, None, None, mesh=object())
     assert coarse.build_argparser().parse_args([]).device == "cuda"
 
@@ -507,10 +507,32 @@ def test_training_cli_runs_without_jax(trainer, tmp_path):
 @pytest.mark.parametrize("trainer", ["coarse", "fine"])
 @pytest.mark.parametrize("flag,item", [(["--dp", "2"], "item 7"),
                                        (["--debug_nans"], "item 8")])
-def test_training_cli_flags_the_port_lacks_raise(trainer, flag, item):
+def test_training_cli_flags_the_port_lacks_raise(trainer, flag, item, monkeypatch):
+    """The flags the port once refused (ROADMAP Queue 1 `item`): --dp outside
+    torchrun raises and names it; --debug_nans raises on a NaN injected into
+    a parameter and names the parameter."""
     main = coarse.main if trainer == "coarse" else fine.main
-    with pytest.raises(NotImplementedError, match=item):
-        main(["--synthetic", "--device", "cpu"] + flag)
+    argv = ["--synthetic", "--device", "cpu", "--epochs", "1"] + flag
+    if flag[0] == "--dp":
+        monkeypatch.delenv("WORLD_SIZE", raising=False)
+        with pytest.raises(ValueError, match="torchrun"):
+            main(argv)
+        return
+    from text2loc_tpu_torch.training import loop
+
+    poisoned = "object_encoder.pointnet.sa1.dense_0.weight"
+    build = loop.train_model
+
+    def with_nan(*args, **kw):
+        model = build(*args, **kw)
+        with torch.no_grad():
+            dict(model.named_parameters())[poisoned][0, 0] = float("nan")
+        return model
+
+    monkeypatch.setattr(loop, "train_model", with_nan)
+    with pytest.raises(FloatingPointError, match=poisoned):
+        main(argv)
+    assert not torch.is_anomaly_enabled()
 
 
 # ---------------------------------------------------------------- logging, timing

@@ -4,7 +4,10 @@ torch.Generator on the tensors' device: the same distributions as the JAX
 package's, not the same draws.
 
 Batches are dicts of tensors ([B, ...] leading axis), as gathered by
-MultiSceneArrays and moved to the device.
+MultiSceneArrays and moved to the device. Under a data-parallel `mesh` a
+batch holds this rank's rows, and every draw is made at the global batch's
+shape and cut to them (parallel/mesh.local_draw): a rank augments its rows
+as a single device augments the same rows of the global batch.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import numpy as np
 import torch
 
 from text2loc_tpu_torch import constants as C
+from text2loc_tpu_torch.parallel.mesh import local_draw
 
 
 def normalize_scale(xyz: torch.Tensor) -> torch.Tensor:
@@ -25,22 +29,23 @@ def normalize_scale(xyz: torch.Tensor) -> torch.Tensor:
     return centered * scale
 
 
-def resample_points(xyz, rgb, generator, num_points: int):
+def resample_points(xyz, rgb, generator, num_points: int, mesh=None):
     """Random point resampling with replacement (FixedPoints semantics):
     [..., P, 3] -> [..., num_points, 3]."""
     p = xyz.shape[-2]
     lead = xyz.shape[:-2]
-    idx = torch.randint(0, p, lead + (num_points,), generator=generator,
-                        device=xyz.device)
+    idx = local_draw(lambda shape: torch.randint(0, p, shape, generator=generator,
+                                                 device=xyz.device),
+                     lead + (num_points,), mesh)
     sel = idx[..., None].expand(lead + (num_points, 3))
     return torch.gather(xyz, -2, sel), torch.gather(rgb, -2, sel)
 
 
-def random_rotate_z(xyz, generator, max_degrees: float = 120.0):
+def random_rotate_z(xyz, generator, max_degrees: float = 120.0, mesh=None):
     """Per-object random rotation about z (PyG RandomRotate(., axis=2)),
     angle uniform in [-max_degrees, max_degrees)."""
     lead = xyz.shape[:-2]
-    u = torch.rand(lead, generator=generator, device=xyz.device)
+    u = _rand(lead, generator, xyz.device, mesh)
     ang = (u * (2 * max_degrees) - max_degrees) * (math.pi / 180.0)
     cos, sin = torch.cos(ang)[..., None], torch.sin(ang)[..., None]
     x, y, z = xyz[..., 0], xyz[..., 1], xyz[..., 2]
@@ -61,24 +66,30 @@ def point_cloud_transform_eval(xyz: torch.Tensor, rgb: torch.Tensor,
     return normalize_scale(xyz), rgb
 
 
-def point_cloud_transform(xyz, rgb, generator, num_points: int, augment: bool):
+def point_cloud_transform(xyz, rgb, generator, num_points: int, augment: bool,
+                          mesh=None):
     """train: FixedPoints -> RandomRotate(120, z) -> NormalizeScale;
     eval: point_cloud_transform_eval."""
     if not augment:
         return point_cloud_transform_eval(xyz, rgb, num_points)
-    xyz, rgb = resample_points(xyz, rgb, generator, num_points)
-    return normalize_scale(random_rotate_z(xyz, generator)), rgb
+    xyz, rgb = resample_points(xyz, rgb, generator, num_points, mesh)
+    return normalize_scale(random_rotate_z(xyz, generator, mesh=mesh)), rgb
 
 
-def flip_coarse(batch: dict, generator) -> dict:
+def _rand(shape, generator, device, mesh):
+    return local_draw(lambda s: torch.rand(s, generator=generator, device=device),
+                      shape, mesh)
+
+
+def flip_coarse(batch: dict, generator, mesh=None) -> dict:
     """Random horizontal / vertical flip of cell, pose and hint directions,
     each with p = 0.5 per sample: x -> 1 - x (and/or y -> 1 - y) in
     normalized cell space, direction words remapped east<->west /
     north<->south."""
     b = batch["mask"].shape[0]
     dev = batch["mask"].device
-    do_h = torch.rand(b, generator=generator, device=dev) < 0.5
-    do_v = torch.rand(b, generator=generator, device=dev) < 0.5
+    do_h = _rand((b,), generator, dev, mesh) < 0.5
+    do_v = _rand((b,), generator, dev, mesh) < 0.5
 
     def flip_axis(coords, do, axis):
         flipped = coords.clone()
@@ -99,11 +110,10 @@ def flip_coarse(batch: dict, generator) -> dict:
     return out
 
 
-def shuffle_hints(batch: dict, generator) -> dict:
+def shuffle_hints(batch: dict, generator, mesh=None) -> dict:
     """Per-sample random permutation of the hint axis, the same for every
     hint field."""
-    b, s = batch["hint_dir"].shape
-    noise = torch.rand((b, s), generator=generator, device=batch["hint_dir"].device)
+    noise = _rand(batch["hint_dir"].shape, generator, batch["hint_dir"].device, mesh)
     perm = torch.argsort(noise, dim=1)
     out = dict(batch)
     for name in ("hint_dir", "hint_color", "hint_label", "sentence_mask"):

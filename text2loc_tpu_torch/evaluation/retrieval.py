@@ -11,6 +11,8 @@ import torch
 
 from text2loc_tpu_torch.data.augment import point_cloud_transform_eval
 from text2loc_tpu_torch.data.batch import ObjectSet, TextSet
+from text2loc_tpu_torch.parallel.retrieval import (make_sharded_topk, pad_rows, shard_cells,
+                                                   shard_local_topk)
 
 GALLERY_CHUNK = 64   # cells per coarse-gallery encoder call
 FINE_CHUNK = 128     # cells per fine-cache encoder call
@@ -18,11 +20,10 @@ FINE_CHUNK = 128     # cells per fine-cache encoder call
 
 def topk_retrieval(cell_enc: torch.Tensor, text_enc: torch.Tensor, k: int):
     """(scores [Q, k], indices [Q, k]) by descending inner product in f32.
-    Equal scores keep the lowest gallery index first, as lax.top_k does
-    (a stable descending sort; torch.topk promises no order on ties)."""
-    scores = text_enc.float() @ cell_enc.float().t()
-    vals, idx = torch.sort(scores, dim=1, descending=True, stable=True)
-    return vals[:, :k], idx[:, :k]
+    Equal scores keep the lowest gallery index first, as lax.top_k does:
+    the whole gallery as one shard (parallel/retrieval.shard_local_topk)."""
+    scores, idx, _ = shard_local_topk(cell_enc, text_enc, k, cell_enc.shape[0], 0)
+    return scores, idx
 
 
 def object_set(batch: dict, num_points: int, device) -> ObjectSet:
@@ -45,12 +46,14 @@ def _chunks(n: int, chunk: int):
 
 
 @torch.no_grad()
-def encode_gallery(data, model, cfg, device) -> torch.Tensor:
-    """[C, coarse D] f32 embeddings of every gallery cell
-    (CellRetrievalNetwork.encode_objects over object_size slots)."""
+def encode_gallery(data, model, cfg, device, cell_indices=None) -> torch.Tensor:
+    """[C, coarse D] f32 embeddings of the gallery cells (all, or
+    `cell_indices`) (CellRetrievalNetwork.encode_objects over object_size
+    slots)."""
+    cells = np.arange(data.num_cells) if cell_indices is None else np.asarray(cell_indices)
     rows = []
-    for ids in _chunks(data.num_cells, GALLERY_CHUNK):
-        objects = object_set(data.gather_cell_objects(ids, cfg.model.object_size),
+    for ids in _chunks(len(cells), GALLERY_CHUNK):
+        objects = object_set(data.gather_cell_objects(cells[ids], cfg.model.object_size),
                              cfg.model.pointnet.num_points, device)
         rows.append(model.encode_objects(objects))
     return torch.cat(rows, dim=0)
@@ -111,11 +114,16 @@ def encode_queries_table(data, model, embedder, cfg, device) -> torch.Tensor:
 
 
 @torch.no_grad()
-def eval_retrieval(data, model, embedder, cfg, top_k=None, device="cuda"):
-    """Coarse retrieval over the whole gallery (port of the single-device
-    branch of text2loc_tpu/evaluation/retrieval.py:eval_retrieval): the
-    gallery and the queries encoded (the queries through the sentence table
-    with cfg.eval.sentence_table), top-k by inner product.
+def eval_retrieval(data, model, embedder, cfg, top_k=None, device="cuda", mesh=None):
+    """Coarse retrieval over the whole gallery (port of
+    text2loc_tpu/evaluation/retrieval.py:eval_retrieval): the gallery and
+    the queries encoded (the queries through the sentence table with
+    cfg.eval.sentence_table), top-k by inner product.
+
+    With a data-parallel `mesh` (parallel/mesh.py; every rank calls with the
+    same arguments) each rank encodes only its shard of the gallery, and
+    the top-k is merged over the ranks (parallel/retrieval.py); every rank
+    returns the same result.
 
     Returns (top-k recall {k: r}, close recall {k: r}, retrieved gallery
     indices [Q, min(max k, C)] as numpy). `model` is in eval mode on
@@ -123,11 +131,16 @@ def eval_retrieval(data, model, embedder, cfg, top_k=None, device="cuda"):
     from text2loc_tpu_torch.evaluation import metrics
 
     top_k = tuple(top_k) if top_k is not None else cfg.train.top_k
-    cell_enc = encode_gallery(data, model, cfg, device)
+    k = min(max(top_k), data.num_cells)
     encode = encode_queries_table if cfg.eval.sentence_table else encode_queries
     text_enc = encode(data, model, embedder, cfg, device)
-    k = min(max(top_k), data.num_cells)
-    _, idx = topk_retrieval(cell_enc, text_enc, k)
+    if mesh is None:
+        _, idx = topk_retrieval(encode_gallery(data, model, cfg, device), text_enc, k)
+    else:
+        own, per = shard_cells(data.num_cells, mesh)
+        local = (encode_gallery(data, model, cfg, device, own) if len(own) else
+                 torch.zeros((0, cfg.model.coarse_embed_dim), device=device))
+        _, idx = make_sharded_topk(mesh, k, data.num_cells)(pad_rows(local, per), text_enc)
     idx = idx.cpu().numpy()
     acc, acc_close = metrics.retrieval_accuracies(
         retrieved_cell_idx=idx, target_cell_idx=data.pose_cell_idx,

@@ -9,8 +9,9 @@ BatchNorm is MaskedBatchNorm: in training (module.train()) f32 batch
 statistics over the mask-valid rows, and the running statistics updated
 with momentum 0.1 and the unbiased variance; in eval the running
 statistics. Either way it is applied as one folded affine in the input
-dtype, like the JAX package's MaskedBatchNorm. Layers are named
-dense_{i} / bn_{i} as in the JAX parameter tree.
+dtype, like the JAX package's MaskedBatchNorm. Under a data-parallel mesh
+(parallel/mesh.use_mesh) the training statistics are the global batch's.
+Layers are named dense_{i} / bn_{i} as in the JAX parameter tree.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from text2loc_tpu_torch.parallel.mesh import global_sums
+
 
 class MaskedBatchNorm(nn.Module):
     """BatchNorm1d over every leading axis, counting only mask-valid rows.
@@ -28,7 +31,11 @@ class MaskedBatchNorm(nn.Module):
     passes, f32), count = max(sum m, 1); running_mean/var <- 0.9 * running +
     0.1 * (mean, var * count / max(count - 1, 1)). Eval: the running
     statistics. y = x * a + b with a = weight / sqrt(var + eps) and
-    b = bias - mean * a, both in f32 and cast to x.dtype."""
+    b = bias - mean * a, both in f32 and cast to x.dtype.
+
+    `mesh` (set by parallel/mesh.use_mesh): the training statistics over
+    every rank's rows, in the same two passes: the sums of x m and m
+    all-reduced, the mean formed, then the centred squares all-reduced."""
 
     MOMENTUM = 0.1
 
@@ -39,11 +46,14 @@ class MaskedBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
+        self.mesh = None
 
     def batch_stats(self, x: torch.Tensor, mask=None):
         """(mean, biased var, count) of x over the mask-valid rows, in f32."""
         x32 = x.float()
         dims = tuple(range(x.ndim - 1))
+        if self.mesh is not None:
+            return self._global_stats(x32, mask, dims)
         if mask is None:
             count = torch.tensor(float(x32.numel() // x32.shape[-1]), device=x.device)
             mean = x32.mean(dim=dims)
@@ -55,6 +65,23 @@ class MaskedBatchNorm(nn.Module):
         count = torch.clamp(m.sum(), min=1.0)
         mean = (x32 * m).sum(dim=dims) / count
         return mean, (torch.square(x32 - mean) * m).sum(dim=dims) / count, count
+
+    def _global_stats(self, x32, mask, dims):
+        """batch_stats over every rank of self.mesh."""
+        if mask is None:
+            m = torch.ones((), dtype=torch.float32, device=x32.device)
+            local = torch.tensor(float(x32.numel() // x32.shape[-1]), device=x32.device)
+        else:
+            m = mask.to(torch.bool)
+            while m.ndim < x32.ndim:
+                m = m[..., None]
+            m = m.float()
+            local = m.sum()
+        total, count = global_sums(self.mesh, (x32 * m).sum(dim=dims), local)
+        count = torch.clamp(count, min=1.0)
+        mean = total / count
+        (sq,) = global_sums(self.mesh, (torch.square(x32 - mean) * m).sum(dim=dims))
+        return mean, sq / count, count
 
     @torch.no_grad()
     def update_running(self, mean, var, count) -> None:

@@ -30,6 +30,13 @@ rounded to bf16 and cached (cache_dtype=bfloat16), "e32" with an f32 cache
 (the same function as "1", and the same kernels), "0" the plain masked edge
 MLP.
 
+Under a data-parallel mesh (parallel/mesh.use_mesh sets `mesh` on every
+SA level and MaskedBatchNorm) the training statistics are the global
+batch's: ops/sa_train.py all-reduces them between its passes; a level
+built with fused_train "0" (the JAX package's TEXT2LOC_FUSED_SA_TRAIN_DP=0
+has this effect under a mesh) takes its plain branch with the global
+MaskedBatchNorm.
+
 `vmem_gather` (the JAX package's TEXT2LOC_VMEM_GATHER=1) routes the
 neighbour gather of mode "off" and of the plain training branch through
 the row-gather kernel (ops/ballquery.gather_neighbors; with its scatter-add
@@ -147,6 +154,7 @@ class SetAbstraction(nn.Module):
         self.approx_neighbors = (mode == "gather" if approx_neighbors is None
                                  else bool(approx_neighbors))
         self.bisect_iters = bisect_iters
+        self.mesh = None
         self.dense_0 = nn.Linear(cin, h1)
         self.bn_0 = MaskedBatchNorm(h1)
         self.dense_1 = nn.Linear(h1, h2)
@@ -218,7 +226,7 @@ class SetAbstraction(nn.Module):
                 u, sv, self.dense_1.weight.t(), self.dense_1.bias, self.bn_0.weight,
                 self.bn_0.bias, self.bn_1.weight, self.bn_1.bias, idx, nbr_mask, bn_mask,
                 eps=self.bn_0.eps, compute_dtype=dt,
-                cache_dtype=CACHE_DTYPES[self.fused_train])
+                cache_dtype=CACHE_DTYPES[self.fused_train], mesh=self.mesh)
             self.bn_0.update_running(m1, v1, n1)
             self.bn_1.update_running(m2, v2, n1)
             return out.to(dt)

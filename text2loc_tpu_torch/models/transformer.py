@@ -24,7 +24,8 @@ take the shape raises rather than falling back.
 In training (module.train()) every fused gate closes and the stock ops run
 with dropout at the torch positions: the attention weights, the attention
 output, the feed-forward hidden after the ReLU and the feed-forward output.
-Dropout draws from the generator set with set_dropout_generator.
+Dropout draws from the generator set with set_dropout_generator (under a
+data-parallel mesh, at the global batch's shape: parallel/mesh.local_draw).
 Weights of the blocks are stored [in, out], the layout the kernels read.
 """
 
@@ -39,6 +40,7 @@ from torch import nn
 from text2loc_tpu_torch.ops.ffn import ffn_addln
 from text2loc_tpu_torch.ops.ln import add_layernorm as fused_add_layernorm
 from text2loc_tpu_torch.ops.mha import mha_addln
+from text2loc_tpu_torch.parallel.mesh import local_draw
 
 LN_EPS = 1e-5
 GATE_VALUES = ("0", "1", "all")
@@ -84,17 +86,22 @@ def fused_attn_enabled(d: int, dtype, value: str) -> bool:
 class Dropout(nn.Module):
     """Inverted dropout (keep with 1 - p, scale 1 / (1 - p)) in training,
     drawing its mask from `generator` (a torch.Generator on the tensors'
-    device; None = the default one). The identity in eval or at p = 0."""
+    device; None = the default one). The identity in eval or at p = 0.
+    `mesh` (set by parallel/mesh.use_mesh): the mask is drawn for the global
+    batch (leading axis), and this rank keeps its rows."""
 
     def __init__(self, p: float):
         super().__init__()
         self.p = p
         self.generator = None
+        self.mesh = None
 
     def forward(self, x):
         if not self.training or self.p == 0.0:
             return x
-        keep = torch.rand(x.shape, generator=self.generator, device=x.device) >= self.p
+        keep = local_draw(lambda shape: torch.rand(shape, generator=self.generator,
+                                                   device=x.device),
+                          x.shape, self.mesh) >= self.p
         return x * keep.to(x.dtype) / torch.tensor(1.0 - self.p, dtype=x.dtype,
                                                     device=x.device)
 

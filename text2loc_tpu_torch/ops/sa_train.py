@@ -29,6 +29,14 @@ taken of the rounded e; the gradients pass the rounding unchanged (du is
 the scatter of de, dsv = -sum_k de). On the card no cache is written:
 every pass recomputes e and rounds it the same way (csrc/sa_train_e_fwd.cu,
 sa_train_e_bwd.cu), which gives the passes the e a cache would hold.
+
+Under a data-parallel mesh (parallel/mesh.py) each rank holds its own
+clouds and the statistics are the global batch's: the forward's sums
+(sum, sum of squares and the count n) are all-reduced between its passes,
+the backward's correction sums (A = sum dy, B = sum dy * yhat) before they
+are divided by n. The returned dgamma / dbeta are the rank's local sums,
+like dW2 and db2: the step's all-reduce of the parameter gradients sums
+them once (the JAX kernel's rule, pallas_sa_train.py:1008-1012).
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ import torch
 
 from text2loc_tpu_torch.ops import cuda_sa_train
 from text2loc_tpu_torch.ops.masked import masked_max
+from text2loc_tpu_torch.parallel.mesh import global_sums
 
 NEG = -1.0e30
 _AUX_ROWS = 8     # a, c, mean, inv, A/n, B/n, b2 (aux2 only), unused
@@ -57,12 +66,19 @@ def _edge_dtype(cache_dtype):
     return torch.bfloat16 if cache_dtype == torch.bfloat16 else torch.float32
 
 
-def _stats(x, mf, n1):
-    """(mean, biased variance) over the maskf edges: the TPU kernel's
-    one-pass formulas."""
+def _stats(x, mf, n1, mesh=None):
+    """(mean, biased variance) over the maskf edges (of every rank under a
+    mesh): the TPU kernel's one-pass formulas."""
     dims = tuple(range(x.ndim - 1))
-    m = (x * mf).sum(dims) / n1
-    return m, torch.clamp((x * x * mf).sum(dims) / n1 - m * m, min=0.0)
+    s1, s2 = global_sums(mesh, (x * mf).sum(dims), (x * x * mf).sum(dims))
+    m = s1 / n1
+    return m, torch.clamp(s2 / n1 - m * m, min=0.0)
+
+
+def _count(maskf, mesh):
+    """n = max(#maskf edges, 1), over every rank under a mesh."""
+    (n,) = global_sums(mesh, maskf.float().sum())
+    return torch.clamp(n, min=1.0)
 
 
 def _affine(m, v, gamma, beta, eps):
@@ -89,25 +105,27 @@ def _edges(u, sv, idx, cdt, edt=torch.float32):
 
 
 def sa_train_plain(u, sv, w2, b2, g1, be1, g2, be2, idx, maskm, maskf,
-                   eps: float = 1e-5, compute_dtype=torch.float32, cache_dtype=None):
+                   eps: float = 1e-5, compute_dtype=torch.float32, cache_dtype=None,
+                   mesh=None):
     """(out [N, S, H2] f32, (mean1, var1, mean2, var2, count)) in plain
-    torch, differentiable by autograd (the statistics too)."""
+    torch, differentiable by autograd (the statistics too); under `mesh`
+    the statistics and the count are the global batch's."""
     cdt = compute_dtype
     mf = maskf.float()[..., None]
-    n1 = torch.clamp(maskf.float().sum(), min=1.0)
+    n1 = _count(maskf, mesh)
     e = _edges(u, sv, idx, cdt, _edge_dtype(cache_dtype))
-    m1, v1 = _stats(e, mf, n1)
+    m1, v1 = _stats(e, mf, n1, mesh)
     a1, c1, _ = _affine(m1, v1, g1, be1, eps)
     h1 = torch.relu(e * a1 + c1)
     z = _round(h1, cdt) @ _round(w2.float(), cdt) + b2
-    m2, v2 = _stats(z, mf, n1)
+    m2, v2 = _stats(z, mf, n1, mesh)
     a2, c2, _ = _affine(m2, v2, g2, be2, eps)
     out = masked_max(torch.relu(z * a2 + c2), maskm, dim=2)
     return out, (m1, v1, m2, v2, n1)
 
 
 def sa_train_backward_plain(u, sv, w2, idx, maskm, maskf, aux1, aux2, n1, dout,
-                            compute_dtype=torch.float32, cache_dtype=None):
+                            compute_dtype=torch.float32, cache_dtype=None, mesh=None):
     """The hand-derived backward in plain torch (the CUDA backward's
     yardstick): (du, dsv, dW2, db2, dgamma1, dbeta1, dgamma2, dbeta2) given
     the forward's aux rows (a, c, mean, inv; aux2 row 6 = b2) and count.
@@ -118,7 +136,10 @@ def sa_train_backward_plain(u, sv, w2, idx, maskm, maskf, aux1, aux2, n1, dout,
         de  = a1 * (dy1 - maskf * (A1/n + yhat1 * B1/n))
         du  = scatter of round(de) at idx,  dsv = -sum_k de
         dW2 = round(h1)^T round(dz),  db2 = sum dz
-    with A = sum dy, B = sum dy * yhat over ALL edges (dbeta, dgamma)."""
+    with A = sum dy, B = sum dy * yhat over ALL edges (dbeta, dgamma).
+    Under `mesh`, n1 is the global count, A and B are summed over the
+    ranks for dz and de, and the returned dgamma / dbeta are the local
+    sums."""
     cdt = compute_dtype
     n, p, h1w = u.shape
     s, k = idx.shape[1:]
@@ -139,13 +160,15 @@ def sa_train_backward_plain(u, sv, w2, idx, maskm, maskf, aux1, aux2, n1, dout,
     dy2 = dh2 * (y2 > 0).float()
     yhat2 = (z - aux2[2]) * aux2[3]
     dbe2, dg2 = dy2.sum(dims), (dy2 * yhat2).sum(dims)
-    dz = aux2[0] * (dy2 - mf * (dbe2 / n1 + yhat2 * (dg2 / n1)))
+    ga2, gb2 = global_sums(mesh, dbe2, dg2)
+    dz = aux2[0] * (dy2 - mf * (ga2 / n1 + yhat2 * (gb2 / n1)))
     dzc = dz.to(cdt).float()
     dh1 = dzc @ w2c.t()
     dy1 = dh1 * (y1 > 0).float()
     yhat1 = (e - aux1[2]) * aux1[3]
     dbe1, dg1 = dy1.sum(dims), (dy1 * yhat1).sum(dims)
-    de = aux1[0] * (dy1 - mf * (dbe1 / n1 + yhat1 * (dg1 / n1)))
+    ga1, gb1 = global_sums(mesh, dbe1, dg1)
+    de = aux1[0] * (dy1 - mf * (ga1 / n1 + yhat1 * (gb1 / n1)))
     dw2 = h1.to(cdt).float().reshape(-1, h1w).t() @ dzc.reshape(-1, dzc.shape[-1])
     db2 = dz.sum(dims)
     du = torch.zeros((n, p, h1w), dtype=torch.float32, device=u.device)
@@ -218,9 +241,9 @@ def near_ties(u, sv, w2, idx, maskm, aux1, aux2, compute_dtype, cache_dtype=None
 
 
 def _forward_plain(u, sv, w2, b2, g1, be1, g2, be2, idx, maskm, maskf, eps, cdt,
-                   cache_dtype):
+                   cache_dtype, mesh):
     out, (m1, v1, m2, v2, n1) = sa_train_plain(u, sv, w2, b2, g1, be1, g2, be2, idx,
-                                               maskm, maskf, eps, cdt, cache_dtype)
+                                               maskm, maskf, eps, cdt, cache_dtype, mesh)
     a1, c1, inv1 = _affine(m1, v1, g1, be1, eps)
     a2, c2, inv2 = _affine(m2, v2, g2, be2, eps)
     aux1 = _aux({0: a1, 1: c1, 2: m1, 3: inv1}, u.shape[-1], u.device)
@@ -228,18 +251,20 @@ def _forward_plain(u, sv, w2, b2, g1, be1, g2, be2, idx, maskm, maskf, eps, cdt,
     return out, (m1, v1, m2, v2, n1), aux1, aux2
 
 
-def forward_cuda(level: cuda_sa_train.Level, b2, g1, be1, g2, be2, maskf, eps):
+def forward_cuda(level: cuda_sa_train.Level, b2, g1, be1, g2, be2, maskf, eps,
+                 mesh=None):
     """The forward on the card: three kernel passes with the BN
-    finalization between them. Returns (out, stats, aux1, aux2)."""
-    n1 = torch.clamp(maskf.float().sum(), min=1.0)
+    finalization between them (the sums all-reduced first under `mesh`).
+    Returns (out, stats, aux1, aux2)."""
     aux1 = _aux({}, level.h1, maskf.device)
     aux2 = _aux({6: b2}, level.h2, maskf.device)
-    acc1 = level.stats(1, aux1, aux2)
+    acc1, n1 = global_sums(mesh, level.stats(1, aux1, aux2), maskf.float().sum())
+    n1 = torch.clamp(n1, min=1.0)
     m1 = acc1[0] / n1
     v1 = torch.clamp(acc1[1] / n1 - m1 * m1, min=0.0)
     a1, c1, inv1 = _affine(m1, v1, g1, be1, eps)
     aux1[0], aux1[1], aux1[2], aux1[3] = a1, c1, m1, inv1
-    acc2 = level.stats(2, aux1, aux2)
+    (acc2,) = global_sums(mesh, level.stats(2, aux1, aux2))
     m2 = acc2[0] / n1
     v2 = torch.clamp(acc2[1] / n1 - m2 * m2, min=0.0)
     a2, c2, inv2 = _affine(m2, v2, g2, be2, eps)
@@ -247,16 +272,19 @@ def forward_cuda(level: cuda_sa_train.Level, b2, g1, be1, g2, be2, maskf, eps):
     return level.out(aux1, aux2), (m1, v1, m2, v2, n1), aux1, aux2
 
 
-def backward_cuda(level: cuda_sa_train.Level, aux1, aux2, n1, dout):
+def backward_cuda(level: cuda_sa_train.Level, aux1, aux2, n1, dout, mesh=None):
     """The backward on the card: three kernel passes, the correction sums
-    between them. Returns the grads in sa_train_backward_plain's order."""
+    between them (all-reduced first under `mesh`; dgamma / dbeta stay the
+    local sums). Returns the grads in sa_train_backward_plain's order."""
     dout = dout.float().contiguous()
     acc2 = level.bwd_stats(aux1, aux2, dout)
+    (glob2,) = global_sums(mesh, acc2)
     aux2 = aux2.clone()
-    aux2[4], aux2[5] = acc2[0] / n1, acc2[1] / n1
+    aux2[4], aux2[5] = glob2[0] / n1, glob2[1] / n1
     acc1, dw2, db2 = level.bwd_mid(aux1, aux2, dout)
+    (glob1,) = global_sums(mesh, acc1)
     aux1 = aux1.clone()
-    aux1[4], aux1[5] = acc1[0] / n1, acc1[1] / n1
+    aux1[4], aux1[5] = glob1[0] / n1, glob1[1] / n1
     du, dsv = level.bwd_in(aux1, aux2, dout)
     return du, dsv, dw2, db2, acc1[1], acc1[0], acc2[1], acc2[0]
 
@@ -267,21 +295,23 @@ class _SATrain(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, u, sv, w2, b2, g1, be1, g2, be2, idx, maskm, maskf, eps, cdt,
-                cache_dtype):
+                cache_dtype, mesh):
         if u.is_cuda:
             level = cuda_sa_train.Level(u.contiguous(), sv.contiguous(),
                                         w2.contiguous(), idx.to(torch.int32).contiguous(),
                                         maskm.contiguous(), maskf.contiguous(), cdt,
                                         cache_dtype)
-            out, stats, aux1, aux2 = forward_cuda(level, b2, g1, be1, g2, be2, maskf, eps)
+            out, stats, aux1, aux2 = forward_cuda(level, b2, g1, be1, g2, be2, maskf, eps,
+                                                  mesh)
             ctx.level = level
         elif u.device.type == "cpu":
             out, stats, aux1, aux2 = _forward_plain(u, sv, w2, b2, g1, be1, g2, be2, idx,
-                                                    maskm, maskf, eps, cdt, cache_dtype)
+                                                    maskm, maskf, eps, cdt, cache_dtype,
+                                                    mesh)
             ctx.level = None
         else:
             raise ValueError(f"no SA training level for device {u.device}")
-        ctx.cdt, ctx.cache_dtype = cdt, cache_dtype
+        ctx.cdt, ctx.cache_dtype, ctx.mesh = cdt, cache_dtype, mesh
         ctx.save_for_backward(u, sv, w2, idx, maskm, maskf, aux1, aux2, stats[4])
         ctx.mark_non_differentiable(*stats)
         return (out,) + tuple(stats)
@@ -290,24 +320,25 @@ class _SATrain(torch.autograd.Function):
     def backward(ctx, dout, *_stat_grads):
         u, sv, w2, idx, maskm, maskf, aux1, aux2, n1 = ctx.saved_tensors
         if ctx.level is not None:
-            grads = backward_cuda(ctx.level, aux1, aux2, n1, dout)
+            grads = backward_cuda(ctx.level, aux1, aux2, n1, dout, ctx.mesh)
         else:
             grads = sa_train_backward_plain(u, sv, w2, idx, maskm, maskf, aux1, aux2, n1,
-                                            dout, ctx.cdt, ctx.cache_dtype)
-        return grads + (None,) * 6
+                                            dout, ctx.cdt, ctx.cache_dtype, ctx.mesh)
+        return grads + (None,) * 7
 
 
 def sa_train(u, sv, w2, b2, g1, be1, g2, be2, idx, maskm, maskf, eps: float = 1e-5,
-             compute_dtype=torch.float32, cache_dtype=None):
+             compute_dtype=torch.float32, cache_dtype=None, mesh=None):
     """One SA level's training forward (out [N, S, H2] f32, (mean1, var1,
     mean2, var2, count)); gradients by the hand-derived backward. The CUDA
     kernels run for CUDA tensors (no fallback), the plain versions for CPU
     tensors. u [N, P, H1] = concat(x, pos) @ W1 + b1, sv [N, S, H1] =
     centers @ W1[pos rows], idx [N, S, K], maskm / maskf [N, S, K] bool.
     cache_dtype: None or float32 (the recompute function), or bfloat16 (e
-    rounded to bf16, the JAX kernel's bf16 cache)."""
+    rounded to bf16, the JAX kernel's bf16 cache). `mesh`: a data-parallel
+    Mesh over which the statistics are global (the module docstring)."""
     if _edge_dtype(cache_dtype) == torch.float32:
         cache_dtype = None
     out, *stats = _SATrain.apply(u, sv, w2, b2, g1, be1, g2, be2, idx, maskm.bool(),
-                                 maskf.bool(), eps, compute_dtype, cache_dtype)
+                                 maskf.bool(), eps, compute_dtype, cache_dtype, mesh)
     return out, tuple(stats)

@@ -19,6 +19,15 @@ pairs and the world coordinates. Without it (the stepwise path): the full
 coarse text trunk, top-k, then each candidate cell re-encoded through the
 whole CrossMatch forward with the query's hints. Batches are padded to
 power-of-two buckets and sliced back (see Localizer._padder).
+
+With a data-parallel mesh (parallel/mesh.py) the serve is SPMD: each rank
+builds and holds only its C/n rows of the gallery, the fine cache and the
+cells' bbox and size (parallel/retrieval.shard_cells), and every rank calls
+each localize* method with the same batch. A rank runs the text towers,
+takes the top-k of its own rows with their global ids and refines its own
+candidates; the ranks' (score, position, id) candidates are then gathered
+and merged into the global top-k, which every rank returns alike (the
+JAX package's _build_serve_sharded).
 """
 
 from __future__ import annotations
@@ -38,7 +47,14 @@ from text2loc_tpu_torch.evaluation.retrieval import (
     encode_fine_gallery,
     encode_gallery,
     object_set,
-    topk_retrieval,
+)
+from text2loc_tpu_torch.parallel.mesh import Mesh, all_gather, barrier
+from text2loc_tpu_torch.parallel.retrieval import (
+    all_gather_candidates,
+    merge_shard_topk,
+    pad_rows,
+    shard_cells,
+    shard_local_topk,
 )
 
 def _npz_pack(name: str, t) -> dict:
@@ -85,20 +101,22 @@ class Localizer:
     the weights, the embedder, the config and the map. `online_encoder`: an
     object with `embed_dim` and `encode(sentences) -> (emb [N, T, E],
     mask [N, T])` that serves localize_text's out-of-vocabulary sentences.
-    `mesh` raises: the port serves on one device. `device` defaults to the
-    CUDA card; pass "cpu" for the plain versions of the kernels."""
+    `mesh`: a parallel.mesh.Mesh to shard the gallery over (the module
+    docstring: every rank constructs the Localizer and calls it alike; the
+    device is the mesh's; rank 0 writes `cache_path`). `device` defaults to
+    the CUDA card; pass "cpu" for the plain versions of the kernels."""
 
     def __init__(self, data, coarse_model, fine_model, embedder, cfg,
                  top_k: int = 10, mesh=None, precompute_fine: bool = True,
                  chunk: int = 128, cache_path: Optional[str] = None,
                  online_encoder=None, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError("mesh=: the port serves on one device; the "
-                                      "sharded serve waits for ROADMAP Queue 1 item 7")
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.mesh.Mesh, got {type(mesh).__name__}")
         if online_encoder is not None and online_encoder.embed_dim != embedder.embed_dim:
             raise ValueError("online encoder embed_dim must match the frozen table's "
                              f"({online_encoder.embed_dim} != {embedder.embed_dim})")
-        self.device = torch.device(device)
+        self.device = mesh.device if mesh is not None else torch.device(device)
+        self.mesh = mesh
         self.data = data
         self.cfg = cfg
         self.top_k = min(top_k, data.num_cells)
@@ -107,8 +125,15 @@ class Localizer:
         self.coarse_model = coarse_model.to(self.device).eval()
         self.fine_model = fine_model.to(self.device).eval()
         self.embedder = embedder.to(self.device)
-        self.bbox = torch.as_tensor(data.cell_bbox, device=self.device).float()
-        self.size = torch.as_tensor(data.cell_size, device=self.device).float()
+        # The gallery rows this process holds: all, or this rank's shard
+        # (padded with zero rows, which score -inf).
+        if mesh is None:
+            self.cells, self.rows, self.offset = np.arange(data.num_cells), data.num_cells, 0
+        else:
+            self.cells, self.rows = shard_cells(data.num_cells, mesh)
+            self.offset = mesh.rank * self.rows
+        self.bbox = self._local(torch.as_tensor(data.cell_bbox).float())
+        self.size = self._local(torch.as_tensor(data.cell_size).float())
 
         self._digest = self._cache_digest() if cache_path is not None else None
         cached = self._load_cache(cache_path)
@@ -118,8 +143,9 @@ class Localizer:
             return torch.as_tensor(cached[name]).to(self.device)
 
         with torch.no_grad():
-            self.gallery = (dev("gallery") if cached is not None
-                            else encode_gallery(data, self.coarse_model, cfg, self.device))
+            self.gallery = (self._local(torch.as_tensor(cached["gallery"]))
+                            if cached is not None
+                            else self._encode(encode_gallery, self.coarse_model))
             self.fine_emb = self.fine_mask = None
             has_fine = cached is not None and "fine_emb1" in cached
             # A precompute_fine=False build keeps an existing fine cache in
@@ -128,12 +154,13 @@ class Localizer:
                                 if not precompute_fine and has_fine else None)
             if precompute_fine:
                 if has_fine:
-                    self.fine_emb, self.fine_mask = dev("fine_emb1"), dev("fine_mask")
+                    self.fine_emb = self._local(torch.as_tensor(cached["fine_emb1"]))
+                    self.fine_mask = self._local(torch.as_tensor(cached["fine_mask"]))
                 else:
                     # A gallery-only cache still spares the coarse pass:
                     # encode the fine cache alone and re-save the file.
-                    self.fine_emb, self.fine_mask = encode_fine_gallery(
-                        data, self.fine_model, cfg, self.device, chunk=chunk)
+                    self.fine_emb, self.fine_mask = self._encode(
+                        encode_fine_gallery, self.fine_model, chunk=chunk)
                     dirty = cache_path is not None
             if cached is not None and "coarse_sent_table" in cached:
                 self.coarse_sent_table = dev("coarse_sent_table")
@@ -146,6 +173,32 @@ class Localizer:
                 dirty = cache_path is not None
         if dirty:
             self._save_cache(cache_path)
+
+    def _local(self, t: torch.Tensor) -> torch.Tensor:
+        """This process's rows of a whole-gallery tensor, on its device."""
+        if self.mesh is None:
+            return t.to(self.device)
+        return pad_rows(t[torch.as_tensor(self.cells)].to(self.device), self.rows)
+
+    def _encode(self, encode, model, **kw):
+        """encode(data, model, cfg, device, cell_indices) of this process's
+        cells (padded with zero rows under a mesh)."""
+        if self.mesh is None:
+            return encode(self.data, model, self.cfg, self.device, **kw)
+        # A rank that holds padding alone encodes one cell for the shapes.
+        cells = self.cells if len(self.cells) else np.zeros(1, np.int64)
+        out = encode(self.data, model, self.cfg, self.device, cell_indices=cells, **kw)
+        out = out if isinstance(out, tuple) else (out,)
+        out = tuple(pad_rows(t[:len(self.cells)], self.rows) for t in out)
+        return out if len(out) > 1 else out[0]
+
+    def _whole(self, t: torch.Tensor) -> torch.Tensor:
+        """The whole gallery's rows of a tensor held by rows (gathered from
+        every rank under a mesh)."""
+        if self.mesh is None:
+            return t
+        g = all_gather(t, self.mesh)
+        return g.reshape((-1,) + tuple(t.shape[1:]))[:self.data.num_cells]
 
     # ------------------------------------------------------------ the cache
 
@@ -211,12 +264,21 @@ class Localizer:
 
     def _save_cache(self, cache_path) -> None:
         """Atomic write: a temp file unique to this writer, then os.replace,
-        through a file handle (np.savez on a bare path appends '.npz')."""
+        through a file handle (np.savez on a bare path appends '.npz').
+        Under a mesh the ranks' rows are gathered, rank 0 writes, and every
+        rank waits for the file."""
+        fine = ((self._whole(self.fine_emb), self._whole(self.fine_mask))
+                if self.fine_emb is not None else self._carry_fine)
+        gallery = self._whole(self.gallery)
+        if self.mesh is None or self.mesh.rank == 0:
+            self._write_cache(cache_path, gallery, fine)
+        if self.mesh is not None:
+            barrier(self.mesh)
+
+    def _write_cache(self, cache_path, gallery, fine) -> None:
         import tempfile
 
-        fine = ((self.fine_emb, self.fine_mask) if self.fine_emb is not None
-                else self._carry_fine)
-        tensors = dict(gallery=self.gallery)
+        tensors = dict(gallery=gallery)
         if fine is not None:
             tensors.update(fine_emb1=fine[0], fine_mask=fine[1])
         tensors.update(coarse_sent_table=self.coarse_sent_table,
@@ -265,22 +327,37 @@ class Localizer:
 
         return pad
 
+    def _candidates(self, text_enc):
+        """(scores, rows of this process, global ids), each [B, K'], of the
+        top-k over this process's gallery rows (K' = min(K, its rows))."""
+        return shard_local_topk(self.gallery, text_enc, self.top_k, self.data.num_cells,
+                                self.offset)
+
+    def _merge(self, scores, ids, cand_w):
+        """(cand_w [B, K, 2], ids [B, K], scores [B, K]): the candidates as
+        they are on one device, merged over the ranks under a mesh."""
+        if self.mesh is None:
+            return cand_w, ids, scores
+        scores, ids, cand_w = all_gather_candidates(self.mesh, scores, ids, cand_w)
+        scores, (ids, cand_w) = merge_shard_topk(scores, (ids, cand_w), self.top_k)
+        return cand_w, ids, scores
+
     def _refine_cached(self, text_enc, hints, sentence_mask):
         """Top-k over the gallery and cct_tail over the B*K pairs from the
         fine cache -> (cand_w [B, K, 2] f32, idx [B, K], scores [B, K])."""
         hints1 = self.fine_model.cct_hints_pre(hints, sentence_mask)
-        scores, idx = topk_retrieval(self.gallery, text_enc, self.top_k)
-        b, k = idx.shape
+        scores, rows, ids = self._candidates(text_enc)
+        b, k = rows.shape
         rep = torch.arange(b, device=self.device).repeat_interleave(k)
-        flat = idx.reshape(-1)
+        flat = rows.reshape(-1)
         pred = self.fine_model.cct_tail(
             self.fine_emb[flat], self.fine_mask[flat], hints[rep], hints1[rep],
             sentence_mask[rep],
         ).reshape(b, k, 2)
-        return self._world(pred, idx), idx, scores
+        return self._merge(scores, ids, self._world(pred, rows))
 
-    def _world(self, pred, idx):
-        return self.bbox[idx][:, :, 0:2] + pred.float() * self.size[idx][..., None]
+    def _world(self, pred, rows):
+        return self.bbox[rows][:, :, 0:2] + pred.float() * self.size[rows][..., None]
 
     @torch.no_grad()
     def serve(self, hint_dir, hint_color, hint_label, sentence_mask):
@@ -305,10 +382,11 @@ class Localizer:
         """The path without a fine cache: the full coarse text trunk, top-k,
         then every candidate cell re-encoded through the whole CrossMatch
         forward with its query's hints, `chunk` cells at a time."""
-        scores, idx = topk_retrieval(self.gallery, self.coarse_model.encode_text(text),
-                                     self.top_k)
-        b, k = idx.shape
-        cells = idx.reshape(-1).cpu().numpy()
+        scores, rows, ids = self._candidates(self.coarse_model.encode_text(text))
+        b, k = rows.shape
+        # A padding row's candidate (score -inf, never merged in) re-encodes
+        # the last real cell.
+        cells = ids.reshape(-1).clamp(max=self.data.num_cells - 1).cpu().numpy()
         rep = torch.arange(b, device=self.device).repeat_interleave(k)
         preds = []
         for s in range(0, b * k, self.chunk):
@@ -320,7 +398,7 @@ class Localizer:
             preds.append(self.fine_model(objects, TextSet(
                 text.token_embeds[r], text.token_mask[r], text.sentence_mask[r])))
         pred = torch.cat(preds, dim=0).reshape(b, k, 2)
-        return self._world(pred, idx), idx, scores
+        return self._merge(scores, ids, self._world(pred, rows))
 
     @staticmethod
     def _result(out, n_real: int) -> LocalizationResult:

@@ -1,6 +1,6 @@
 """The coarse retrieval trainer and its CLI (port of
 text2loc_tpu/training/coarse.py: train_coarse, build_argparser,
-_apply_overrides, _load_data, main), on one device.
+_apply_overrides, _load_data, main).
 
 Each epoch draws a permutation of the training poses from a numpy
 generator seeded with cfg.train.seed, gathers batches with gather_coarse
@@ -10,17 +10,26 @@ generators) on a prefetch worker and takes one step per batch; every
 (evaluation/retrieval.eval_retrieval), keeps the best state by the mean
 recall and checkpoints it.
 
+With a data-parallel `mesh` (parallel/mesh.py) every rank runs
+train_coarse alike: the same host batches from the seed, each rank's rows
+of them per step, the global-batch loss (parallel/train.py); rank 0 alone
+prints, logs and writes checkpoints.
+
 CLI (--synthetic: synthetic scenes at the small test config; --base_path:
 the KITTI360Pose train / val / test splits, converted once into
---array_cache by data/ingest.py):
+--array_cache by data/ingest.py; --dp N: N ranks under torchrun, one per
+card, NCCL, or gloo with --device cpu; --debug_nans: utils/debug.py):
     python -m text2loc_tpu_torch.training.coarse --synthetic --device cpu --epochs 1
     python -m text2loc_tpu_torch.training.coarse --base_path DATA \
         --array_cache DATA/arrays --workdir W
+    torchrun --nproc_per_node 4 -m text2loc_tpu_torch.training.coarse --dp 4 \
+        --base_path DATA --array_cache DATA/arrays --workdir W
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import os
 from typing import Optional
@@ -29,6 +38,7 @@ import numpy as np
 import torch
 
 from text2loc_tpu_torch.evaluation.retrieval import eval_retrieval
+from text2loc_tpu_torch.parallel.train import replicate_state
 from text2loc_tpu_torch.training import loop
 from text2loc_tpu_torch.training import steps as steps_lib
 from text2loc_tpu_torch.utils.logging import MetricLogger
@@ -54,19 +64,21 @@ def train_coarse(cfg, data_train, data_val, embedder, workdir: Optional[str] = N
     object tower before training. `workdir`: checkpoints in
     <workdir>/coarse_ckpt and the metrics log; `resume` continues from
     them. `prefetch`: gather the host batches on a worker thread (the same
-    draws and results as without). `mesh` raises: the port trains on one
-    device."""
-    loop.check_no_mesh(mesh)
+    draws and results as without). `mesh`: a parallel.mesh.Mesh to train
+    over (the module docstring; `device` is then the mesh's, and
+    cfg.train.batch_size the global batch, a multiple of the mesh size)."""
     t = cfg.train
     cfg = cfg.replace(model=dataclasses.replace(cfg.model, dtype=cfg.model.train_dtype))
-    device = torch.device(device)
+    device = loop.trainer_device(mesh, device)
+    main = loop.is_main(mesh)
     model = loop.train_model(cfg, "coarse", device, model, fused_train, t.seed,
-                             pointnet_ckpt)
+                             pointnet_ckpt, verbose=main)
     n_train = data_train.num_poses
     steps_per_epoch = max(n_train // t.batch_size, 1)
     optimizer = steps_lib.make_optimizer(model.parameters(), cfg, steps_per_epoch)
     generator = torch.Generator(device=device).manual_seed(t.seed)
-    step_fn = steps_lib.make_coarse_train_step(model, embedder, cfg, optimizer, generator)
+    step_fn = steps_lib.make_coarse_train_step(model, embedder, cfg, optimizer, generator,
+                                               mesh=mesh)
     state = steps_lib.TrainState(model, optimizer)
     eval_embedder = embedder.to(device)
 
@@ -74,9 +86,12 @@ def train_coarse(cfg, data_train, data_val, embedder, workdir: Optional[str] = N
         model.eval()
         return eval_retrieval(data, model, eval_embedder, cfg, device=device)
 
-    logger = MetricLogger(os.path.join(workdir, "coarse_metrics.jsonl") if workdir else None)
+    logger = MetricLogger(os.path.join(workdir, "coarse_metrics.jsonl")
+                          if workdir and main else None, quiet=not main)
     ckpt, start_epoch, resumed_best = loop.open_checkpoints(workdir, "coarse_ckpt", "max",
-                                                            resume, state)
+                                                            resume, state, verbose=main)
+    if mesh is not None:
+        replicate_state(state, mesh)
     timer = StageTimer()
     order_rng = np.random.default_rng(t.seed)
     close_rng = np.random.default_rng(t.seed + 7) if t.sample_close_cell else None
@@ -97,7 +112,8 @@ def train_coarse(cfg, data_train, data_val, embedder, workdir: Optional[str] = N
                     sample_close_rng=close_rng, negative_rng=neg_rng)
 
         with timer.stage("train_epoch"):
-            row = loop.run_epoch(step_fn, epoch_batches(), epoch, logger, prefetch)
+            row = loop.run_epoch(step_fn, loop.local_rows(epoch_batches(), mesh), epoch,
+                                 logger, prefetch)
         if eval_train and (epoch + 1) % eval_every == 0:
             with timer.stage("eval_train"):
                 tr_acc, _, _ = evaluate(data_train)
@@ -113,30 +129,25 @@ def train_coarse(cfg, data_train, data_val, embedder, workdir: Optional[str] = N
                 best_val = val_acc
                 best_state = loop.snapshot(model)
                 if ckpt is not None:
-                    ckpt.save(epoch, state, val_acc)
+                    loop.save_checkpoint(ckpt, epoch, state, val_acc, mesh)
         logger.log(epoch, **row)
 
-    print(timer.report(), flush=True)
+    if main:
+        print(timer.report(), flush=True)
     if best_state is None:
         best_state = loop.snapshot(model)
     model.load_state_dict(best_state)
     if data_test is not None:
         acc, acc_close, _ = evaluate(data_test)
+    if data_test is not None and main:
         print("test recall: " + "  ".join(f"R@{k}={v:0.4f}" for k, v in acc.items())
               + "  close: " + "  ".join(f"@{k}={v:0.4f}" for k, v in acc_close.items()),
               flush=True)
-    if workdir is not None:
+    if workdir is not None and main:
         logger.plot(os.path.join(workdir, "coarse_metrics.png"))
         if ckpt is not None:
             ckpt.close()
     return best_state, model, logger
-
-
-# Flag -> the ROADMAP item the port's support of it waits for.
-_NOT_PORTED = {
-    "dp": "data parallelism (ROADMAP Queue 1 item 7)",
-    "debug_nans": "utils/debug.py (ROADMAP Queue 1 item 8)",
-}
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -152,10 +163,14 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--epochs", type=int, default=None)
     ap.add_argument("--batch_size", type=int, default=None)
     ap.add_argument("--learning_rate", type=float, default=None)
-    ap.add_argument("--dp", type=int, default=0, help="data-parallel devices (0=off)")
+    ap.add_argument("--dp", type=int, default=0,
+                    help="data-parallel ranks (0=off); run under torchrun "
+                         "--nproc_per_node DP")
     ap.add_argument("--synthetic", action="store_true",
                     help="train on synthetic scenes at the small test config")
-    ap.add_argument("--debug_nans", action="store_true")
+    ap.add_argument("--debug_nans", action="store_true",
+                    help="autograd anomaly mode; a non-finite loss or gradient raises, "
+                         "naming the parameter")
     ap.add_argument("--resume", action="store_true",
                     help="continue from the latest checkpoint in --workdir")
     ap.add_argument("--eval_train", action="store_true",
@@ -171,12 +186,41 @@ def build_argparser() -> argparse.ArgumentParser:
 
 
 def _parse(ap: argparse.ArgumentParser, argv):
+    """The CLI's arguments. --dp N runs as N processes under torchrun: a
+    different WORLD_SIZE raises."""
     args = ap.parse_args(argv)
-    for flag, item in _NOT_PORTED.items():
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag}: the port does not have it yet; it "
-                                      f"waits for {item}")
+    world = os.environ.get("WORLD_SIZE")
+    if args.dp and (world is None or int(world) != args.dp):
+        raise ValueError(
+            f"--dp {args.dp} runs as {args.dp} processes under torchrun (torchrun "
+            f"--nproc_per_node {args.dp} -m text2loc_tpu_torch.training.<coarse|fine> "
+            f"--dp {args.dp} ...); this process has WORLD_SIZE={world}")
     return args
+
+
+@contextlib.contextmanager
+def _run_context(args):
+    """The process-wide settings of one CLI run, undone on exit: anomaly
+    mode and the step checks under --debug_nans, and --dp's mesh (yielded;
+    None without --dp) over cuda:LOCAL_RANK with NCCL, or the CPU with gloo
+    under --device cpu, its process group destroyed on exit."""
+    from text2loc_tpu_torch.parallel.mesh import make_mesh
+    from text2loc_tpu_torch.utils.debug import enable_nan_debugging
+
+    if args.debug_nans:
+        enable_nan_debugging()
+    mesh = None
+    try:
+        if args.dp:
+            mesh = make_mesh(args.dp, device="cpu" if args.device == "cpu" else None)
+        yield mesh
+    finally:
+        if mesh is not None:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+        if args.debug_nans:
+            enable_nan_debugging(False)
 
 
 def _apply_overrides(cfg, args):
@@ -227,10 +271,11 @@ def main(argv=None):
     cfg = _apply_overrides(Config().validate(), args)
     cfg, data_train, data_val, data_test = _load_data(cfg, args)
     cfg, embedder = make_embedder(cfg, args.text_table)
-    return train_coarse(cfg, data_train, data_val, embedder, workdir=args.workdir,
-                        resume=args.resume, data_test=data_test,
-                        pointnet_ckpt=args.pointnet_ckpt, eval_train=args.eval_train,
-                        device=args.device)
+    with _run_context(args) as mesh:
+        return train_coarse(cfg, data_train, data_val, embedder, workdir=args.workdir,
+                            mesh=mesh, resume=args.resume, data_test=data_test,
+                            pointnet_ckpt=args.pointnet_ckpt, eval_train=args.eval_train,
+                            device=args.device)
 
 
 if __name__ == "__main__":

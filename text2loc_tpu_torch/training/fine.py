@@ -1,6 +1,6 @@
 """The fine position-regressor trainer and its CLI (port of
 text2loc_tpu/training/fine.py: make_fine_optimizer (in training/steps.py),
-eval_fine, train_fine, main), on one device.
+eval_fine, train_fine, main).
 
 * loss = offset_lambda x MSE(pred, target), in training/steps.py's step;
 * a warm-up of warmup_epochs at the constant warmup_lr before the
@@ -8,7 +8,9 @@ eval_fine, train_fine, main), on one device.
 * Prototype-based Map Cloning: each batch's draw from the precomputed
   tables (data/pmc.py sample_pmc), in the JAX trainer's order of draws;
 * best-val gating by the mean pose error, checkpoints (utils/checkpoint.py)
-  and resume.
+  and resume;
+* data parallelism over a `mesh` as in training/coarse.py (--dp under
+  torchrun), the MSE's mean over the global batch.
 
 CLI (the coarse trainer's flags, plus --pmc_prob and --fine_flip_poses):
     python -m text2loc_tpu_torch.training.fine --synthetic --device cpu --epochs 1
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 
 from text2loc_tpu_torch.data.pmc import sample_pmc
+from text2loc_tpu_torch.parallel.train import replicate_state
 from text2loc_tpu_torch.training import loop
 from text2loc_tpu_torch.training import steps as steps_lib
 from text2loc_tpu_torch.utils.logging import MetricLogger
@@ -63,23 +66,28 @@ def train_fine(cfg, data_train, data_val, embedder, workdir: Optional[str] = Non
     (loop.train_model); the compute dtype is cfg.model.train_dtype.
     `workdir`: checkpoints in <workdir>/fine_ckpt and the metrics log;
     `resume` continues from them. `prefetch`: gather the host batches on a
-    worker thread (the same draws and results as without). `mesh` raises:
-    the port trains on one device."""
-    loop.check_no_mesh(mesh)
+    worker thread (the same draws and results as without). `mesh`: a
+    parallel.mesh.Mesh to train over, as train_coarse's."""
     t = cfg.train
     cfg = cfg.replace(model=dataclasses.replace(cfg.model, dtype=cfg.model.train_dtype))
-    device = torch.device(device)
-    model = loop.train_model(cfg, "fine", device, model, None, t.seed, pointnet_ckpt)
+    device = loop.trainer_device(mesh, device)
+    main = loop.is_main(mesh)
+    model = loop.train_model(cfg, "fine", device, model, None, t.seed, pointnet_ckpt,
+                             verbose=main)
     n_train = data_train.num_poses
     steps_per_epoch = max(n_train // t.batch_size, 1)
     optimizer = steps_lib.make_fine_optimizer(model.parameters(), cfg, steps_per_epoch)
     generator = torch.Generator(device=device).manual_seed(t.seed)
-    step_fn = steps_lib.make_fine_train_step(model, embedder, cfg, optimizer, generator)
+    step_fn = steps_lib.make_fine_train_step(model, embedder, cfg, optimizer, generator,
+                                             mesh=mesh)
     state = steps_lib.TrainState(model, optimizer)
 
-    logger = MetricLogger(os.path.join(workdir, "fine_metrics.jsonl") if workdir else None)
+    logger = MetricLogger(os.path.join(workdir, "fine_metrics.jsonl")
+                          if workdir and main else None, quiet=not main)
     ckpt, start_epoch, resumed_best = loop.open_checkpoints(workdir, "fine_ckpt", "min",
-                                                            resume, state)
+                                                            resume, state, verbose=main)
+    if mesh is not None:
+        replicate_state(state, mesh)
     timer = StageTimer()
     order_rng = np.random.default_rng(t.seed + 1)
     best_val = np.inf if resumed_best is None else float(resumed_best)
@@ -100,7 +108,8 @@ def train_fine(cfg, data_train, data_val, embedder, workdir: Optional[str] = Non
                                              cell_indices=cell_idx, hint_obj_idx=hint_obj)
 
         with timer.stage("train_epoch"):
-            row = loop.run_epoch(step_fn, epoch_batches(), epoch, logger, prefetch)
+            row = loop.run_epoch(step_fn, loop.local_rows(epoch_batches(), mesh), epoch,
+                                 logger, prefetch)
         if data_val is not None and (epoch + 1) % eval_every == 0:
             with timer.stage("eval_val"):
                 val_err = eval_fine(data_val, model, embedder, cfg, forward=eval_forward)
@@ -109,17 +118,19 @@ def train_fine(cfg, data_train, data_val, embedder, workdir: Optional[str] = Non
                 best_val = val_err
                 best_state = loop.snapshot(model)
                 if ckpt is not None:
-                    ckpt.save(epoch, state, val_err)
+                    loop.save_checkpoint(ckpt, epoch, state, val_err, mesh)
         logger.log(epoch, **row)
 
-    print(timer.report(), flush=True)
+    if main:
+        print(timer.report(), flush=True)
     if best_state is None:
         best_state = loop.snapshot(model)
     model.load_state_dict(best_state)
     if data_test is not None:
         test_err = eval_fine(data_test, model, embedder, cfg, forward=eval_forward)
-        print(f"test pose_error: {test_err:0.4f}", flush=True)
-    if workdir is not None:
+        if main:
+            print(f"test pose_error: {test_err:0.4f}", flush=True)
+    if workdir is not None and main:
         logger.plot(os.path.join(workdir, "fine_metrics.png"))
         if ckpt is not None:
             ckpt.close()
@@ -130,7 +141,7 @@ def main(argv=None):
     from text2loc_tpu_torch.config import Config
     from text2loc_tpu_torch.models.text_embedding import make_embedder
     from text2loc_tpu_torch.training.coarse import (_apply_overrides, _load_data, _parse,
-                                                    build_argparser)
+                                                    _run_context, build_argparser)
 
     ap = build_argparser()
     ap.add_argument("--pmc_prob", type=float, default=None)
@@ -148,9 +159,10 @@ def main(argv=None):
         train = dataclasses.replace(train, fine_flip_poses=args.fine_flip_poses == "on")
     cfg = cfg.replace(train=train)
     cfg, embedder = make_embedder(cfg, args.text_table)
-    return train_fine(cfg, data_train, data_val, embedder, workdir=args.workdir,
-                      resume=args.resume, data_test=data_test,
-                      pointnet_ckpt=args.pointnet_ckpt, device=args.device)
+    with _run_context(args) as mesh:
+        return train_fine(cfg, data_train, data_val, embedder, workdir=args.workdir,
+                          mesh=mesh, resume=args.resume, data_test=data_test,
+                          pointnet_ckpt=args.pointnet_ckpt, device=args.device)
 
 
 if __name__ == "__main__":

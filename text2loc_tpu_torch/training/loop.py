@@ -1,7 +1,10 @@
 """What both trainers share (training/coarse.py, training/fine.py): the
 model they train, the epoch loop over prefetched host batches with each
-step's host seconds, checkpoints with resume, and host copies of the best
-state."""
+step's host seconds, checkpoints with resume, host copies of the best
+state, and the data-parallel setup: under a mesh every rank builds the same
+host batches from the seed and steps on its rows, rank 0 alone prints,
+logs and writes checkpoints (the other ranks wait for each write), and
+every rank reads a resumed checkpoint."""
 
 from __future__ import annotations
 
@@ -12,17 +15,42 @@ import numpy as np
 import torch
 
 from text2loc_tpu_torch.data.prefetch import maybe_prefetch
+from text2loc_tpu_torch.parallel.mesh import Mesh, barrier, shard_batch
 from text2loc_tpu_torch.utils.checkpoint import CheckpointManager
 from text2loc_tpu_torch.utils.profiling import block_on
 
 
-def check_no_mesh(mesh) -> None:
+def trainer_device(mesh, device) -> torch.device:
+    """The device a trainer runs on: the mesh's, else `device`. A mesh
+    that is not a parallel.mesh.Mesh raises."""
+    if mesh is None:
+        return torch.device(device)
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a parallel.mesh.Mesh, got {type(mesh).__name__}")
+    return mesh.device
+
+
+def is_main(mesh) -> bool:
+    """Whether this process prints, logs and writes: rank 0, or no mesh."""
+    return mesh is None or mesh.rank == 0
+
+
+def local_rows(batches, mesh):
+    """The host batches, each cut to this rank's rows under a mesh."""
+    for batch in batches:
+        yield batch if mesh is None else shard_batch(batch, mesh)
+
+
+def save_checkpoint(ckpt, epoch: int, state, metric: float, mesh) -> None:
+    """ckpt.save on rank 0 (or without a mesh); every rank waits for it."""
+    if is_main(mesh):
+        ckpt.save(epoch, state, metric)
     if mesh is not None:
-        raise NotImplementedError("mesh: the port trains on one device; data "
-                                  "parallelism waits for ROADMAP Queue 1 item 7")
+        barrier(mesh)
 
 
-def train_model(cfg, kind: str, device, model, fused_train, seed: int, pointnet_ckpt):
+def train_model(cfg, kind: str, device, model, fused_train, seed: int, pointnet_ckpt,
+                verbose: bool = True):
     """The model a trainer trains, on `device`: `model`, or a fresh one of
     `kind` with seeded random weights (torch.Generator seeded with `seed`),
     the training SA tokens `fused_train` (None: the stage default) and, for
@@ -41,11 +69,13 @@ def train_model(cfg, kind: str, device, model, fused_train, seed: int, pointnet_
                          "other")
     if pointnet_ckpt:
         load_pretrained_pointnet(model, pointnet_ckpt)
-        print(f"grafted pretrained PointNet from {pointnet_ckpt}", flush=True)
+        if verbose:
+            print(f"grafted pretrained PointNet from {pointnet_ckpt}", flush=True)
     return model.to(device)
 
 
-def open_checkpoints(workdir, name: str, mode: str, resume: bool, state):
+def open_checkpoints(workdir, name: str, mode: str, resume: bool, state,
+                     verbose: bool = True):
     """(CheckpointManager of <workdir>/<name> or None, first epoch, the
     restored best metric or None). With `resume` and a checkpoint on disk,
     `state` is restored from the best one and training continues after the
@@ -57,7 +87,8 @@ def open_checkpoints(workdir, name: str, mode: str, resume: bool, state):
     if not resume or latest is None:
         return ckpt, 0, None
     ckpt.restore(state)
-    print(f"resumed from epoch {latest}", flush=True)
+    if verbose:
+        print(f"resumed from epoch {latest}", flush=True)
     return ckpt, latest + 1, ckpt.best_metric
 
 

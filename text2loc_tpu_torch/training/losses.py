@@ -1,23 +1,52 @@
 """Retrieval losses and the pose-error metric (port of
-text2loc_tpu/training/losses.py, on one device: the all-gather of the
-data-parallel InfoNCE comes with the parallel slice)."""
+text2loc_tpu/training/losses.py).
+
+With a data-parallel `mesh` (parallel/mesh.py) the pair losses gather both
+towers' rows of every rank (all_gather_rows), so each rank scores its
+queries against the global batch of negatives, as the JAX package's
+_maybe_global does. Each rank then returns its share of the global loss:
+the terms of the rows it owns (the JAX `offset`), over the global batch
+size. The shares sum to the single-device loss, and so do their
+gradients once the step sums the parameter gradients over the ranks.
+"""
 
 from __future__ import annotations
 
 import torch
 
 from text2loc_tpu_torch.ops.masked import l2_normalize
+from text2loc_tpu_torch.parallel.mesh import all_gather_rows
 
 
-def contrastive_loss(anchor, positive, temperature: float = 0.1):
+def _maybe_global(anchor, positive, mesh):
+    """Both towers' rows of every rank, in rank order, under a mesh."""
+    if mesh is None:
+        return anchor, positive
+    return all_gather_rows(anchor, mesh), all_gather_rows(positive, mesh)
+
+
+def _share(per_row, mesh, gathered: bool = True):
+    """The mean of per-row terms [B]; under a mesh, this rank's share of
+    the global mean: its rows' terms (rows [rank * b, (rank + 1) * b) of
+    the gathered batch, or all of a local `per_row`) over the global B."""
+    if mesh is None:
+        return per_row.mean()
+    if not gathered:
+        return per_row.sum() / (per_row.shape[0] * mesh.size)
+    b = per_row.shape[0] // mesh.size
+    return per_row[mesh.rank * b:(mesh.rank + 1) * b].sum() / per_row.shape[0]
+
+
+def contrastive_loss(anchor, positive, temperature: float = 0.1, mesh=None):
     """Symmetric InfoNCE: anchor [B, D] text, positive [B, D] cells; the
     positive pair on the diagonal, included in the denominator."""
+    anchor, positive = _maybe_global(anchor, positive, mesh)
     a = l2_normalize(anchor.float())
     p = l2_normalize(positive.float())
     sim = (a @ p.t()) / temperature
     pos = torch.diagonal(sim)
     losses = (torch.logsumexp(sim, dim=0) - pos) + (torch.logsumexp(sim, dim=1) - pos)
-    return losses.mean()
+    return _share(losses, mesh)
 
 
 def _margin_costs(anchor, positive, margin: float):
@@ -31,34 +60,41 @@ def _margin_costs(anchor, positive, margin: float):
     return cost_s, cost_im
 
 
-def pairwise_ranking_loss(anchor, positive, margin: float = 0.35):
+def pairwise_ranking_loss(anchor, positive, margin: float = 0.35, mesh=None):
     """Kiros et al. margin ranking, summed over negatives, / B."""
-    cost_s, cost_im = _margin_costs(anchor, positive, margin)
-    return (cost_s.sum() + cost_im.sum()) / cost_s.shape[0]
+    cost_s, cost_im = _margin_costs(*_maybe_global(anchor, positive, mesh), margin)
+    if mesh is None:
+        return (cost_s.sum() + cost_im.sum()) / cost_s.shape[0]
+    return _share(cost_s.sum(dim=1) + cost_im.sum(dim=1), mesh)
 
 
-def hardest_ranking_loss(anchor, positive, margin: float = 0.35, scale: float = 64.0):
+def hardest_ranking_loss(anchor, positive, margin: float = 0.35, scale: float = 64.0,
+                         mesh=None):
     """Hardest-negative margin ranking x scale."""
-    cost_s, cost_im = _margin_costs(anchor, positive, margin)
-    return (cost_s.amax(dim=1).mean() + cost_im.amax(dim=1).mean()) * scale
+    cost_s, cost_im = _margin_costs(*_maybe_global(anchor, positive, mesh), margin)
+    if mesh is None:
+        return (cost_s.amax(dim=1).mean() + cost_im.amax(dim=1).mean()) * scale
+    return _share(cost_s.amax(dim=1) + cost_im.amax(dim=1), mesh) * scale
 
 
-def triplet_margin_loss(anchor, positive, negative, margin: float = 0.35):
-    """torch.nn.TripletMarginLoss semantics (L2 distances, mean)."""
+def triplet_margin_loss(anchor, positive, negative, margin: float = 0.35, mesh=None):
+    """torch.nn.TripletMarginLoss semantics (L2 distances, mean); each row's
+    term needs only its own triplet, so nothing is gathered under a mesh."""
     d_pos = torch.linalg.vector_norm(anchor - positive, dim=-1)
     d_neg = torch.linalg.vector_norm(anchor - negative, dim=-1)
-    return torch.clamp(d_pos - d_neg + margin, min=0.0).mean()
+    return _share(torch.clamp(d_pos - d_neg + margin, min=0.0), mesh, gathered=False)
 
 
 def make_retrieval_loss(cfg):
-    """The pair loss selected by a LossConfig: f(anchor, positive)."""
+    """The pair loss selected by a LossConfig: f(anchor, positive, mesh=None)."""
     name = cfg.ranking_loss
     if name == "contrastive":
-        return lambda a, p: contrastive_loss(a, p, cfg.temperature)
+        return lambda a, p, mesh=None: contrastive_loss(a, p, cfg.temperature, mesh)
     if name == "pairwise":
-        return lambda a, p: pairwise_ranking_loss(a, p, cfg.margin)
+        return lambda a, p, mesh=None: pairwise_ranking_loss(a, p, cfg.margin, mesh)
     if name == "hardest":
-        return lambda a, p: hardest_ranking_loss(a, p, cfg.margin, cfg.hardest_scale)
+        return lambda a, p, mesh=None: hardest_ranking_loss(a, p, cfg.margin,
+                                                            cfg.hardest_scale, mesh)
     raise ValueError(f"unsupported ranking_loss {name!r} for pair losses")
 
 

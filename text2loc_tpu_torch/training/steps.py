@@ -11,6 +11,16 @@ card), the other layers their plain training paths. default_fused_train
 gives a stage's tokens, as the JAX package's "auto" resolves them.
 Augmentation and dropout draw from one explicit torch.Generator on the
 model's device.
+
+With a data-parallel `mesh` (parallel/mesh.py; parallel/train.py binds
+it) a step takes this rank's rows of the global batch and computes as a
+single device would on the whole batch: every random tensor is drawn at
+the global batch's shape from the generator every rank holds alike and
+cut to the rank's rows; the BatchNorm and training SA statistics are
+global (parallel/mesh.use_mesh); the loss is this rank's share of the
+global loss (training/losses.py); the parameter gradients are summed over
+the ranks (not averaged) in one all-reduce, with the reported metrics, and
+every rank takes the same Adam step.
 """
 
 from __future__ import annotations
@@ -23,7 +33,9 @@ import torch
 from text2loc_tpu_torch.data import augment
 from text2loc_tpu_torch.data.batch import FineBatch, ObjectSet, TextSet
 from text2loc_tpu_torch.models.transformer import set_dropout_generator
+from text2loc_tpu_torch.parallel.mesh import all_reduce_, use_mesh
 from text2loc_tpu_torch.training import losses
+from text2loc_tpu_torch.utils import debug
 
 
 class Optimizer(NamedTuple):
@@ -146,36 +158,40 @@ def _object_set(batch: dict, xyz, rgb, prefix: str = "") -> ObjectSet:
         mask=batch[prefix + "mask"].bool())
 
 
-def prepare_coarse_batch(batch: dict, embedder, cfg, generator, train: bool):
+def prepare_coarse_batch(batch: dict, embedder, cfg, generator, train: bool, mesh=None):
     """(ObjectSet, TextSet) of a device batch: flips, hint shuffling and the
-    point transform (train), then the frozen-text lookup."""
+    point transform (train), then the frozen-text lookup. Under `mesh` the
+    batch is this rank's rows and the draws are the global batch's."""
     t = cfg.train
     if train and t.flip_poses:
-        batch = augment.flip_coarse(batch, generator)
+        batch = augment.flip_coarse(batch, generator, mesh)
     if train and t.shuffle_hints:
-        batch = augment.shuffle_hints(batch, generator)
+        batch = augment.shuffle_hints(batch, generator, mesh)
     xyz, rgb = augment.point_cloud_transform(
         batch["xyz"].float(), batch["rgb"].float(), generator,
-        num_points=cfg.model.pointnet.num_points, augment=train and t.pc_augment)
+        num_points=cfg.model.pointnet.num_points, augment=train and t.pc_augment,
+        mesh=mesh)
     return _object_set(batch, xyz, rgb), embed_text_batch(embedder, batch)
 
 
-def prepare_negative_objects(batch: dict, cfg, generator) -> ObjectSet:
+def prepare_negative_objects(batch: dict, cfg, generator, mesh=None) -> ObjectSet:
     """ObjectSet of a triplet batch's `neg_*` cell (no flip: the negative
     has no geometric relation to the hints)."""
     xyz, rgb = augment.point_cloud_transform(
         batch["neg_xyz"].float(), batch["neg_rgb"].float(), generator,
-        num_points=cfg.model.pointnet.num_points, augment=cfg.train.pc_augment)
+        num_points=cfg.model.pointnet.num_points, augment=cfg.train.pc_augment,
+        mesh=mesh)
     return _object_set(batch, xyz, rgb, prefix="neg_")
 
 
-def prepare_fine_batch(batch: dict, embedder, cfg, generator, train: bool) -> FineBatch:
+def prepare_fine_batch(batch: dict, embedder, cfg, generator, train: bool,
+                       mesh=None) -> FineBatch:
     if train and cfg.train.fine_flip_poses:
-        batch = augment.flip_coarse(batch, generator)
+        batch = augment.flip_coarse(batch, generator, mesh)
     xyz, rgb = augment.point_cloud_transform(
         batch["xyz"].float(), batch["rgb"].float(), generator,
         num_points=cfg.model.pointnet.num_points,
-        augment=train and cfg.train.pc_augment)
+        augment=train and cfg.train.pc_augment, mesh=mesh)
     return FineBatch(objects=_object_set(batch, xyz, rgb),
                      text=embed_text_batch(embedder, batch),
                      target=batch["target"].float(),
@@ -186,10 +202,37 @@ def _device(model) -> torch.device:
     return next(model.parameters()).device
 
 
+def _backward_and_update(model, optimizer: Optimizer, loss, mesh, sums=()) -> list:
+    """The backward of `loss` and one Adam step. Under `mesh` the parameter
+    gradients and the metric tensors `sums` are summed over the ranks in
+    one all-reduce first (the metrics returned summed). With
+    utils/debug.enable_nan_debugging, the loss is checked before the
+    backward and the gradients before the update."""
+    if debug.nan_debugging():
+        debug.check_loss(loss.detach(), model, mesh)
+    loss.backward()
+    sums = [s.detach().reshape(()).float() for s in sums]
+    if mesh is not None:
+        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        flat = all_reduce_(torch.cat([g.reshape(-1) for g in grads]
+                                     + [s.reshape(1) for s in sums]), mesh)
+        at = 0
+        for g in grads:
+            g.copy_(flat[at:at + g.numel()].view_as(g))
+            at += g.numel()
+        sums = list(flat[at:])
+    if debug.nan_debugging():
+        debug.check_grads(model)
+    optimizer.step()
+    return sums
+
+
 def make_coarse_train_step(model, embedder, cfg, optimizer: Optimizer,
-                           generator: torch.Generator) -> Callable:
+                           generator: torch.Generator, mesh=None) -> Callable:
     """step(host batch of gather_coarse) -> {"loss"}: one Adam update of the
-    retrieval towers (anchor = text, positive = cell)."""
+    retrieval towers (anchor = text, positive = cell). With a data-parallel
+    `mesh` the batch is this rank's rows (parallel/mesh.shard_batch) and
+    the loss the global one."""
     device = _device(model)
     embedder = embedder.to(device)
     set_dropout_generator(model, generator)
@@ -199,43 +242,55 @@ def make_coarse_train_step(model, embedder, cfg, optimizer: Optimizer,
     def step(batch: dict) -> dict:
         model.train()
         b = to_device(batch, device)
-        objects, text = prepare_coarse_batch(b, embedder, cfg, generator, train=True)
-        optimizer.zero_grad()
-        cell_emb, text_emb = model(objects, text)
-        if is_triplet:
-            # The negative tower pass runs after the positive one, so the BN
-            # running statistics see both batches.
-            neg_emb = model.encode_objects(prepare_negative_objects(b, cfg, generator))
-            loss = losses.triplet_margin_loss(text_emb, cell_emb, neg_emb,
-                                              cfg.train.loss.margin)
-        else:
-            loss = pair_loss(text_emb, cell_emb)
-        loss.backward()
-        optimizer.step()
-        return {"loss": loss.detach()}
+        with use_mesh(model, mesh):
+            objects, text = prepare_coarse_batch(b, embedder, cfg, generator, train=True,
+                                                 mesh=mesh)
+            optimizer.zero_grad()
+            cell_emb, text_emb = model(objects, text)
+            if is_triplet:
+                # The negative tower pass runs after the positive one, so the
+                # BN running statistics see both batches.
+                neg_emb = model.encode_objects(prepare_negative_objects(b, cfg, generator,
+                                                                        mesh))
+                loss = losses.triplet_margin_loss(text_emb, cell_emb, neg_emb,
+                                                  cfg.train.loss.margin, mesh=mesh)
+            else:
+                loss = pair_loss(text_emb, cell_emb, mesh=mesh)
+            (total,) = _backward_and_update(model, optimizer, loss, mesh, [loss])
+        return {"loss": total}
 
     return step
 
 
 def make_fine_train_step(model, embedder, cfg, optimizer: Optimizer,
-                         generator: torch.Generator) -> Callable:
+                         generator: torch.Generator, mesh=None) -> Callable:
     """step(host batch of gather_fine) -> {"loss", "pose_error"}: one Adam
-    update of the fine regressor, loss = offset_lambda * MSE(pred, target)."""
+    update of the fine regressor, loss = offset_lambda * MSE(pred, target).
+    `mesh` as make_coarse_train_step's."""
     device = _device(model)
     embedder = embedder.to(device)
     set_dropout_generator(model, generator)
+    lam = cfg.train.offset_lambda
 
     def step(batch: dict) -> dict:
         model.train()
-        fb = prepare_fine_batch(to_device(batch, device), embedder, cfg, generator,
-                                train=True)
-        optimizer.zero_grad()
-        pred = model(fb.objects, fb.text)
-        loss = cfg.train.offset_lambda * torch.mean((pred - fb.target) ** 2)
-        loss.backward()
-        optimizer.step()
-        return {"loss": loss.detach(),
-                "pose_error": losses.pose_error(pred.detach(), fb.target)}
+        with use_mesh(model, mesh):
+            fb = prepare_fine_batch(to_device(batch, device), embedder, cfg, generator,
+                                    train=True, mesh=mesh)
+            optimizer.zero_grad()
+            pred = model(fb.objects, fb.text)
+            if mesh is None:
+                loss = lam * torch.mean((pred - fb.target) ** 2)
+                err = losses.pose_error(pred.detach(), fb.target)
+            else:
+                # This rank's share of the global mean; the pose error's
+                # share likewise, summed with the gradients.
+                n = pred.numel() * mesh.size
+                loss = lam * torch.sum((pred - fb.target) ** 2) / n
+                err = torch.linalg.vector_norm(pred.detach() - fb.target[..., :2],
+                                               dim=-1).sum() / (pred.shape[0] * mesh.size)
+            total, err = _backward_and_update(model, optimizer, loss, mesh, [loss, err])
+        return {"loss": total, "pose_error": err}
 
     return step
 

@@ -1,6 +1,7 @@
 """Epoch-level metric logging and curve plots (the port's own copy of
-text2loc_tpu/utils/logging.py: MetricLogger), with one addition: `steps`,
-the per-step rows that the port's trainers append."""
+text2loc_tpu/utils/logging.py: MetricLogger), with two additions: `steps`,
+the per-step rows that the port's trainers append, and `quiet`, which keeps
+the rows without printing them (a data-parallel rank other than 0)."""
 
 from __future__ import annotations
 
@@ -13,7 +14,8 @@ from typing import Dict, List, Optional
 class MetricLogger:
     """Accumulates per-epoch scalars; prints, JSONL-logs and plots them."""
 
-    def __init__(self, log_path: Optional[str] = None):
+    def __init__(self, log_path: Optional[str] = None, quiet: bool = False):
+        self.quiet = quiet
         self.history: Dict[str, list] = defaultdict(list)
         # Epoch index per appended value: metrics logged every eval_every
         # epochs plot against their real epoch, not their call index.
@@ -32,7 +34,8 @@ class MetricLogger:
             self.history[name].append(float(value))
             self.epochs[name].append(int(epoch))
             parts.append(f"{name}={value:0.4f}")
-        print("  ".join(parts), flush=True)
+        if not self.quiet:
+            print("  ".join(parts), flush=True)
         if self.log_path is not None:
             with open(self.log_path, "a") as f:
                 f.write(json.dumps({"epoch": epoch, **{
