@@ -165,6 +165,24 @@ toolkit. Phases, each printing one JSON line:
    descriptions bit-equal to localize with no T5 call; eval_styled_retrieval
    over the scene through the compositional stand-in and through T5
    (recall at k, seconds); on a line with the card's name and power limit.
+16. readers_tables: (a) phase 15's encoder cut to its 2 card-vs-CPU layers,
+   written as the hub cache holds a model id (refs/main, a snapshot of
+   three safetensors shards and their index, the tied embedding kept once,
+   a tokenizer.json in t5-large's layout: a Sequence of Precompiled, the
+   charsmap of scripts/build_precompiled_charsmap.py, and Replace, then
+   WhitespaceSplit and Metaspace) and loaded by that id through
+   HF_HUB_CACHE, beside the same cut loaded from an unsharded directory
+   with the vendored tokenizer: equal ids, and phase 15's 8 styled
+   descriptions through localize_text at Config() width (bf16) give the
+   same top-1 cells and positions within 1e-4 m (load seconds); (b)
+   coarse and fine models with class_embed and color_embed, (c) with
+   color_embed alone, f32 at Config() width over an 8-cell map: the
+   cached, stepwise, embedded and text paths (the compositional online
+   encoder, styled descriptions) and run_pipeline on the card and on the
+   CPU, by phases 5 and 7's criteria, and each path's launches on the
+   card: no fps or SA kernel with the class table (no PointNet), fps and
+   sa_select_first with the colour table alone, mha_addln and ffn_addln
+   in both.
 
 Phase 3 also holds the opt-in kernels against their plain versions: add_ln
 at the E=1024 trunk's rows and at D=128/256 (bf16, f32), gather_rows at the
@@ -177,8 +195,8 @@ step's three levels (f32, bf16), with the time of one PyTorch call that
 computes the same function where there is one (library_ms).
 
 Then the kernels line (launches: the counts during phases 4, 6, 8, 9b (every
-rank), 10 (serve_optin too), 12, 14 and 15, each path's counts set to 0 just
-before it;
+rank), 10 (serve_optin too), 12, 14, 15 and 16, each path's counts set to 0
+just before it;
 max_abs_err, ms, plain_ms, bound_ms and library_ms: over the inference
 kernels' bf16 cases of phase 3 (sa_gather's approximate ball query cases),
 FPS's f32 case, the training kernels' f32 cases, the "e" kernels' bf16
@@ -2795,11 +2813,16 @@ def t5_state_dict(widths: dict, seed: int) -> dict:
 def _write_t5_snapshot(path: str, sd: dict, widths: dict) -> None:
     """An HF snapshot directory: pytorch_model.bin, config.json and the
     vendored tiny tokenizer's files."""
+    torch.save(sd, os.path.join(path, "pytorch_model.bin"))
+    _write_t5_config_and_tokenizer(path, widths)
+
+
+def _write_t5_config_and_tokenizer(path: str, widths: dict) -> None:
+    """A snapshot's config.json and the vendored tiny tokenizer's files."""
     import shutil
 
     from text2loc_tpu_torch.assets import tiny_t5_tokenizer_path
 
-    torch.save(sd, os.path.join(path, "pytorch_model.bin"))
     with open(os.path.join(path, "config.json"), "w") as f:
         json.dump({"model_type": "t5", "architectures": ["T5EncoderModel"], **widths,
                    "num_decoder_layers": 0, "layer_norm_epsilon": 1e-6,
@@ -2959,6 +2982,257 @@ def phase_t5_text(dev, kernels, smi: str, data, absent=()) -> dict:
     return counts
 
 
+# ------------------------------------------------------- readers and tables
+
+T5_HUB_ID = "t2l-smoke/t5-large-seeded"
+
+
+def _write_safetensors(path: str, tensors: dict) -> int:
+    """A .safetensors file of f32 `tensors` (the format's 8-byte header
+    length, JSON header, raw little-endian data); returns its data bytes."""
+    header, blobs, offset = {}, [], 0
+    for name, t in tensors.items():
+        raw = t.detach().cpu().contiguous().float().numpy().astype("<f4").tobytes()
+        header[name] = {"dtype": "F32", "shape": list(t.shape),
+                        "data_offsets": [offset, offset + len(raw)]}
+        blobs.append(raw)
+        offset += len(raw)
+    header["__metadata__"] = {"format": "pt"}
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little"))
+        f.write(head)
+        for raw in blobs:
+            f.write(raw)
+    return offset
+
+
+def _charsmap_script():
+    """scripts/build_precompiled_charsmap.py of this checkout, as a module."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                        "build_precompiled_charsmap.py")
+    spec = importlib.util.spec_from_file_location("build_precompiled_charsmap", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _write_hub_snapshot(cache: str, sd: dict, widths: dict) -> str:
+    """The two-layer T5 of `sd` as the hub cache holds a model id: refs/main
+    naming a snapshot of three safetensors shards and their index (the
+    tied embedding kept once, as shared.weight), config.json, and the
+    vendored tokenizer rewritten to t5-large's layout: a Sequence of
+    Precompiled (scripts/build_precompiled_charsmap.py's charsmap) and
+    Replace, WhitespaceSplit then Metaspace. Returns the snapshot path."""
+    repo = os.path.join(cache, "models--" + T5_HUB_ID.replace("/", "--"))
+    snap = os.path.join(repo, "snapshots", "0" * 40)
+    os.makedirs(snap)
+    os.makedirs(os.path.join(repo, "refs"))
+    with open(os.path.join(repo, "refs", "main"), "w") as f:
+        f.write("0" * 40)
+    names = [k for k in sd if k != "encoder.embed_tokens.weight"]
+    shards = [["shared.weight"], [k for k in names if k.startswith("encoder.block.0.")],
+              [k for k in names if k != "shared.weight"
+               and not k.startswith("encoder.block.0.")]]
+    weight_map, total = {}, 0
+    for i, keys in enumerate(shards):
+        fname = f"model-{i + 1:05d}-of-{len(shards):05d}.safetensors"
+        total += _write_safetensors(os.path.join(snap, fname), {k: sd[k] for k in keys})
+        weight_map.update({k: fname for k in keys})
+    with open(os.path.join(snap, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total}, "weight_map": weight_map}, f)
+    _write_t5_config_and_tokenizer(snap, widths)
+    with open(os.path.join(snap, "tokenizer.json")) as f:
+        spec = json.load(f)
+    spec["normalizer"] = {"type": "Sequence", "normalizers": [
+        {"type": "Precompiled", "precompiled_charsmap": _charsmap_script().charsmap_base64()},
+        {"type": "Replace", "pattern": {"Regex": " {2,}"}, "content": " "}]}
+    spec["pre_tokenizer"] = {"type": "Sequence", "pretokenizers": [
+        {"type": "WhitespaceSplit"},
+        {"type": "Metaspace", "replacement": "▁", "add_prefix_space": True}]}
+    with open(os.path.join(snap, "tokenizer.json"), "w") as f:
+        json.dump(spec, f)
+    return snap
+
+
+def _t5_front_door(dev, data) -> dict:
+    """Phase 15's T5-large-width seeded encoder cut to its two card-vs-CPU
+    layers, loaded by model id from a sharded hub-cache snapshot with a
+    Precompiled tokenizer and from an unsharded directory with the vendored
+    one: phase 15's styled localize_text batch of 8 through each gives the
+    same top-1 and positions within 1e-4 m."""
+    import tempfile
+
+    from text2loc_tpu_torch.config import Config
+    from text2loc_tpu_torch.evaluation.styled import render_styled_queries
+    from text2loc_tpu_torch.models import t5_encoder as T5
+    from text2loc_tpu_torch.models.text_embedding import HintTextEmbedder
+    from text2loc_tpu_torch.serving import Localizer
+
+    cfg = Config()
+    tokens = cfg.model.max_hint_tokens
+    widths = dict(T5_LARGE, num_layers=T5_CPU_LAYERS)
+    sd = t5_state_dict(widths, SEED + 15)
+    out = {"layers": T5_CPU_LAYERS, "model_id": T5_HUB_ID}
+    old = os.environ.get("HF_HUB_CACHE")
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        snap = _write_hub_snapshot(os.path.join(tmp, "hub"), sd, widths)
+        out["write_s"] = time.perf_counter() - t
+        plain = os.path.join(tmp, "plain")
+        os.makedirs(plain)
+        _write_t5_snapshot(plain, sd, widths)
+        del sd
+        try:
+            os.environ["HF_HUB_CACHE"] = os.path.join(tmp, "hub")
+            check(T5.resolve_snapshot(T5_HUB_ID) == snap, "the model id resolved elsewhere")
+            t = time.perf_counter()
+            by_id = T5.T5OnlineEncoder.from_snapshot(T5_HUB_ID, max_tokens=tokens, device=dev)
+            torch.cuda.synchronize()
+            out["load_by_id_s"] = time.perf_counter() - t
+        finally:
+            if old is None:
+                os.environ.pop("HF_HUB_CACHE", None)
+            else:
+                os.environ["HF_HUB_CACHE"] = old
+        t = time.perf_counter()
+        by_dir = T5.T5OnlineEncoder.from_snapshot(plain, max_tokens=tokens, device=dev)
+        torch.cuda.synchronize()
+        out["load_dir_s"] = time.perf_counter() - t
+    check(by_id.tokenizer.normalizer is not None, "the Precompiled normalizer was not read")
+    poses = np.arange(8)
+    styled = render_styled_queries(data, np.random.default_rng(SEED + 16), poses)
+    ids = [by_id.tokenizer.encode(s, tokens) for s in styled]
+    check(ids == [by_dir.tokenizer.encode(s, tokens) for s in styled],
+          "the Precompiled tokenizer's ids differ from the vendored tokenizer's")
+    emb = HintTextEmbedder.compositional(cfg.model.text_embed_dim, tokens)
+    coarse, fine = _models(cfg, torch.Generator().manual_seed(SEED + 14))
+    loc = Localizer(data, coarse, fine, emb, cfg, top_k=10, device=dev, online_encoder=by_dir)
+    want = loc.localize_text(styled)
+    loc.online_encoder = by_id
+    got = loc.localize_text(styled)
+    compared, top1_equal, pos_err = _top1_agreement(got, want)
+    out.update(compared=compared, top1_equal=top1_equal, max_pos_err_m=pos_err,
+               all_top1_equal=bool((got.cell_indices[:, 0] == want.cell_indices[:, 0]).all()))
+    check(top1_equal and out["all_top1_equal"] and pos_err <= 1e-4,
+          f"the model-id load serves otherwise than the directory load: {out}")
+    return out
+
+
+def _tables_vs_cpu(dev, tables, kernels) -> dict:
+    """Coarse and fine models with the embedding `tables` on, f32 at
+    Config() width over an 8-cell map: the cached, stepwise, embedded and
+    text serve paths and run_pipeline on the card and on the CPU, by
+    phase_serve_vs_cpu's and phase_pipeline_vs_cpu's limits, and the
+    launches of each path on the card."""
+    import dataclasses
+
+    from text2loc_tpu_torch.config import Config
+    from text2loc_tpu_torch.evaluation.pipeline import run_pipeline
+    from text2loc_tpu_torch.evaluation.styled import render_styled_queries
+    from text2loc_tpu_torch.models.t5_encoder import CompositionalOnlineEncoder
+    from text2loc_tpu_torch.models.text_embedding import HintTextEmbedder
+    from text2loc_tpu_torch.serving import Localizer
+
+    base = Config()
+    cfg = base.replace(model=dataclasses.replace(
+        base.model, dtype="float32", **{f"{t}_embed": True for t in tables}))
+    m = cfg.model
+    data = _map(1, 8, cfg)
+    emb = HintTextEmbedder.compositional(m.text_embed_dim, m.max_hint_tokens)
+    online = CompositionalOnlineEncoder(m.text_embed_dim, m.max_hint_tokens)
+    q = np.arange(8)
+    args = (data.hint_dir[q], data.hint_color[q], data.hint_label[q], data.hint_mask[q])
+    text = emb.embed(*args)
+    embedded = (text.token_embeds.numpy(), text.token_mask.numpy(),
+                text.sentence_mask.numpy())
+    styled = render_styled_queries(data, np.random.default_rng(SEED + 20), q)
+    launches, results = {}, {}
+    for where in ("cuda", "cpu"):
+        device = dev if where == "cuda" else "cpu"
+        coarse, fine = _models(cfg, torch.Generator().manual_seed(SEED + 20))
+        res = results[where] = {}
+
+        def run(path, fn):
+            for k in kernels:
+                k.launches = 0
+            out = fn()
+            if where == "cuda":
+                torch.cuda.synchronize()
+                launches[path] = {k.name: k.launches for k in kernels}
+            return out
+
+        loc = run("build", lambda: Localizer(data, coarse, fine, emb, cfg, top_k=5,
+                                             device=device, online_encoder=online))
+        res["cached"] = run("cached", lambda: loc.localize(*args))
+        res["embedded"] = run("embedded", lambda: loc.localize_embedded(*embedded))
+        res["text"] = run("text", lambda: loc.localize_text(styled))
+        step = Localizer(data, coarse, fine, emb, cfg, top_k=3, device=device,
+                         precompute_fine=False)
+        res["stepwise"] = run("stepwise", lambda: step.localize(*args))
+        res["pipeline"] = run("pipeline", lambda: run_pipeline(
+            data, coarse, fine, emb, cfg, device=device, verbose=False))
+        if where == "cpu":
+            sure = _retrieval_margin(data, coarse, emb, cfg) > 1e-4
+    report = {"tables": list(tables), "cells": data.num_cells, "queries": len(q),
+              "launches": launches}
+    for path in ("cached", "stepwise", "embedded", "text"):
+        compared, top1_equal, pos_err = _top1_agreement(results["cuda"][path],
+                                                        results["cpu"][path])
+        report[path] = {"compared": compared, "top1_equal": top1_equal,
+                        "max_pos_err_m": pos_err}
+        check(compared > 0 and top1_equal and pos_err <= 1e-2,
+              f"{tables} {path}: the card differs from the CPU: {report[path]}")
+    got, want = results["cuda"]["pipeline"], results["cpu"]["pipeline"]
+    same = got["retrievals"] == want["retrievals"]
+    dpos = np.abs(got["pos_in_cells"] - want["pos_in_cells"])[same]
+    dpos = dpos * data.cell_size[want["retrievals"]][same][:, None]
+    report["pipeline"] = {
+        "compared": int(sure.sum()),
+        "top1_equal": bool((got["retrievals"][sure, 0] == want["retrievals"][sure, 0]).all()),
+        "max_pos_err_m": float(dpos.max()) if dpos.size else float("inf")}
+    check(report["pipeline"]["compared"] > 0 and report["pipeline"]["top1_equal"]
+          and report["pipeline"]["max_pos_err_m"] <= 1e-2,
+          f"{tables} run_pipeline: the card differs from the CPU: {report['pipeline']}")
+    return report
+
+
+def phase_readers_tables(dev, kernels, smi: str, data) -> dict:
+    """This slice's paths at full Config() width: (a) the T5 front door by
+    model id from a sharded hub-cache snapshot with a Precompiled
+    tokenizer; (b) coarse and fine models with class_embed and color_embed
+    (no PointNet: no FPS or SA kernel may launch); (c) color_embed alone
+    (PointNet and its kernels run). Returns the phase's launches."""
+    from text2loc_tpu_torch.ops import cuda_ffn, cuda_fps, cuda_mha, cuda_pointconv
+
+    t_phase = time.perf_counter()
+    report = {"phase": "readers_tables", "card": smi,
+              "t5_front_door": _t5_front_door(dev, data)}
+    point = [cuda_fps.KERNEL.name] + [k.name for k in cuda_pointconv.KERNELS]
+    totals = {k.name: 0 for k in kernels}
+    for name, tables in (("class_color", ("class", "color")), ("color", ("color",))):
+        r = report[name] = _tables_vs_cpu(dev, tables, kernels)
+        summed = {k.name: sum(c[k.name] for c in r["launches"].values()) for k in kernels}
+        for k in totals:
+            totals[k] += summed[k]
+        check(summed[cuda_mha.KERNEL.name] > 0 and summed[cuda_ffn.KERNEL.name] > 0,
+              f"{name}: the attention or feed-forward kernel never launched: {summed}")
+        if "class" in tables:
+            check(all(summed[k] == 0 for k in point),
+                  f"{name}: a PointNet kernel launched without a PointNet: {summed}")
+        else:
+            check(summed[cuda_fps.KERNEL.name] > 0
+                  and summed[cuda_pointconv.KERNEL_FIRST.name] > 0,
+                  f"{name}: PointNet's kernels never launched: {summed}")
+    report["launches"] = totals
+    report["seconds"] = time.perf_counter() - t_phase
+    emit(report)
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on a card",
@@ -3004,6 +3278,7 @@ def main() -> int:
     serve_paths_counts, scene = phase_serve_paths(dev, serve_kernels, smi, absent=optin)
     counts.append(serve_paths_counts)
     counts.append(phase_t5_text(dev, serve_kernels, smi, scene, absent=optin))
+    counts.append(phase_readers_tables(dev, pipeline_kernels, smi, scene))
     kernels = (serve_kernels + train_kernels[1:3] + list(cuda_pointconv.KERNELS[1:])
                + optin + [cuda_gather.KERNEL_SCATTER, cuda_sa_train.KERNEL_E_FWD,
                           cuda_sa_train.KERNEL_E_BWD])

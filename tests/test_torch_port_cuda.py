@@ -1563,3 +1563,51 @@ def test_serve_paths_launch_their_kernels_and_the_cache_skips_pointnet(dev, tmp_
     assert [k.launches for k in pointnet] == before[:2]
     assert all(k.launches > n for k, n in zip(kernels[2:], before[2:]))
     assert np.isfinite(res.candidates_w).all()
+
+
+def test_embedding_tables_cached_serve_equals_the_cpu(dev):
+    """class_embed and color_embed at the default Config()'s widths in f32:
+    the cached serve on the card gives the CPU's top-1 cells where the
+    CPU's top-1/top-2 margin exceeds 1e-4 and positions within 1e-2 m, and
+    launches no FPS or SA kernel (no PointNet), the attention and
+    feed-forward kernels as usual."""
+    import dataclasses
+
+    from text2loc_tpu_torch.config import Config
+    from text2loc_tpu_torch.convert import build_model, init_weights
+    from text2loc_tpu_torch.data.arrays import MultiSceneArrays
+    from text2loc_tpu_torch.data.synthetic import make_scene
+    from text2loc_tpu_torch.models.text_embedding import HintTextEmbedder
+    from text2loc_tpu_torch.serving import Localizer
+
+    cfg = Config()
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, class_embed=True, color_embed=True,
+                                                dtype="float32"))
+    m = cfg.model
+    data = MultiSceneArrays([make_scene("0006", num_cells=16, num_poses=8,
+                                        object_slots=m.object_size,
+                                        num_points=m.pointnet.num_points,
+                                        num_mentioned=m.num_mentioned, seed=6)])
+    gen = torch.Generator().manual_seed(1)
+    coarse = init_weights(build_model(cfg, "coarse"), gen)
+    fine = init_weights(build_model(cfg, "fine"), gen)
+    emb = HintTextEmbedder.compositional(m.text_embed_dim, m.max_hint_tokens)
+    hints = (data.hint_dir, data.hint_color, data.hint_label, data.hint_mask)
+    point_kernels = (cuda_fps.KERNEL, *cuda_pointconv.KERNELS, cuda_sa_train.KERNEL_FWD,
+                     cuda_sa_train.KERNEL_BWD, cuda_sa_train.KERNEL_E_FWD,
+                     cuda_sa_train.KERNEL_E_BWD)
+    blocks = (cuda_mha.KERNEL, cuda_ffn.KERNEL)
+    before = [k.launches for k in point_kernels + blocks]
+    card = Localizer(data, coarse, fine, emb, cfg, top_k=3, device=dev).localize(*hints)
+    after = [k.launches for k in point_kernels + blocks]
+    n = len(point_kernels)
+    assert after[:n] == before[:n], [k.name for k in point_kernels]
+    assert all(a > b for a, b in zip(after[n:], before[n:])), [k.name for k in blocks]
+    cpu = Localizer(data, coarse.cpu(), fine.cpu(), emb, cfg, top_k=3,
+                    device="cpu").localize(*hints)
+    margin = cpu.scores[:, 0] - cpu.scores[:, 1]
+    clear = margin > 1e-4
+    assert clear.any()
+    np.testing.assert_array_equal(card.cell_indices[clear, 0], cpu.cell_indices[clear, 0])
+    same = card.cell_indices == cpu.cell_indices
+    assert np.abs(card.candidates_w - cpu.candidates_w)[same].max() <= 1e-2

@@ -10,6 +10,7 @@ Tolerances: recall tables and retrievals equal, pos_in_cells within 1e-4
 """
 
 import dataclasses
+import os
 import inspect
 
 import jax
@@ -232,9 +233,49 @@ def test_main_pipeline_runs_fused_modes(mode):
 
 
 @pytest.mark.parametrize("flag", [["--plot_retrievals", "x.png"]])
-def test_cli_flags_the_port_lacks_raise(flag):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        cli.main_pipeline(["--synthetic", "--device", "cpu"] + flag)
+def test_cli_flags_the_port_lacks_raise(flag, tmp_path):
+    """--plot_retrievals (the last flag the port lacked) writes the JAX
+    CLI's retrieval grid, byte for byte, on the same weights."""
+    from text2loc_tpu.evaluation.cli import main_pipeline as jax_main_pipeline
+
+    a, b = _write_checkpoints(tmp_path)
+    argv = ["--synthetic", "--coarse_torch_ckpt", a, "--fine_torch_ckpt", b]
+    got_png, want_png = tmp_path / ("port_" + flag[1]), tmp_path / ("jax_" + flag[1])
+    want = jax_main_pipeline(argv + [flag[0], str(want_png)])
+    got = cli.main_pipeline(argv + ["--device", "cpu", flag[0], str(got_png)])
+    np.testing.assert_array_equal(got["retrievals"], np.asarray(want["retrievals"]))
+    assert got_png.read_bytes() == want_png.read_bytes()
+    assert len(got_png.read_bytes()) > 1000
+
+
+def test_visualize_copy_equals_the_jax_package(tmp_path):
+    """Every function of the port's evaluation/visualize.py gives the JAX
+    module's arrays and files, byte for byte (matplotlib's Agg backend)."""
+    from text2loc_tpu.evaluation import visualize as jvis
+    from text2loc_tpu_torch.evaluation import visualize as pvis
+
+    data = MultiSceneArrays([make_scene("0000", num_cells=6, num_poses=10, object_slots=6,
+                                        num_points=32, num_mentioned=3, seed=2)])
+    for ci in range(3):
+        np.testing.assert_array_equal(pvis.render_cell_topdown(data, ci, 64),
+                                      jvis.render_cell_topdown(data, ci, 64))
+    pred = np.array([0.3, 0.6], np.float32)
+    np.testing.assert_array_equal(pvis.render_pose_in_cell(data, 4, 96, pred),
+                                  jvis.render_pose_in_cell(data, 4, 96, pred))
+    retrievals = np.random.default_rng(0).integers(0, 6, (10, 3))
+    for mod, name in ((pvis, "port"), (jvis, "jax")):
+        mod.plot_retrieval_grid(data, retrievals, str(tmp_path / f"{name}_grid.png"),
+                                max_queries=4, tile=32)
+        mod.render_cell_3d(data, 1, out_path=str(tmp_path / f"{name}_3d.png"),
+                           max_points=500)
+        mod.render_flythrough(data, 2, str(tmp_path / f"{name}_fly"), num_frames=2)
+    for f in ("grid.png", "3d.png"):
+        assert (tmp_path / f"port_{f}").read_bytes() == (tmp_path / f"jax_{f}").read_bytes()
+    frames = sorted(os.listdir(tmp_path / "jax_fly"))
+    assert frames and sorted(os.listdir(tmp_path / "port_fly")) == frames
+    for f in frames:
+        assert (tmp_path / "port_fly" / f).read_bytes() == \
+            (tmp_path / "jax_fly" / f).read_bytes()
 
 
 @pytest.mark.parametrize("encoder", ["compositional", "t5_snapshot"])
@@ -272,3 +313,32 @@ def test_evaluation_entry_points_default_to_the_card():
     for fn in (pipeline.run_pipeline, pipeline.run_coarse, pipeline.run_fine,
                eval_retrieval):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_validate_kernels_script_at_a_tiny_size(tmp_path):
+    """scripts/validate_kernels_torch.py on the CPU: 2 steps of each
+    trainer, two modes; the JSON report holds every field, "exact" first
+    and agreeing with itself."""
+    import importlib.util
+    import json
+
+    spec = importlib.util.spec_from_file_location(
+        "validate_kernels_torch", os.path.join(os.path.dirname(__file__), "..", "scripts",
+                                               "validate_kernels_torch.py"))
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    out = tmp_path / "report.json"
+    report = script.main(["--small", "--device", "cpu", "--steps", "2", "--modes",
+                          "fused_first", "--out", str(out)])
+    assert json.loads(out.read_text()) == json.loads(json.dumps(report))
+    assert report["train"]["steps"] == 2
+    assert np.isfinite([report["train"]["coarse_loss"], report["train"]["fine_loss"]]).all()
+    assert list(report["modes"]) == ["exact", "fused_first"]
+    for mode, entry in report["modes"].items():
+        assert set(entry) >= {"sa_mode", "coarse_recall", "loc_recall_top1", "fine_qps",
+                              "eval_seconds", "top1_agreement", "mean_abs_dpos_m"}, mode
+        assert all(0.0 <= v <= 1.0 for v in entry["coarse_recall"].values())
+        assert list(entry["loc_recall_top1"]) == [5.0, 10.0, 15.0]
+        assert entry["fine_qps"] > 0
+    assert report["modes"]["exact"]["top1_agreement"] == 1.0
+    assert report["modes"]["exact"]["mean_abs_dpos_m"] == 0.0

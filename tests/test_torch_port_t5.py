@@ -267,3 +267,90 @@ def test_config_json_is_read(tmp_path):
     assert enc.cfg.relative_attention_max_distance == 40 and enc.cfg.dtype == "bfloat16"
     emb, _ = enc.encode(["The pose is west of a beige pole."])
     assert emb.dtype == np.float32 and np.isfinite(emb).all()
+
+
+def _encoder_state(model):
+    return {k: v.float().numpy() for k, v in model.state_dict().items()
+            if k.startswith(("shared.", "encoder."))}
+
+
+@pytest.mark.parametrize("form", ["safetensors", "bin"])
+def test_sharded_snapshot_reads_equal(form, tmp_path):
+    """save_pretrained(max_shard_size=...) writes the index and its shards;
+    read_snapshot_weights gives the unsharded read (the tied embedding kept
+    under one name or the other), from_pretrained's state, and the JAX
+    package's encodings."""
+    hf = tiny_hf_t5(max_distance=20)
+    whole, sharded = tmp_path / "whole", tmp_path / "sharded"
+    hf.save_pretrained(whole, safe_serialization=form == "safetensors")
+    hf.save_pretrained(sharded, safe_serialization=form == "safetensors",
+                       max_shard_size="40KB")
+    for name in os.listdir(tiny_t5_tokenizer_path()):
+        shutil.copy(os.path.join(tiny_t5_tokenizer_path(), name), sharded)
+    index = "model.safetensors.index.json" if form == "safetensors" else \
+        "pytorch_model.bin.index.json"
+    with open(sharded / index) as f:
+        assert len(set(json.load(f)["weight_map"].values())) > 2
+    got = P.read_snapshot_weights(str(sharded))
+    unsharded = P.read_snapshot_weights(str(whole))
+    loaded = _encoder_state(T5EncoderModel.from_pretrained(str(sharded)))
+    emb = "shared.weight" if "shared.weight" in got else "encoder.embed_tokens.weight"
+    np.testing.assert_array_equal(got[emb], loaded["shared.weight"])
+    for k in set(got) | set(unsharded):
+        if k not in ("shared.weight", "encoder.embed_tokens.weight"):
+            np.testing.assert_array_equal(got[k], unsharded[k], err_msg=k)
+            np.testing.assert_array_equal(got[k], loaded[k], err_msg=k)
+    p_got, _ = P.convert_t5_encoder(got, max_distance=20)
+    p_whole, _ = P.convert_t5_encoder(unsharded, max_distance=20)
+    for k in p_whole:
+        np.testing.assert_array_equal(p_got[k], p_whole[k], err_msg=k)
+    got_enc = P.T5OnlineEncoder.from_snapshot(str(sharded), max_tokens=16, device="cpu")
+    want_enc = J.T5OnlineEncoder.from_snapshot(str(sharded), max_tokens=16)
+    sentences = styled_sentences(6) + NOVEL
+    got_e, got_m = got_enc.encode(sentences)
+    want_e, want_m = want_enc.encode(sentences)
+    np.testing.assert_array_equal(got_m, want_m)
+    np.testing.assert_allclose(got_e, want_e, atol=F32_ATOL, rtol=0)
+
+
+def write_hub_cache(cache_dir, model_id, snapshot_src, revision_hash="0123abcd"):
+    """The hub cache's layout for `model_id`: refs/main naming a snapshot
+    directory that holds a copy of `snapshot_src`."""
+    repo = os.path.join(cache_dir, "models--" + model_id.replace("/", "--"))
+    os.makedirs(os.path.join(repo, "refs"), exist_ok=True)
+    with open(os.path.join(repo, "refs", "main"), "w") as f:
+        f.write(revision_hash)
+    dest = os.path.join(repo, "snapshots", revision_hash)
+    shutil.copytree(snapshot_src, dest)
+    return dest
+
+
+@pytest.mark.parametrize("setting", ["HF_HUB_CACHE", "HF_HOME", "HOME"])
+def test_model_id_resolves_from_the_hub_cache(setting, tmp_path, monkeypatch):
+    """A model id resolves to the cached snapshot under each of the three
+    environment settings, as huggingface_hub.try_to_load_from_cache resolves
+    it (in a process started with that environment); from_snapshot loads by
+    the id; a missing id raises naming the paths it tried."""
+    snap = write_t5_snapshot(tmp_path / "src")
+    root = tmp_path / "root"
+    cache = {"HF_HUB_CACHE": root / "hubcache", "HF_HOME": root / "hf" / "hub",
+             "HOME": root / "home" / ".cache" / "huggingface" / "hub"}[setting]
+    want_dir = write_hub_cache(str(cache), "org/tiny-t5", snap)
+    for var in ("HF_HUB_CACHE", "HF_HOME", "HUGGINGFACE_HUB_CACHE", "XDG_CACHE_HOME"):
+        monkeypatch.delenv(var, raising=False)
+    value = {"HF_HUB_CACHE": cache, "HF_HOME": root / "hf", "HOME": root / "home"}[setting]
+    monkeypatch.setenv(setting, str(value))
+    code = ("from huggingface_hub import try_to_load_from_cache; "
+            "print(try_to_load_from_cache('org/tiny-t5', 'config.json'))")
+    hub = subprocess.run([sys.executable, "-c", code], env=dict(os.environ, HF_HUB_OFFLINE="1"),
+                         check=True, capture_output=True, text=True, timeout=120)
+    hub_path = hub.stdout.strip().splitlines()[-1]
+    assert os.path.dirname(hub_path) == want_dir
+    assert P.resolve_snapshot("org/tiny-t5") == want_dir
+    assert P.resolve_snapshot(snap) == snap                   # a directory as it is
+    got = P.T5OnlineEncoder.from_snapshot("org/tiny-t5", max_tokens=16, device="cpu")
+    want = P.T5OnlineEncoder.from_snapshot(snap, max_tokens=16, device="cpu")
+    sentences = styled_sentences(4)
+    np.testing.assert_array_equal(got.encode(sentences)[0], want.encode(sentences)[0])
+    with pytest.raises(FileNotFoundError, match="models--org--missing"):
+        P.resolve_snapshot("org/missing")

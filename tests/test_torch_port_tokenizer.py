@@ -4,7 +4,8 @@ package's text2loc_tpu/assets/tiny_t5_tokenizer): input_ids and
 attention_mask equal, element for element, at T = 8, 16 and 32, for every
 canonical hint sentence, every paraphrase-bank sentence, novel words and
 runs of unknown characters; the Metaspace variants on edited copies of the
-file; the asset copy byte for byte; unsupported components refused by name.
+file; the asset copy byte for byte; unsupported components refused by name,
+t5-large's Precompiled normalizers read.
 """
 
 import json
@@ -121,9 +122,10 @@ def test_asset_copy_is_byte_equal(name):
 
 
 @pytest.mark.parametrize("edit,match", [
-    ({"normalizer": {"type": "Precompiled", "precompiled_charsmap": ""}}, "Precompiled"),
+    ({"normalizer": {"type": "Precompiled", "precompiled_charsmap": "CHARSMAP"}},
+     "Precompiled"),
     ({"normalizer": {"type": "Sequence", "normalizers": [
-        {"type": "Precompiled", "precompiled_charsmap": ""},
+        {"type": "Precompiled", "precompiled_charsmap": "CHARSMAP"},
         {"type": "Replace", "pattern": {"Regex": " {2,}"}, "content": " "}]}},
      "Sequence/Precompiled/Replace"),
     ({"pre_tokenizer": {"type": "Whitespace"}}, "Whitespace"),
@@ -131,11 +133,27 @@ def test_asset_copy_is_byte_equal(name):
     ({"model": {"type": "BPE", "vocab": {}, "merges": []}}, "BPE"),
 ])
 def test_unsupported_components_raise(edit, match, tmp_path):
+    """Components the reader does not take raise, naming them. t5-large's
+    normalizers, a Precompiled charsmap alone or in a Sequence with Replace
+    (the charsmap of scripts/build_precompiled_charsmap.py), are read and
+    give AutoTokenizer's ids."""
+    shutil.copytree(tiny_t5_tokenizer_path(), tmp_path, dirs_exist_ok=True)
     with open(os.path.join(tiny_t5_tokenizer_path(), "tokenizer.json")) as f:
         spec = json.load(f)
-    spec.update(edit)
+    text = json.dumps(edit)
+    if "CHARSMAP" in text:
+        from test_torch_port_tokenizer_precompiled import charsmap_script
+
+        text = text.replace("CHARSMAP", charsmap_script.charsmap_base64())
+    spec.update(json.loads(text))
     path = tmp_path / "tokenizer.json"
     path.write_text(json.dumps(spec))
+    if "Precompiled" in match:
+        sentences = _bank_sentences()[:20] + NOVEL + [
+            "ＴＨＥ ｐｏｓｅ ﬁ e\u0301 \u2460", "a\u200b  b"]
+        _assert_equal(AutoTokenizer.from_pretrained(str(tmp_path)),
+                      UnigramTokenizer.from_file(str(path)), sentences, 16)
+        return
     with pytest.raises(NotImplementedError, match=match):
         UnigramTokenizer.from_file(str(path))
 

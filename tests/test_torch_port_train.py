@@ -106,9 +106,13 @@ def _jax_grads(model, cfg, state, b, kind):
     return jax.device_get(jax.jit(jax.grad(loss_of))(state.params))
 
 
-def _run(kind, ranking_loss):
+def _run(kind, ranking_loss, tables=()):
     jcfg = _plain(jax_small_config(), ranking_loss)
     pcfg = _plain(small_test_config(), ranking_loss)
+    if tables:
+        on = {f"{t}_embed": True for t in tables}
+        jcfg = jcfg.replace(model=dataclasses.replace(jcfg.model, **on))
+        pcfg = pcfg.replace(model=dataclasses.replace(pcfg.model, **on))
     fine = kind == "fine"
     jmodel = (JaxFine if fine else JaxCoarse)(jcfg.model)
     jemb = JaxEmbedder.compositional(jcfg.model.text_embed_dim, jcfg.model.max_hint_tokens)
@@ -152,7 +156,23 @@ def _run(kind, ranking_loss):
                                                ("coarse", "pairwise"),
                                                ("fine", "contrastive")])
 def test_train_steps_match_jax(kind, ranking_loss):
-    jl, pl, jgrads, pgrads, p0, jstate, model = _run(kind, ranking_loss)
+    _check_steps(*_run(kind, ranking_loss))
+
+
+@pytest.mark.parametrize("kind,tables", [("coarse", ("class",)), ("fine", ("color",)),
+                                         ("coarse", ("class", "color")),
+                                         ("fine", ("class", "color"))])
+def test_train_steps_with_embedding_tables_match_jax(kind, tables):
+    """class_embed / color_embed: the tables' rows take the JAX gradients,
+    by the same gates."""
+    jl, pl, jgrads, pgrads, p0, jstate, model = _run(kind, "contrastive", tables)
+    for t in tables:
+        assert f"object_encoder.{t}_embedding.weight" in pgrads
+    assert not hasattr(model.object_encoder, "pointnet") or "class" not in tables
+    _check_steps(jl, pl, jgrads, pgrads, p0, jstate, model)
+
+
+def _check_steps(jl, pl, jgrads, pgrads, p0, jstate, model):
     np.testing.assert_allclose(pl, jl, rtol=1e-4, atol=1e-6)
 
     want, got = _flatten(jgrads), _flatten(pgrads)

@@ -304,6 +304,38 @@ def test_train_fine_resumes_gated_by_the_restored_best(tmp_path):
     assert os.path.exists(tmp_path / "fine_metrics.jsonl")
 
 
+@pytest.mark.parametrize("kind", ["coarse", "fine"])
+def test_trainers_take_the_embedding_tables(kind):
+    """class_embed and color_embed together (no PointNet in either tower):
+    both trainers run their epochs as the JAX trainers do, the epoch rows
+    within ROWS_RTOL (validation VAL_RTOL)."""
+    from text2loc_tpu.training import coarse as jcoarse
+
+    tables = {"class_embed": True, "color_embed": True}
+    jcfg = _cfg(jax_small_config, epochs=1)
+    pcfg = _cfg(small_test_config, epochs=1)
+    jcfg = jcfg.replace(model=dataclasses.replace(jcfg.model, **tables))
+    pcfg = pcfg.replace(model=dataclasses.replace(pcfg.model, **tables))
+    pdata, pval, jdata, jval = _splits()
+    pemb, jemb = _embedders(pcfg)
+    _, state = _jax_init(jcfg, jdata, jemb, kind)
+    model = _port_model(pcfg, state, kind)
+    assert not hasattr(model.object_encoder, "pointnet")
+    if kind == "fine":
+        _, _, jlog = jfine.train_fine(jcfg, jdata, jval, jemb)
+        _, _, plog = fine.train_fine(pcfg, pdata, pval, pemb, device="cpu", model=model)
+        names = (("loss", ROWS_RTOL), ("pose_error", ROWS_RTOL),
+                 ("val_pose_error", VAL_RTOL))
+    else:
+        _, _, jlog = jcoarse.train_coarse(jcfg, jdata, jval, jemb)
+        _, _, plog = coarse.train_coarse(pcfg, pdata, pval, pemb, device="cpu", model=model)
+        names = (("loss", ROWS_RTOL),)
+    for name, rtol in names:
+        assert np.isfinite(plog.history[name]).all()
+        np.testing.assert_allclose(plog.history[name], jlog.history[name], rtol=rtol,
+                                   err_msg=name)
+
+
 # ---------------------------------------------------------------- coarse
 
 

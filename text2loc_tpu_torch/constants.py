@@ -62,6 +62,7 @@ CLASS_TO_INDEX = {
     "pad": 21,
 }
 INDEX_TO_CLASS = {v: k for k, v in CLASS_TO_INDEX.items()}
+KNOWN_CLASSES = sorted(CLASS_TO_INDEX.keys())  # alphabetical, as the reference's
 NUM_CLASSES = len(CLASS_TO_INDEX)
 PAD_CLASS_INDEX = CLASS_TO_INDEX["pad"]
 

@@ -10,7 +10,8 @@ Layout rules of the conversion (JAX tree -> port state dict):
   the transformer feed-forward kernels stay [in, out] (Projection);
 * SA levels name their parameters dense_{l}_kernel / bn_{l}_scale /
   bn_{l}_mean ...; the port holds modules dense_{l} / bn_{l};
-* LayerNorm / BatchNorm `scale` is the port's `weight`; the BN batch
+* LayerNorm / BatchNorm `scale` and an Embed table's `embedding` are the
+  port's `weight`; the BN batch
   statistics `mean` / `var` are the running_mean / running_var buffers;
 * layer lists intra_0, cross_hints_1, ... are ModuleList entries, and the
   global abstraction's auto-named MLP_0 is `mlp`.
@@ -54,7 +55,7 @@ def _convert_leaf(path, arr):
     if m:
         mods, last = mods + [f"{m.group(1)}_{m.group(2)}"], m.group(3)
         parent = mods[-1]
-    name = {"kernel": "weight", "scale": "weight", "bias": "bias",
+    name = {"kernel": "weight", "scale": "weight", "bias": "bias", "embedding": "weight",
             "mean": "running_mean", "var": "running_var"}[last]
     if last == "kernel":
         if parent in _HEADS:
@@ -146,6 +147,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
         elif isinstance(mod, Projection):
             normal(mod.weight, 1.0 / math.sqrt(mod.weight.shape[0]))
             normal(mod.bias, 0.02)
+        elif isinstance(mod, nn.Embedding):
+            normal(mod.weight, 1.0 / math.sqrt(mod.embedding_dim))
         elif isinstance(mod, nn.LayerNorm):
             normal(mod.weight, 0.1, 1.0)
             normal(mod.bias, 0.1)

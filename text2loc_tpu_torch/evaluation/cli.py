@@ -19,10 +19,10 @@ trainers (utils/checkpoint.py; not the JAX package's Orbax files).
 
 Styled hints: --styled_hints re-renders every pose's description through
 the paraphrase banks and serves it through Localizer.localize_text, with the
-frozen T5 encoder of --t5_snapshot (a local HF snapshot, read without
-transformers) or the compositional stand-in. The flags of paths the port
-does not have yet raise an error that names the ROADMAP item they wait for;
-none is ignored.
+frozen T5 encoder of --t5_snapshot (a local HF snapshot directory or a
+model id in the local hub cache, read without transformers) or the
+compositional stand-in. --plot_retrievals PATH writes
+the retrieval grid of the first 8 queries (evaluation/visualize.py).
 """
 
 from __future__ import annotations
@@ -33,12 +33,6 @@ import dataclasses
 import torch
 
 from text2loc_tpu_torch.config import Config
-
-# Flag -> the ROADMAP item the port's support of it waits for.
-_NOT_PORTED = {
-    "plot_retrievals": "a port copy of evaluation/visualize.py (ROADMAP Queue 1 item 8)",
-}
-
 
 def build_argparser():
     ap = argparse.ArgumentParser(description=__doc__,
@@ -62,7 +56,9 @@ def build_argparser():
                     help="evaluate the test split of --base_path instead of val")
     ap.add_argument("--synthetic", action="store_true",
                     help="an 8-cell synthetic scene at the small test config")
-    ap.add_argument("--plot_retrievals", default=None)
+    ap.add_argument("--plot_retrievals", default=None,
+                    help="PNG path of the retrieval grid (gt cell | top-k, green "
+                         "within 10 m) of the first 8 queries")
     ap.add_argument("--text_table", default=None,
                     help="frozen T5 table .npz; default: the compositional stand-in")
     ap.add_argument("--reference_attention", action="store_true",
@@ -84,26 +80,19 @@ def build_argparser():
     ap.add_argument("--styled_seed", type=int, default=0,
                     help="paraphrase sampling seed for --styled_hints")
     ap.add_argument("--t5_snapshot", default=None,
-                    help="local HF T5 snapshot directory (config.json, "
-                         "model.safetensors or pytorch_model.bin, tokenizer.json) for "
-                         "the online encoder; default: the compositional stand-in "
-                         "matched to the table embedder")
+                    help="local HF T5 snapshot for the online encoder: a directory "
+                         "(config.json, model.safetensors or pytorch_model.bin, whole "
+                         "or sharded, tokenizer.json) or a model id such as t5-large "
+                         "in the local hub cache (HF_HUB_CACHE, HF_HOME/hub or "
+                         "~/.cache/huggingface/hub; nothing is downloaded); default: "
+                         "the compositional stand-in matched to the table embedder")
     ap.add_argument("--sentence_table", action="store_true",
                     help="encode eval queries via the [V, D] sentence table")
     return ap
 
 
-def _check_flags(args):
-    """Raise on a flag of a path the port does not have yet."""
-    for flag, item in _NOT_PORTED.items():
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag}: the port does not have it yet; it "
-                                      f"waits for {item}")
-    return args
-
-
 def _parse(argv):
-    return _check_flags(build_argparser().parse_args(argv))
+    return build_argparser().parse_args(argv)
 
 
 def _apply_model_flags(cfg, args):
@@ -189,6 +178,10 @@ def main_pipeline(argv=None) -> dict:
     result = run_pipeline(data, coarse, fine, embedder, cfg, device=args.device)
     if args.styled_hints:
         result["styled"] = run_styled(args, cfg, data, coarse, fine, embedder)
+    if args.plot_retrievals:
+        from text2loc_tpu_torch.evaluation.visualize import plot_retrieval_grid
+
+        plot_retrieval_grid(data, result["retrievals"], args.plot_retrievals, max_queries=8)
     return result
 
 

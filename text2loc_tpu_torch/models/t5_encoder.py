@@ -14,10 +14,11 @@ one bucketed relative-position bias shared by every layer, scores and
 softmax in f32, ReLU or gated GELU (tanh) feed-forward, f32 parameters cast
 to `cfg.dtype` where they are used.
 
-`T5OnlineEncoder.from_snapshot` reads a local HF snapshot with no
-`transformers`, `tokenizers` or `safetensors`: config.json,
-model.safetensors (read by its header) or pytorch_model.bin
-(`torch.load(weights_only=True)`), and tokenizer.json (tokenizer.py).
+`T5OnlineEncoder.from_snapshot` reads a local HF snapshot, a directory or
+a model id in the local hub cache, with no `transformers`, `tokenizers`,
+`safetensors` or `huggingface_hub`: config.json, model.safetensors (read by
+its header) or pytorch_model.bin (`torch.load(weights_only=True)`), whole or
+in the shards of their .index.json, and tokenizer.json (tokenizer.py).
 """
 
 from __future__ import annotations
@@ -280,17 +281,71 @@ def read_safetensors(path: str) -> Dict[str, np.ndarray]:
     return out
 
 
-def read_snapshot_weights(path: str) -> Dict[str, np.ndarray]:
-    """The encoder's tensors of an HF snapshot directory, as f32 numpy:
-    model.safetensors where there is one, else pytorch_model.bin."""
-    st = os.path.join(path, "model.safetensors")
-    if os.path.exists(st):
-        return read_safetensors(st)
-    pt = os.path.join(path, "pytorch_model.bin")
-    if not os.path.exists(pt):
-        raise FileNotFoundError(f"{path}: neither model.safetensors nor pytorch_model.bin")
-    sd = torch.load(pt, map_location="cpu", weights_only=True)
+def _read_bin(path: str) -> Dict[str, np.ndarray]:
+    sd = torch.load(path, map_location="cpu", weights_only=True)
     return {k: v.float().numpy() for k, v in sd.items() if k.startswith(_ENCODER_KEYS)}
+
+
+def _read_sharded(path: str, index: str, read) -> Dict[str, np.ndarray]:
+    """The encoder's tensors of a sharded save: `index`'s `weight_map`
+    (tensor name -> shard file), each shard that holds one read once."""
+    with open(os.path.join(path, index)) as f:
+        weight_map = json.load(f)["weight_map"]
+    shards = sorted({f for k, f in weight_map.items() if k.startswith(_ENCODER_KEYS)})
+    out: Dict[str, np.ndarray] = {}
+    for shard in shards:
+        out.update(read(os.path.join(path, shard)))
+    return out
+
+
+def read_snapshot_weights(path: str) -> Dict[str, np.ndarray]:
+    """The encoder's tensors of an HF snapshot directory, as f32 numpy, from
+    the first of: model.safetensors, the shards of
+    model.safetensors.index.json, pytorch_model.bin, the shards of
+    pytorch_model.bin.index.json. A save that ties the token embedding
+    keeps one of shared.weight / encoder.embed_tokens.weight, which
+    convert_t5_encoder takes either of."""
+    for name, read in (("model.safetensors", read_safetensors),
+                       ("model.safetensors.index.json", read_safetensors),
+                       ("pytorch_model.bin", _read_bin),
+                       ("pytorch_model.bin.index.json", _read_bin)):
+        if os.path.exists(os.path.join(path, name)):
+            if name.endswith(".index.json"):
+                return _read_sharded(path, name, read)
+            return read(os.path.join(path, name))
+    raise FileNotFoundError(f"{path}: no model.safetensors, pytorch_model.bin or "
+                            "their .index.json")
+
+
+def hub_cache_dir() -> str:
+    """The local HF hub cache: $HF_HUB_CACHE, else $HF_HOME/hub, else
+    ~/.cache/huggingface/hub."""
+    if os.environ.get("HF_HUB_CACHE"):
+        return os.environ["HF_HUB_CACHE"]
+    if os.environ.get("HF_HOME"):
+        return os.path.join(os.environ["HF_HOME"], "hub")
+    return os.path.join(os.path.expanduser("~"), ".cache", "huggingface", "hub")
+
+
+def resolve_snapshot(model_name_or_path: str) -> str:
+    """A snapshot directory: `model_name_or_path` itself where it is a
+    directory, else the model id's snapshot in the local hub cache
+    (models--<org>--<name>/refs/main -> snapshots/<hash>/). Nothing
+    is fetched; a missing id raises, naming the paths it tried."""
+    if os.path.isdir(model_name_or_path):
+        return model_name_or_path
+    repo = os.path.join(hub_cache_dir(), "models--" + model_name_or_path.replace("/", "--"))
+    ref = os.path.join(repo, "refs", "main")
+    tried = [model_name_or_path, ref]
+    if os.path.isfile(ref):
+        with open(ref) as f:
+            snapshot = os.path.join(repo, "snapshots", f.read().strip())
+        if os.path.isdir(snapshot):
+            return snapshot
+        tried.append(snapshot)
+    raise FileNotFoundError(f"T5 snapshot {model_name_or_path!r}: not a directory and not "
+                            f"in the local hub cache (tried {', '.join(tried)}); nothing "
+                            "is downloaded")
 
 
 # ---------------------------------------------------------------------------
@@ -343,18 +398,19 @@ class T5OnlineEncoder:
     @classmethod
     def from_snapshot(cls, model_name_or_path: str, max_tokens: int = 32,
                       dtype: str = "float32", device="cuda") -> "T5OnlineEncoder":
-        """Load a local HF snapshot directory: config.json, the weights
-        (read_snapshot_weights) and tokenizer.json."""
+        """Load a local HF snapshot: a directory, or a model id such as
+        "t5-large" resolved in the local hub cache (resolve_snapshot), with
+        config.json, the weights (read_snapshot_weights) and tokenizer.json."""
         from text2loc_tpu_torch.tokenizer import UnigramTokenizer
 
-        with open(os.path.join(model_name_or_path, "config.json")) as f:
+        path = resolve_snapshot(model_name_or_path)
+        with open(os.path.join(path, "config.json")) as f:
             config = json.load(f)
         params, cfg = convert_t5_encoder(
-            read_snapshot_weights(model_name_or_path),
+            read_snapshot_weights(path),
             max_distance=config.get("relative_attention_max_distance", 128))
         cfg = dataclasses.replace(cfg, dtype=dtype)
-        tokenizer = UnigramTokenizer.from_file(
-            os.path.join(model_name_or_path, "tokenizer.json"))
+        tokenizer = UnigramTokenizer.from_file(os.path.join(path, "tokenizer.json"))
         return cls(params, cfg, tokenizer, max_tokens=max_tokens, device=device)
 
     def encode(self, sentences: List[str]) -> Tuple[np.ndarray, np.ndarray]:

@@ -127,7 +127,8 @@ class HintTextEmbedder:
         """Build the table by running the frozen T5 encoder over the hint
         vocabulary once: the port's own `models.t5_encoder.T5Encoder`, given
         as `model` (with any `tokenizer` that speaks the HF call) or read
-        from the local snapshot `model_name_or_path` on `device`. An
+        from the local snapshot `model_name_or_path` (a directory or a model
+        id in the local hub cache) on `device`. An
         existing `cache_path` npz is loaded instead; a missing one is
         written."""
         import os

@@ -188,12 +188,12 @@ def main(argv=None, stop: Optional[threading.Event] = None):
     build a cached Localizer (persisted by --cache_path), warm it, and serve
     it through the micro-batching dispatcher until `stop` is set (or an
     interrupt, with stop=None)."""
-    from text2loc_tpu_torch.evaluation.cli import (_apply_model_flags, _check_flags,
-                                                   _load, _model, online_encoder)
+    from text2loc_tpu_torch.evaluation.cli import (_apply_model_flags, _load, _model,
+                                                   online_encoder)
     from text2loc_tpu_torch.models.text_embedding import make_embedder
     from text2loc_tpu_torch.serving import Localizer
 
-    args = _check_flags(build_argparser().parse_args(argv))
+    args = build_argparser().parse_args(argv)
     cfg, data = _load(args)
     cfg = _apply_model_flags(cfg, args)
     cfg, embedder = make_embedder(cfg, args.text_table)

@@ -5,18 +5,23 @@ of them).
 It stands in for the `tokenizers` machinery that the JAX package reaches
 through `transformers.AutoTokenizer` (text2loc_tpu/models/t5_encoder.py
 T5OnlineEncoder._tokenize), and returns the same ids and masks for what it
-reads. It reads one pipeline, the one of T5's tokenizer.json and of the
+reads. It reads the pipelines of t5-large's tokenizer.json and of the
 vendored tiny tokenizer (assets/tiny_t5_tokenizer):
 
 * added tokens (the file's `added_tokens` plus the special tokens of a
   special_tokens_map.json / tokenizer_config.json beside it, as
-  transformers adds them): split out of the raw text first, leftmost
-  longest, each its own id;
-* no normalizer;
+  transformers adds them): those not `normalized` split out of the raw text
+  first, the `normalized` ones out of the normalized text, leftmost
+  longest, each its own id (its piece's id, or the next one after the
+  vocabulary, as tokenizers assigns them);
+* no normalizer, or a `Precompiled` one (SentencePiece's compiled rule set,
+  `PrecompiledCharsmap`), alone or in a `Sequence` with `Replace` normalizers
+  of a String pattern or of the Regex " {2,}";
 * a Metaspace pre-tokenizer (`replacement`, `prepend_scheme` always / first
-  / never, `split`): spaces become the replacement, which is prepended to
-  each text segment and, with `split`, starts a new word; a run of
-  replacements stays one word start;
+  / never or the older `add_prefix_space`, `split`), alone or after a
+  `WhitespaceSplit` in a `Sequence`: spaces become the replacement, which
+  is prepended to each text segment (each whitespace-split word) and, with
+  `split`, starts a new word; a run of replacements stays one word start;
 * a Unigram model: the Viterbi best segmentation of each word over the
   pieces' log-probabilities; a character that starts no piece becomes an
   unknown node (score: the least piece score minus 10), and consecutive
@@ -24,20 +29,24 @@ vendored tiny tokenizer (assets/tiny_t5_tokenizer):
 * a TemplateProcessing post-processor (special tokens around the sequence,
   for T5 the `</s>` suffix), whose tokens truncation makes room for.
 
-Anything else (another model type, byte fallback, any normalizer such as
-t5-large's `Precompiled` charsmap, another pre-tokenizer or post-processor,
-added tokens that strip or match single words) raises NotImplementedError
-naming it.
+Anything else (another model type, byte fallback, another normalizer or
+pre-tokenizer, `prepend_scheme` first after a WhitespaceSplit, another
+post-processor, added tokens that strip or match single words) raises
+NotImplementedError naming it.
 """
 
 from __future__ import annotations
 
+import base64
 import json
 import os
 import re
-from typing import Dict, List, Optional, Sequence, Tuple
+import struct
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from text2loc_tpu_torch.graphemes import clusters
 
 # tokenizers' Unigram: an unknown character scores the least piece score
 # minus this penalty (unigram/model.rs K_UNK_PENALTY).
@@ -60,8 +69,142 @@ def _types(spec) -> List[str]:
 def _refuse(section: str, spec) -> None:
     raise NotImplementedError(
         f"tokenizer.json {section} {'/'.join(_types(spec))} is not supported "
-        "(this reader takes a Unigram model, no normalizer, a Metaspace "
-        "pre-tokenizer and a TemplateProcessing post-processor)")
+        "(this reader takes a Unigram model, no normalizer or Precompiled with "
+        "Replace, a Metaspace pre-tokenizer after an optional WhitespaceSplit "
+        "and a TemplateProcessing post-processor)")
+
+
+class PrecompiledCharsmap:
+    """SentencePiece's compiled normalization rules, as `tokenizers`'
+    `Precompiled` normalizer applies them.
+
+    The blob: a little-endian u32 byte size of the trie, the trie as
+    darts-clone double-array units (u32 each; from unit p with offset o the
+    child of byte c sits at p ^ o ^ c, and a node with a leaf holds its
+    value at p ^ o), then a pool of NUL-terminated UTF-8 replacements, each
+    leaf's value the offset of its replacement in the pool.
+
+    `normalize` walks the text by extended grapheme clusters (graphemes.py).
+    A cluster of fewer than 6 UTF-8 bytes is looked up whole first: if any
+    key is a prefix of it, the whole cluster becomes the replacement of the
+    SHORTEST such key. Otherwise each character is looked up alone and kept
+    where no key matches it."""
+
+    def __init__(self, blob: bytes):
+        if len(blob) < 4:
+            raise ValueError("precompiled_charsmap: shorter than its 4-byte header")
+        (size,) = struct.unpack_from("<I", blob, 0)
+        if size == 0 or size % 4 or 4 + size > len(blob):
+            raise ValueError(f"precompiled_charsmap: trie size {size} does not fit "
+                             f"a blob of {len(blob)} bytes")
+        self.units = struct.unpack_from(f"<{size // 4}I", blob, 4)
+        self.pool = blob[4 + size:]
+        self._cache: Dict[str, Optional[str]] = {}
+
+    @classmethod
+    def from_base64(cls, text: str) -> "PrecompiledCharsmap":
+        return cls(base64.b64decode(text))
+
+    @staticmethod
+    def _offset(unit: int) -> int:
+        return (unit >> 10) << ((unit & (1 << 9)) >> 6)
+
+    def prefix_values(self, key: bytes) -> List[int]:
+        """The leaf values of every key that is a prefix of `key`, shortest
+        first (the search stops at a NUL byte)."""
+        units, out = self.units, []
+        pos = self._offset(units[0])
+        for c in key:
+            if c == 0:
+                break
+            pos ^= c
+            if pos >= len(units):
+                break
+            unit = units[pos]
+            if unit & ((1 << 31) | 0xFF) != c:
+                break
+            pos ^= self._offset(unit)
+            if (unit >> 8) & 1:
+                out.append(units[pos] & ((1 << 31) - 1))
+        return out
+
+    def transform(self, chunk: str) -> Optional[str]:
+        """The replacement of the shortest key that prefixes `chunk`, or None."""
+        if chunk in self._cache:
+            return self._cache[chunk]
+        found = self.prefix_values(chunk.encode("utf-8"))
+        out = None
+        if found:
+            end = self.pool.find(b"\0", found[0])
+            out = self.pool[found[0]:end if end >= 0 else len(self.pool)].decode("utf-8")
+        if len(self._cache) < 65536:
+            self._cache[chunk] = out
+        return out
+
+    def normalize(self, text: str) -> str:
+        out: List[str] = []
+        for g in clusters(text):
+            if len(g.encode("utf-8")) < 6:
+                rep = self.transform(g)
+                if rep is not None:
+                    out.append(rep)
+                    continue
+            for ch in g:
+                rep = self.transform(ch)
+                out.append(ch if rep is None else rep)
+        return "".join(out)
+
+
+def _normalizer(spec) -> Optional[Callable[[str], str]]:
+    """The normalizer of a tokenizer.json's `normalizer` section, or None."""
+    if spec is None:
+        return None
+    parts = spec.get("normalizers") if spec.get("type") == "Sequence" else [spec]
+    steps: List[Callable[[str], str]] = []
+    for part in parts:
+        kind = part.get("type")
+        if kind == "Precompiled" and part.get("precompiled_charsmap"):
+            steps.append(PrecompiledCharsmap.from_base64(part["precompiled_charsmap"]).normalize)
+        elif kind == "Replace":
+            pattern, content = part.get("pattern", {}), part.get("content", "")
+            if "String" in pattern and pattern["String"]:
+                steps.append(lambda s, a=pattern["String"], b=content: s.replace(a, b))
+            elif pattern.get("Regex") == " {2,}":
+                steps.append(lambda s, b=content: re.sub(" {2,}", lambda _: b, s))
+            else:
+                raise NotImplementedError(
+                    f"tokenizer.json normalizer Replace of pattern {pattern!r} is not "
+                    "supported (a String, or the Regex ' {2,}')")
+        else:
+            _refuse("normalizer", spec)
+
+    def run(text: str) -> str:
+        for step in steps:
+            text = step(text)
+        return text
+    return run
+
+
+# Rust's char::is_whitespace (the White_Space property), which
+# tokenizers' WhitespaceSplit splits on; Python's str.isspace also takes
+# U+001C..U+001F.
+_WHITESPACE = frozenset("\t\n\x0b\x0c\r \x85\xa0\u1680\u2000\u2001\u2002\u2003\u2004"
+                        "\u2005\u2006\u2007\u2008\u2009\u200a\u2028\u2029\u202f"
+                        "\u205f\u3000")
+
+
+def _whitespace_split(text: str) -> List[str]:
+    words, cur = [], []
+    for ch in text:
+        if ch in _WHITESPACE:
+            if cur:
+                words.append("".join(cur))
+                cur = []
+        else:
+            cur.append(ch)
+    if cur:
+        words.append("".join(cur))
+    return words
 
 
 def _special_tokens(directory: str) -> Dict[str, List[str]]:
@@ -85,6 +228,28 @@ def _special_tokens(directory: str) -> Dict[str, List[str]]:
     return out
 
 
+def _alternation(tokens: Dict[str, int]):
+    """A regex of `tokens`, longest first (leftmost longest match), or None."""
+    if not tokens:
+        return None
+    return re.compile("|".join(re.escape(t) for t in sorted(tokens, key=len, reverse=True)))
+
+
+def _split_added(text: str, pattern) -> List[Tuple[str, Optional[str], bool]]:
+    """`text` cut at the matches of `pattern`: (text, None, starts the text)
+    for the pieces between matches, (match, match, False) for each match."""
+    out: List[Tuple[str, Optional[str], bool]] = []
+    pos = 0
+    for m in (pattern.finditer(text) if pattern is not None else ()):
+        if m.start() > pos:
+            out.append((text[pos:m.start()], None, pos == 0))
+        out.append((m.group(), m.group(), False))
+        pos = m.end()
+    if pos < len(text):
+        out.append((text[pos:], None, pos == 0))
+    return out
+
+
 class UnigramTokenizer:
     """`tokenizer(sentences, return_tensors="np", padding="max_length",
     truncation=True, max_length=T)` -> {"input_ids", "attention_mask"}
@@ -93,9 +258,15 @@ class UnigramTokenizer:
     def __init__(self, pieces: Sequence[Tuple[str, float]], unk_id: int, pad_id: int,
                  prefix_ids: Sequence[int] = (), suffix_ids: Sequence[int] = (),
                  added: Optional[Dict[str, int]] = None, replacement: str = "▁",
-                 prepend_scheme: str = "always", split: bool = True):
+                 prepend_scheme: str = "always", split: bool = True,
+                 normalizer: Optional[Callable[[str], str]] = None,
+                 normalized_added: Optional[Dict[str, int]] = None,
+                 whitespace_split: bool = False):
         if prepend_scheme not in ("always", "first", "never"):
             raise NotImplementedError(f"Metaspace prepend_scheme {prepend_scheme!r}")
+        if whitespace_split and prepend_scheme == "first":
+            raise NotImplementedError("Metaspace prepend_scheme 'first' after a "
+                                      "WhitespaceSplit is not supported")
         self.scores = [float(s) for _, s in pieces]
         # A piece listed twice maps to its last id, as tokenizers' map does.
         self.piece_to_id = {p: i for i, (p, _) in enumerate(pieces)}
@@ -104,9 +275,12 @@ class UnigramTokenizer:
         self.unk_id, self.pad_id = int(unk_id), int(pad_id)
         self.prefix_ids, self.suffix_ids = list(prefix_ids), list(suffix_ids)
         self.added = dict(added or {})
-        self._added_re = (re.compile("|".join(re.escape(t) for t in sorted(
-            self.added, key=len, reverse=True))) if self.added else None)
+        self.normalized_added = dict(normalized_added or {})
+        self._added_re = _alternation(self.added)
+        self._normalized_added_re = _alternation(self.normalized_added)
         self.replacement, self.prepend_scheme, self.split = replacement, prepend_scheme, split
+        self.normalizer = normalizer
+        self.whitespace_split = whitespace_split
         self._cache: Dict[str, List[int]] = {}
 
     @classmethod
@@ -122,23 +296,37 @@ class UnigramTokenizer:
             raise NotImplementedError("tokenizer.json Unigram byte_fallback is not supported")
         if model.get("unk_id") is None:
             raise NotImplementedError("tokenizer.json Unigram without an unk_id")
-        if spec.get("normalizer") is not None:
-            _refuse("normalizer", spec["normalizer"])
+        normalizer = _normalizer(spec.get("normalizer"))
         pre = spec.get("pre_tokenizer")
+        whitespace_split = False
+        if pre is not None and pre.get("type") == "Sequence":
+            kinds = [p.get("type") for p in pre.get("pretokenizers", ())]
+            if kinds == ["WhitespaceSplit", "Metaspace"]:
+                whitespace_split, pre = True, pre["pretokenizers"][1]
+            elif kinds == ["Metaspace"]:
+                pre = pre["pretokenizers"][0]
         if pre is None or pre.get("type") != "Metaspace":
             _refuse("pre_tokenizer", pre)
         pieces = [(p, s) for p, s in model["vocab"]]
         vocab = {p: i for i, (p, _) in enumerate(pieces)}
 
         added: Dict[str, int] = {}
+        normalized_added: Dict[str, int] = {}
         for tok in spec.get("added_tokens") or ():
             if tok.get("lstrip") or tok.get("rstrip") or tok.get("single_word"):
                 raise NotImplementedError(
                     f"added token {tok['content']!r} with lstrip / rstrip / single_word")
-            added[tok["content"]] = int(tok["id"])
+            # As tokenizers assigns them: a token of the vocabulary keeps its
+            # piece's id, another takes the next id after the vocabulary and
+            # the added ids so far (the file's `id` is not read).
+            content = tok["content"]
+            new_id = vocab.get(content, max([len(pieces) - 1, *added.values(),
+                                             *normalized_added.values()]) + 1)
+            into = normalized_added if tok.get("normalized") and normalizer else added
+            into[content] = new_id
         special = _special_tokens(os.path.dirname(os.path.abspath(path)))
         for s in (t for tokens in special.values() for t in tokens):
-            if s not in added:
+            if s not in added and s not in normalized_added:
                 if s not in vocab:
                     raise NotImplementedError(f"special token {s!r} is not in the vocabulary")
                 added[s] = vocab[s]
@@ -170,7 +358,8 @@ class UnigramTokenizer:
             scheme = "always" if pre.get("add_prefix_space", True) else "never"
         return cls(pieces, model["unk_id"], pad_id, prefix, suffix, added,
                    replacement=pre.get("replacement", "▁"), prepend_scheme=scheme,
-                   split=pre.get("split", True))
+                   split=pre.get("split", True), normalizer=normalizer,
+                   normalized_added=normalized_added, whitespace_split=whitespace_split)
 
     # ------------------------------------------------------------ pipeline
 
@@ -241,19 +430,29 @@ class UnigramTokenizer:
                 self._cache[word] = ids
         return ids
 
+    def _segment_ids(self, segment: str, at_start: bool) -> List[int]:
+        """The ids of one normalized text segment (between added tokens)."""
+        ids: List[int] = []
+        parts = _whitespace_split(segment) if self.whitespace_split else [segment]
+        for part in parts:
+            for w in self._words(part, at_start=at_start):
+                ids += self._word_ids(w)
+        return ids
+
     def tokenize(self, text: str) -> List[int]:
         """The ids of `text` before truncation and the template's tokens."""
         ids: List[int] = []
-        pos = 0
-        matches = list(self._added_re.finditer(text)) if self._added_re else []
-        for m in matches + [None]:
-            end = m.start() if m is not None else len(text)
-            if end > pos:
-                for w in self._words(text[pos:end], at_start=pos == 0):
-                    ids += self._word_ids(w)
-            if m is not None:
-                ids.append(self.added[m.group()])
-                pos = m.end()
+        for piece, token, at_start in _split_added(text, self._added_re):
+            if token is not None:
+                ids.append(self.added[token])
+                continue
+            if self.normalizer is not None:
+                piece = self.normalizer(piece)
+            for sub, sub_token, sub_start in _split_added(piece, self._normalized_added_re):
+                if sub_token is not None:
+                    ids.append(self.normalized_added[sub_token])
+                else:
+                    ids += self._segment_ids(sub, at_start and sub_start)
         return ids
 
     def encode(self, text: str, max_length: Optional[int] = None) -> List[int]:

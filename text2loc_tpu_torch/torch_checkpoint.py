@@ -8,8 +8,6 @@ convert_tree takes that tree to the port's state-dict keys, so one set of
 layout rules serves both weight sources. Loading follows the reference's
 load_state_dict(strict=False): what the checkpoint lacks (the frozen T5
 weights were stripped when it was saved) keeps the model's current values.
-The class- and colour-embedding object paths are not converted: the port's
-ObjectEncoder does not build them.
 """
 
 from __future__ import annotations
@@ -168,10 +166,10 @@ def _subdict(sd, prefix: str) -> Dict[str, np.ndarray]:
 
 
 def convert_object_encoder(sd, prefix: str, cfg):
-    """Reference ObjectEncoder (PointNet object path) -> (params, stats)."""
-    if cfg.class_embed or cfg.color_embed:
-        raise NotImplementedError("the port's ObjectEncoder has no class/colour "
-                                  "embedding path")
+    """Reference ObjectEncoder -> (params, stats): the PointNet path, or
+    with `class_embed` / `color_embed` the embedding tables."""
+    from text2loc_tpu_torch import constants as C
+
     p = f"{prefix}." if prefix else ""
     params: Dict = {}
     stats: Dict = {}
@@ -182,12 +180,33 @@ def convert_object_encoder(sd, prefix: str, cfg):
         if ms:
             stats[name] = ms
 
-    if "class" in use:
+    if "class" in use and not cfg.class_embed:
         pn_sd = _subdict(sd, f"{p}pointnet")
         if pn_sd:
             params["pointnet"], stats["pointnet"] = convert_pointnet_checkpoint(pn_sd)
         mlp("mlp_pointnet")
-    if "color" in use:
+    elif "class" in use:
+        # The reference's class rows are in ALPHABETICAL order (known_classes
+        # = {c: i + 1 for c in np.unique(labels)}, "<unk>" at 0); the port
+        # indexes class_idx + 1 in CLASS_TO_INDEX order: permute the rows.
+        w = np.asarray(sd[f"{p}class_embedding.weight"])
+        tbl = np.zeros_like(w)
+        tbl[0] = w[0]
+        for c, j in C.CLASS_TO_INDEX.items():
+            tbl[j + 1] = w[C.KNOWN_CLASSES.index(c) + 1]
+        params["class_embedding"] = {"embedding": tbl}
+    if "color" in use and cfg.color_embed:
+        # The reference keys colours by NAME, {c: i for i, c in
+        # enumerate(COLOR_NAMES)} plus "<unk>": 0, looked up without + 1:
+        # the second "gray" wins (row 1 unreachable) and "dark-green" shares
+        # row 0 with "<unk>". The port's row j + 1 takes that row.
+        w = np.asarray(sd[f"{p}color_embedding.weight"])
+        ref_idx = {name: i for i, name in enumerate(C.COLOR_NAMES)}
+        tbl = np.zeros((C.NUM_COLORS + 1, w.shape[1]), w.dtype)
+        for j, name in enumerate(C.COLOR_NAMES):
+            tbl[j + 1] = w[ref_idx[name]]
+        params["color_embedding"] = {"embedding": tbl}
+    elif "color" in use:
         mlp("color_encoder")
     if "position" in use:
         mlp("pos_encoder")
@@ -318,9 +337,13 @@ def load_pretrained_pointnet(model: torch.nn.Module, path: str) -> torch.nn.Modu
     pointnet_acc0.86_lr1_p256.pth layout) into a tower's
     object_encoder.pointnet, parameters and BatchNorm running statistics
     (port of text2loc_tpu/models/torch_convert.py:load_pretrained_pointnet);
-    every other entry of `model` keeps its value. Returns the model."""
+    every other entry of `model` keeps its value. A tower without a PointNet
+    (`class_embed`) is refused. Returns the model."""
     from text2loc_tpu_torch.convert import convert_tree
 
+    if not hasattr(getattr(model, "object_encoder", None), "pointnet"):
+        raise ValueError(f"{path}: the tower has no PointNet to graft into "
+                         "(its object encoder uses the class embedding table)")
     sd = to_numpy(torch.load(path, map_location="cpu", weights_only=True))
     params, stats = convert_pointnet_checkpoint(sd)
     state = {f"object_encoder.pointnet.{k}": v
