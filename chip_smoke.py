@@ -25,10 +25,15 @@ toolkit. Phases, each printing one JSON line:
    mha_addln_tiled, the tiled chain, at the intra stack's E=1024 in bf16
    and f32, with each stage of the chain against its plain stage and, as a
    yardstick the port never calls, stock_ms: the port's fused_attn="0" path
-   with cuBLAS products, on the bf16 case's line; and at two lengths whose
-   head exceeds the one-block attention core's shared memory, self 128x128
-   and cross 16x600 at E=1024, which take the key-tiled core: lines of
-   their own, not summed, each stage against its plain stage); the
+   with cuBLAS products, on the bf16 case's line, which must be no slower;
+   and at two lengths past the attention core's one-sweep chunk, self
+   128x128 and cross 16x600 at E=1024, which take its two sweeps: lines of
+   their own, not summed, each stage against its plain stage, the bf16
+   lines faster than plain; every tiled line and stage line with the core's
+   plan (core_rows, core_chunk, core_sweeps), the project and core stage
+   lines with library_ms, one PyTorch call the port never makes: torch.addmm
+   over the packed bf16 weights, F.scaled_dot_product_attention with the
+   additive key bias); the
    feed-forward block by its route (ffn_addln, the fused kernel, to d=256,
    each line with kernel_ms and its plan (tile rows, cluster, blocks), and
    the blocks of a batch-1 serve request as lines of their own, not
@@ -330,6 +335,7 @@ class KernelRecord:
         self.library_ms = None
         self.op_s = 0.0
         self.byte_s = 0.0
+        self.last_line = None     # the last case line emitted
 
     @property
     def bound_by(self) -> str:
@@ -373,12 +379,14 @@ class KernelRecord:
         extra = {key: cuda_ms(fn) for key, fn in (yardsticks or {}).items()}
         op_s, byte_s = bound(*work)
         bound_ms = max(op_s, byte_s) * 1e3
-        emit({"phase": "kernel", "case": name, "dtype": str(dtype).split(".")[-1],
-              "max_abs_err": err, "bound": limit, "ms": ms, "plain_ms": plain_ms,
-              "bound_ms": bound_ms, "bound_by": "operations" if op_s >= byte_s else "bytes",
-              "library_ms": library_ms, **extra, **(info or {}), "ok": ok,
-              **({"rel_l2_errs": rels} if norm_floor is not None else {}),
-              **({"max_ulps": ulps} if ulps is not None else {})})
+        self.last_line = {
+            "phase": "kernel", "case": name, "dtype": str(dtype).split(".")[-1],
+            "max_abs_err": err, "bound": limit, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "operations" if op_s >= byte_s else "bytes",
+            "library_ms": library_ms, **extra, **(info or {}), "ok": ok,
+            **({"rel_l2_errs": rels} if norm_floor is not None else {}),
+            **({"max_ulps": ulps} if ulps is not None else {})}
+        emit(self.last_line)
         check(ok, f"{name} {dtype}: error {err} above {limit}")
         if counts if counts is not None else (dtype == torch.bfloat16 or exact):
             self.max_abs_err = max(self.max_abs_err, err)
@@ -576,11 +584,13 @@ def _attention_args(gen, dev, dt, b, lq, lk, d, self_attn, empty):
             mats[3], vecs[3], _rand(gen, d, 0.1, dev, 1.0), _rand(gen, d, 0.1, dev), mask)
 
 
-def _stage_checks(kname, name, dt, stages) -> None:
+def _stage_checks(kname, name, dt, stages, info=None) -> None:
     """Each stage of a tiled chain alone against its plain stage on the
     plain stage's inputs (TOLERANCE x max|plain|), with its time. stages:
-    [(stage, fn returning a tuple of outputs, the plain outputs)]."""
-    for stage, fn, wants in stages:
+    [(stage, fn returning a tuple of outputs, the plain outputs[, one
+    PyTorch call computing the stage, timed as library_ms])]; info: further
+    keys of every stage line."""
+    for stage, fn, wants, *library in stages:
         err, ok, limit = 0.0, True, 0.0
         for got, want in zip(fn(), wants):
             got, want = got.float(), want.float()
@@ -591,14 +601,54 @@ def _stage_checks(kname, name, dt, stages) -> None:
                 err, limit = e, lim
         emit({"phase": "kernel_stage", "case": f"{kname} {name}", "stage": stage,
               "dtype": str(dt).split(".")[-1], "max_abs_err": err, "bound": limit,
-              "ms": cuda_ms(fn), "ok": ok})
+              "ms": cuda_ms(fn), **({"library_ms": cuda_ms(library[0])} if library else {}),
+              **(info or {}), "ok": ok})
         check(ok, f"{kname} {name} stage {stage}: error {err} above {limit}")
 
 
+def _core_plan_info(lq, lk, d, dt) -> dict:
+    """The tiled chain's attention-core plan at this shape (4 heads)."""
+    from text2loc_tpu_torch.ops import cuda_mha
+
+    plan = cuda_mha.core_layout(lq, lk, d, 4, dt)
+    return {"core_rows": plan.rows, "core_chunk": plan.chunk, "core_sweeps": plan.sweeps}
+
+
+def _library_project_fn(args):
+    """One PyTorch call per product for stage (a), the port never makes
+    it: torch.addmm over the packed [Wq|Wk|Wv] (self-attention), or x Wq
+    and kv [Wk|Wv] (cross), weights and biases packed and cast beforehand."""
+    x, kv, wq, bq, wk, bk, wv, bv = args[:8]
+    dt = x.dtype
+    d = x.shape[-1]
+    x2, kv2 = x.reshape(-1, d), kv.reshape(-1, d)
+    if kv is x:
+        w = torch.cat([wq, wk, wv], dim=1).to(dt)
+        b = torch.cat([bq, bk, bv]).to(dt)
+        return lambda: torch.addmm(b, x2, w)
+    wkv, bkv = torch.cat([wk, wv], dim=1).to(dt), torch.cat([bk, bv]).to(dt)
+    wq_, bq_ = wq.to(dt), bq.to(dt)
+    return lambda: (torch.addmm(bq_, x2, wq_), torch.addmm(bkv, kv2, wkv))
+
+
+def _library_core_fn(q, k, v, mask):
+    """F.scaled_dot_product_attention over the projected heads with the
+    additive key bias (q is pre-scaled: scale 1), the port never calls it."""
+    from text2loc_tpu_torch.ops import mha
+
+    b, lq, d = q.shape
+    lk = k.shape[1]
+    heads = lambda t, n: t.reshape(b, n, 4, d // 4).transpose(1, 2)
+    qh, kh, vh = heads(q, lq), heads(k, lk), heads(v, lk)
+    bias = mha.key_bias(mask, b, lk, q.device)[:, None, None, :].to(q.dtype)
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=bias, scale=1.0)
+
+
 def _mha_tiled_stages(name, args, dt) -> None:
-    """The attention chain's stages: (a) the projection GEMM, (b) the
-    attention core, (c)+(d) the out-projection GEMM with the residual and
-    the LayerNorm."""
+    """The attention chain's stages: (a) the projection product(s), (b) the
+    attention core, (c)+(d) the out-projection with the residual and the
+    LayerNorm; the core's plan on every line, library_ms on (a) and (b)."""
     from text2loc_tpu_torch.ops import cuda_mha, mha
 
     x, kv, wq, bq, wk, bk, wv, bv, wo, bo, g, be, mask = args
@@ -606,11 +656,13 @@ def _mha_tiled_stages(name, args, dt) -> None:
     o = mha.mha_core_plain(q, k, v, mask, num_heads=4)
     _stage_checks("mha_addln_tiled", name, dt, [
         ("project", lambda: cuda_mha.tiled_project_cuda(x, kv, wq, bq, wk, bk, wv, bv,
-                                                        num_heads=4), (q, k, v)),
-        ("core", lambda: (cuda_mha.tiled_core_cuda(q, k, v, mask, num_heads=4),), (o,)),
+                                                        num_heads=4), (q, k, v),
+         _library_project_fn(args)),
+        ("core", lambda: (cuda_mha.tiled_core_cuda(q, k, v, mask, num_heads=4),), (o,),
+         _library_core_fn(q, k, v, mask)),
         ("out_addln", lambda: (cuda_mha.tiled_out_addln_cuda(x, o, wo, bo, g, be),),
          (mha.mha_out_addln_plain(x, o, wo, bo, g, be),)),
-    ])
+    ], info=_core_plan_info(x.shape[1], kv.shape[1], x.shape[2], dt))
 
 
 def _stock_ffn_fn(args, dt):
@@ -712,10 +764,9 @@ def phase_kernels(dev) -> dict:
                      ("request hint cross", 10, 6, 16, 128, False, False),
                      ("request obj self", 10, 16, 16, 128, True, False),
                      ("request hint self", 10, 6, 6, 128, True, False)]
-    # Lengths whose head exceeds the one-block core's shared memory at E=1024
-    # (from 117 in bf16, 70 in f32): the key-tiled core. No Config() shape
-    # reaches it; lines of their own, not summed, each with one sample whose
-    # keys are all masked.
+    # Lengths past the attention core's one-sweep chunk (64 keys) at E=1024:
+    # its two sweeps. No Config() shape reaches them; lines of their own, not
+    # summed, each with one sample whose keys are all masked.
     gen_long = torch.Generator().manual_seed(SEED + 10)
     long_cases = [("long self", 16, 128, 128, 1024, True, True),
                   ("long cross", 16, 16, 600, 1024, False, True)]
@@ -744,15 +795,20 @@ def phase_kernels(dev) -> dict:
                 counts=False if name.startswith(("request", "long")) else None,
                 yardsticks=({"stock_ms": _stock_attention_fn(args, dt)}
                             if fused or tiled_bf16 else None),
-                info={"kernel_ms": kernel_ms(_fused_attention_fn(args))} if fused else None)
+                info=({"kernel_ms": kernel_ms(_fused_attention_fn(args))} if fused
+                      else _core_plan_info(lq, lk, d, dt)))
             if tiled_bf16:
-                check(ms < plain_ms and ms <= 3.0,
-                      f"{kname} {name}: {ms} ms, plain {plain_ms} ms (limit: faster than "
-                      "plain and at most 3 ms)")
+                stock_ms = records[kname].last_line["stock_ms"]
+                check(ms < plain_ms and ms <= 3.0 and ms <= stock_ms,
+                      f"{kname} {name}: {ms} ms, plain {plain_ms} ms, stock {stock_ms} ms "
+                      "(limit: faster than plain, at most 3 ms, no slower than stock)")
                 _mha_tiled_stages(name, args, dt)
             if long:
-                check(cuda_mha.core_layout(lq, lk, d, 4, dt).kind == "keys",
-                      f"{name}: the key-tiled core")
+                check(cuda_mha.core_layout(lq, lk, d, 4, dt).sweeps == 2,
+                      f"{name}: the core's two sweeps")
+                if dt == torch.bfloat16:
+                    check(ms < plain_ms, f"{kname} {name}: {ms} ms, plain {plain_ms} ms "
+                          "(limit: faster than plain)")
                 _mha_tiled_stages(name, args, dt)
 
     ffn_cases = [("cct", 640 * 16, 128, 512), ("obj_inter", 64 * 28, 256, 512),

@@ -1,18 +1,25 @@
-"""Split the fused attention block's time on the card (`mha_addln`, d <= 256)
-into the kernel, the wrapper's host dispatch and its extra device ops.
+"""Split the attention block's time on the card (`mha_addln`, d <= 256, and
+`mha_addln_tiled`, the tiled chain) into the kernels, the wrapper's host
+dispatch and its extra device ops.
 
-    python3 scripts/probe_torch_mha_addln.py [--root DIR] [--reps 10]
+    python3 scripts/probe_torch_mha_addln.py [--root DIR] [--reps 10] [--cases all|fused|tiled]
 
 `--root` names the checkout whose text2loc_tpu_torch is timed (default:
 the one holding this script), e.g. a parent commit unpacked with `git
-archive` beside the working tree. The shapes are chip_smoke.py's six fused
-cases (B = 640 or 64) and a batch-1 serve request's eight blocks, six
+archive` beside the working tree. The shapes (`--cases fused`) are
+chip_smoke.py's six fused cases (B = 640 or 64) and a batch-1 serve
+request's eight blocks, six
 shapes: the coarse inter head and the layer-0 hint block at B = 1, the CCT
 blocks over the top-10 cells at B = 10. Two more shapes that the fused
 block took before its redesign and the tiled chain takes after it:
 self-attention over 48 keys at D=128 (both dtypes), cross-attention of 56
-queries over 8 keys at D=256 (f32; bf16 stays fused). Inputs as the smoke
-makes them:
+queries over 8 keys at D=256 (f32; bf16 stays fused). `--cases tiled`:
+chip_smoke.py's three tiled cases at E=1024 (the intra stack, 1584
+sentences of 16 tokens; self 128x128 and cross 16x600 at B=16, which take
+the attention core's two sweeps), each line also with its stages'
+`kernel_ms` (`project_ms`, `core_ms`, `out_addln_ms`: the stage wrappers of
+ops/cuda_mha.py on the plain stages' inputs, as the smoke checks them).
+Inputs as the smoke makes them:
 bf16 or f32 activations, f32 weights (as the model passes its
 parameters), a bool key mask with a quarter of the keys padded. For each
 shape and dtype it prints one JSON line:
@@ -70,6 +77,9 @@ REQUEST = [("req inter head", 1, 6, 6, 256, True, False),
            ("req hint self", 10, 6, 6, 128, True, False)]
 MOVED = [("moved self 48", 9, 48, 48, 128, True, False),
          ("moved cross 56x8", 64, 56, 8, 256, False, False)]
+TILED = [("intra E=1024", 1584, 16, 16, 1024, True, False),
+         ("long self", 16, 128, 128, 1024, True, True),
+         ("long cross", 16, 16, 600, 1024, False, True)]
 
 
 def device_ops(fn, reps: int) -> float:
@@ -117,6 +127,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=REPO)
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--cases", choices=("all", "fused", "tiled"), default="all")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("probe_torch_mha_addln: needs a CUDA card", file=sys.stderr)
@@ -127,7 +138,7 @@ def main() -> int:
     spec = importlib.util.spec_from_file_location("smoke", os.path.join(REPO, "chip_smoke.py"))
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    from text2loc_tpu_torch.ops import _cuda, cuda_mha
+    from text2loc_tpu_torch.ops import _cuda, cuda_mha, mha
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
@@ -137,8 +148,10 @@ def main() -> int:
     _cuda.library()
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(SEED)
+    cases = ((SMOKE + REQUEST + MOVED if args.cases != "tiled" else [])
+             + (TILED if args.cases != "fused" else []))
     for dt in (torch.bfloat16, torch.float32):
-        for name, b, lq, lk, d, self_attn, empty in SMOKE + REQUEST + MOVED:
+        for name, b, lq, lk, d, self_attn, empty in cases:
             a = smoke._attention_args(gen, dev, dt, b, lq, lk, d, self_attn, empty)
             route = cuda_mha.route(lq, lk, d, HEADS, dt, self_attn=self_attn)
 
@@ -146,13 +159,27 @@ def main() -> int:
                 return cuda_mha.mha_addln_cuda(*a, num_heads=HEADS)
 
             bare = bare_kernel(smoke, cuda_mha, a) if route == "fused" else call
+            stages = {}
+            if (name, b, lq, lk, d, self_attn, empty) in TILED:
+                x, kv, wq, bq, wk, bk, wv, bv, wo, bo, g, be, mask = a
+                q, k, v = mha.mha_project_plain(x, kv, wq, bq, wk, bk, wv, bv, num_heads=HEADS)
+                o = mha.mha_core_plain(q, k, v, mask, num_heads=HEADS)
+                stages = {key: smoke.kernel_ms(fn, args.reps) for key, fn in (
+                    ("project_ms", lambda: cuda_mha.tiled_project_cuda(
+                        x, kv, wq, bq, wk, bk, wv, bv, num_heads=HEADS)),
+                    ("core_ms", lambda: cuda_mha.tiled_core_cuda(q, k, v, mask,
+                                                                 num_heads=HEADS)),
+                    ("out_addln_ms", lambda: cuda_mha.tiled_out_addln_cuda(x, o, wo, bo, g,
+                                                                           be)))}
             print(json.dumps({
                 "root": root, "case": f"{name} B={b} Lq={lq} Lk={lk} D={d}",
                 "dtype": str(dt).split(".")[-1], "route": route,
                 "ms": smoke.cuda_ms(call, args.reps),
                 "kernel_ms": smoke.kernel_ms(bare, args.reps),
                 "device_ops": device_ops(call, args.reps),
-                "stock_ms": smoke.cuda_ms(smoke._stock_attention_fn(a, dt), args.reps)}),
+                "stock_ms": smoke.cuda_ms(smoke._stock_attention_fn(a, dt), args.reps),
+                "plain_ms": smoke.cuda_ms(lambda a=a: mha.mha_addln_plain(*a, num_heads=HEADS),
+                                          args.reps), **stages}),
                   flush=True)
     return 0
 

@@ -121,7 +121,8 @@ def main() -> int:
         kout, kstats, kaux1, kaux2 = sa_train.forward_cuda(level, b2, g1, be1, g2, be2, maskf,
                                                            1e-5)
         _, pstats, paux1, paux2 = sa_train._forward_plain(u, sv, w2, b2, g1, be1, g2, be2, idx,
-                                                          maskm, maskf, 1e-5, f32, None)
+                                                          maskm, maskf, 1e-5, f32, None,
+                                                          None)
 
         def check(a1, a2, n1, masked):
             d = dout

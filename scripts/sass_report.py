@@ -7,7 +7,8 @@ holding this script) and, with `--against`, of another checkout (e.g. a
 parent unpacked with `git archive`), dumps each with `cuobjdump -sass` and
 prints one JSON line per kernel whose mangled name matches `--match`
 (default: every kernel): its instruction count, its tensor-core
-instructions by opcode (`HMMA...`, with one example line each), and with
+instructions by opcode (`HMMA...` of mma.sync, `HGMMA...` of wgmma, with
+one example line each), and with
 `--against` whether its instruction sequence equals the other build's
 (the hash of an anonymous namespace taken out of the names). A last line
 sums them. Needs the CUDA toolkit (nvcc, cuobjdump); run it where the
@@ -28,6 +29,7 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _ANON = re.compile(r"_GLOBAL__N__[0-9a-f]+_\d+_(\w+?)_cu_[0-9a-f]+")
 _INSN = re.compile(r"\s*/\*[0-9a-f]+\*/\s*(.*?)\s*;")
+_TC = re.compile(r"\bH(?:G)?MMA\.\S+")   # mma.sync (HMMA) and wgmma (HGMMA)
 
 
 def build(root: str) -> str:
@@ -68,8 +70,7 @@ def main() -> int:
     total = collections.Counter()
     for name in sorted(n for n in mine if pattern.search(n)):
         insns = mine[name]
-        hmma = collections.Counter(re.search(r"HMMA\.\S+", i).group(0)
-                                   for i in insns if "HMMA" in i)
+        hmma = collections.Counter(_TC.search(i).group(0) for i in insns if _TC.search(i))
         row = {"kernel": name, "instructions": len(insns), "hmma": dict(hmma),
                "hmma_example": {op: next(i for i in insns if op in i) for op in hmma}}
         total["kernels"] += 1

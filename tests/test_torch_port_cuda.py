@@ -594,6 +594,22 @@ TILED_TO_D256 = {(48, 48, 128, torch.bfloat16), (48, 48, 128, torch.float32),
                  (64, 32, 256, torch.float32)}
 
 
+# The tiled chain's grid: every key count its core plans differently (one
+# sweep in chunks of 16, 13 of 16, 6 of 16; two sweeps, 117 and 600 keys),
+# every head width of the models (dh = 32, 64, 128, 256 at 4 heads), self-
+# and cross-attention, B = 3 with sample 1 all masked, so that B * Lq (18,
+# 39, 48, 351, 1800) is never a multiple of 64.
+TILED_GRID = [(3, lk if self_attn else 13, lk, 4 * dh, self_attn)
+              for dh in (32, 64, 128, 256) for lk in (6, 13, 16, 117, 600)
+              for self_attn in (True, False)]
+
+
+def _expected_route(lq, lk, d, dtype):
+    tiled = (d > 256 or lk > cuda_mha.FUSED_MAX_KEYS or lq > cuda_mha.FUSED_MAX_ROWS
+             or (lq, lk, d, dtype) in TILED_TO_D256)
+    return "tiled" if tiled else "fused"
+
+
 @pytest.mark.parametrize("dtype,b,lq,lk,d,self_attn", [
     (dt, *case) for dt in DTYPES for case in ((33, 16, 6, 128, False),
                                               (9, 28, 28, 256, True),
@@ -604,16 +620,17 @@ TILED_TO_D256 = {(48, 48, 128, torch.bfloat16), (48, 48, 128, torch.float32),
      (torch.bfloat16, 7, 16, 6, 512, False),      # cross-attention above d=256
      (torch.bfloat16, 3, 13, 13, 1024, True),     # M = 39: rows past M in a tile
      (torch.float32, 3, 13, 5, 512, False)]
-   + [(dt, *case) for dt in DTYPES for case in ((2, 128, 128, 1024, True),    # key-tiled core
-                                                (3, 16, 600, 1024, False))])
+   + [(dt, *case) for dt in DTYPES for case in ((2, 128, 128, 1024, True),    # two sweeps
+                                                (3, 16, 600, 1024, False))]
+   + [(dt, *case) for dt in DTYPES for case in TILED_GRID])
 def test_mha_kernel(dev, dtype, b, lq, lk, d, self_attn):
     """The fused kernel to d=256 where it takes the shape, the tiled chain
     above and where it does not (bf16 and f32), each counting one launch
-    per block."""
+    per block; TILED_GRID's key counts, head widths and layouts on the
+    kernel their route gives."""
     args = _mha_args(dev, dtype, b, lq, lk, d, self_attn)
     routed = cuda_mha.route(lq, lk, d, 4, dtype, self_attn=self_attn)
-    assert routed == ("fused" if d <= 256 and (lq, lk, d, dtype) not in TILED_TO_D256
-                      else "tiled")
+    assert routed == _expected_route(lq, lk, d, dtype)
     kernel, other = ((cuda_mha.KERNEL, cuda_mha.KERNEL_TILED) if routed == "fused"
                      else (cuda_mha.KERNEL_TILED, cuda_mha.KERNEL))
     before, before_other = kernel.launches, other.launches
@@ -627,12 +644,13 @@ def test_mha_kernel(dev, dtype, b, lq, lk, d, self_attn):
                                                  (7, 16, 6, 512, False),
                                                  (1584, 16, 16, 1024, True),
                                                  (2, 128, 128, 1024, True),
-                                                 (3, 16, 600, 1024, False)])
+                                                 (3, 16, 600, 1024, False)] + TILED_GRID)
 def test_mha_tiled_stages(dev, dtype, b, lq, lk, d, self_attn):
     """Each stage of the tiled chain alone against its plain stage, on the
-    plain stage's inputs: the projection GEMM(s), the attention core, the
-    out-projection GEMM with the residual and the LayerNorm. The stage
-    entry points launch no counted block."""
+    plain stage's inputs: the projection product(s), the attention core, the
+    out-projection with the residual and the LayerNorm, at every shape of
+    TILED_GRID whatever its route. The stage entry points launch no counted
+    block."""
     x, kv, wq, bq, wk, bk, wv, bv, wo, bo, g, be, mask = _mha_args(
         dev, dtype, b, lq, lk, d, self_attn, seed=4)
     before = cuda_mha.KERNEL_TILED.launches
@@ -650,14 +668,63 @@ def test_mha_tiled_stages(dev, dtype, b, lq, lk, d, self_attn):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m", [1, 100, 25344])
+@pytest.mark.parametrize("residual", [False, True])
+def test_mha_tiled_gemm_rows(dev, dtype, m, residual):
+    """One product of the chain at M = 1, 100 (rows past M in every tile)
+    and 25,344 (the intra stack's rows, 198 row tiles): the
+    projection's epilogue (half the columns scaled, rounded to the dtype)
+    and the residual one (f32), K = N = 1024, against the plain sums."""
+    rng = np.random.default_rng(9)
+    a = _randn(rng, (m, 1024), dev).to(dtype)
+    w = _randn(rng, (1024, 1024), dev, 1024 ** -0.5).to(dtype)
+    bias = _randn(rng, 1024, dev, 0.1)
+    if residual:
+        res = _randn(rng, (m, 1024), dev).to(dtype)
+        got = torch.empty((m, 1024), dtype=torch.float32, device=dev)
+        cuda_mha._gemm(a, w, bias, got, res=res)
+        want = (res.float() + a.float() @ w.float()) + bias
+    else:
+        got = torch.empty((m, 1024), dtype=dtype, device=dev)
+        cuda_mha._gemm(a, w, bias, got, nscale=512, scale=0.125)
+        scale = torch.ones(1024, device=dev)
+        scale[:512] = 0.125
+        want = ((a.float() @ w.float() + bias) * scale).to(dtype)
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("self_attn", [True, False])
+def test_mha_tiled_call_device_ops(dev, dtype, self_attn):
+    """A tiled call on the model's operands (f32 weights, a bool mask) at
+    E=1024 launches the weight casts its products need (bf16: four; f32:
+    none), the key bias and the chain's kernels (the projection products,
+    the core, the out-projection, the LayerNorm), and no concatenation of
+    the weights; one counted launch."""
+    from text2loc_tpu_torch.ops.mha import key_bias
+
+    args = _mha_args(dev, dtype, 37, 16, 16 if self_attn else 6, 1024, self_attn)
+    mha_addln(*args, num_heads=4)
+    torch.cuda.synchronize()
+    ops, calls, launched = _profiled_device_ops(
+        lambda: mha_addln(*args, num_heads=4), cuda_mha.KERNEL_TILED)
+    _, bias_ops, _ = _profiled_device_ops(
+        lambda: key_bias(args[-1], 37, args[1].shape[1], dev), cuda_mha.KERNEL_TILED)
+    casts = 4 if dtype == torch.bfloat16 else 0
+    products = (1 if self_attn else 2) if dtype == torch.bfloat16 else 3
+    assert launched == 1
+    assert len(calls) == casts + len(bias_ops) + products + 3, (calls, ops)
+    assert not any("CatArray" in op for op in ops), ops   # torch.cat's kernel
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_mha_route_layout_is_the_kernels(dev, dtype):
     """The shared bytes of fused_plan's layouts equal t2l_mha_addln_layout's
     for every G and cluster the kernel takes, and the kernel refuses (0)
     where they exceed a block's shared memory; at every B the plan of a
-    fused route is one the kernel takes; the core layout that core_layout
-    plans has t2l_mha_tiled_core_smem's shared bytes, the one-block core's
-    and the key-tiled core's alike, and the kernels refuse the one-block
-    core where core_layout takes the key-tiled one."""
+    fused route is one the kernel takes; the core plan that core_layout
+    makes has t2l_mha_tiled_core_smem's shared bytes, one sweep and two
+    alike, and the kernel refuses a plan it was not built for."""
     from text2loc_tpu_torch.ops import _cuda
 
     lib = _cuda.library()
@@ -680,28 +747,31 @@ def test_mha_route_layout_is_the_kernels(dev, dtype):
             else:
                 assert plan is None
         assert_core_layout_is_the_kernels(lib, lq, lk, d, 4, dtype)
-    for lq, lk, d, heads in [(16, 16, 1024, 4), (116, 116, 1024, 4), (117, 117, 1024, 4),
-                             (128, 128, 1024, 4), (16, 600, 1024, 4), (69, 69, 1024, 4),
-                             (70, 70, 1024, 4), (512, 512, 1024, 1), (64, 64, 1280, 1)]:
+    for lq, lk, d, heads in [(16, 16, 1024, 4), (64, 64, 1024, 4), (65, 65, 1024, 4),
+                             (128, 128, 1024, 4), (16, 600, 1024, 4), (13, 13, 128, 4),
+                             (512, 512, 1024, 1), (64, 64, 1280, 1), (16, 40, 1536, 1),
+                             (16, 13, 384, 128), (64, 64, 2048, 1), (64, 64, 4096, 1)]:
         assert_core_layout_is_the_kernels(lib, lq, lk, d, heads, dtype)
 
 
 def assert_core_layout_is_the_kernels(lib, lq, lk, d, heads, dtype):
-    """The kernels take cuda_mha.core_layout's plan with its shared bytes
-    (t2l_mha_tiled_core_smem); they refuse (0) the one-block core where the
-    plan is key-tiled, and the smallest key tile where no plan fits."""
+    """The kernel takes cuda_mha.core_layout's plan with its shared bytes
+    (t2l_mha_tiled_core_smem); it refuses (0) one sweep over more keys than
+    a chunk holds, rows other than 16, a chunk it is not built for, and the
+    smallest chunk where no plan fits."""
     from text2loc_tpu_torch.ops import _cuda
 
     code = _cuda.DTYPE_CODE[dtype]
     want = cuda_mha.core_layout(lq, lk, d, heads, dtype)
     if want is None:
-        assert lib.t2l_mha_tiled_core_smem(lq, lk, d, heads, *cuda_mha.KEY_TILES[-1], code) == 0
+        assert lib.t2l_mha_tiled_core_smem(lq, lk, d, heads, 16, 16, 2, code) == 0
         return
     assert want.smem == lib.t2l_mha_tiled_core_smem(lq, lk, d, heads, want.rows, want.chunk,
-                                                    code)
-    assert (want.kind == "block") == (want.rows == 0)
-    if want.kind == "keys":
-        assert lib.t2l_mha_tiled_core_smem(lq, lk, d, heads, 0, 0, code) == 0
+                                                    want.sweeps, code) > 0
+    if want.sweeps == 2:
+        assert lib.t2l_mha_tiled_core_smem(lq, lk, d, heads, 16, want.chunk, 1, code) == 0
+    assert lib.t2l_mha_tiled_core_smem(lq, lk, d, heads, 32, want.chunk, want.sweeps, code) == 0
+    assert lib.t2l_mha_tiled_core_smem(lq, lk, d, heads, 16, 48, want.sweeps, code) == 0
 
 
 # (Lq, Lk, D, self-attention) of the smoke's fused cases, and the B of a
@@ -957,8 +1027,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         cuda_fps.farthest_point_sampling_cuda(pts.cpu(), 8)
     # f32 at d=1024 (a fused block too big for shared memory) runs the tiled
-    # chain, a long sample too (the key-tiled core); a head too wide for the
-    # key-tiled core's smallest tile in shared memory is refused.
+    # chain, a long sample too (two sweeps); a head too wide for the core's
+    # smallest key chunk in shared memory is refused.
     x = torch.rand(2, 16, 1024, device=dev)
     kv = torch.rand(2, 16, 1024, device=dev)
     w = torch.rand(1024, 1024, device=dev) / 32
@@ -970,9 +1040,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     args = (x, long_kv, w, v, w, v, w, v, w, v, v, v)
     _close(cuda_mha.mha_addln_cuda(*args, num_heads=4),
            mha_addln_plain(*args, num_heads=4), torch.float32)
-    wide = torch.rand(1, 16, 1280, device=dev)
-    w = torch.rand(1280, 1280, device=dev) / 36
-    v = torch.rand(1280, device=dev)
+    wide = torch.rand(1, 16, 2048, device=dev)
+    w = torch.rand(2048, 2048, device=dev) / 45
+    v = torch.rand(2048, device=dev)
     with pytest.raises(ValueError, match="232448"):
         cuda_mha.mha_addln_cuda(wide, wide, w, v, w, v, w, v, w, v, v, v, num_heads=1)
     # The feed-forward block: f32 at D=1024 runs the chain; off the 128 grid
@@ -1029,7 +1099,8 @@ def _check_sa_train(dev, dtype, n, p, s, k, h1, h2, cache_dtype=None):
     args = _sa_train_inputs(rng, dev, n, p, s, k, h1, h2)
     u, sv, w2, b2, g1, be1, g2, be2, idx, maskm, maskf = args
     dout = _randn(rng, (n, s, h2), dev)
-    want_out, want_stats, aux1, aux2 = _forward_plain(*args, 1e-5, dtype, cache_dtype)
+    want_out, want_stats, aux1, aux2 = _forward_plain(*args, 1e-5, dtype, cache_dtype,
+                                                      None)
     level = cuda_sa_train.Level(u, sv, w2, idx, maskm, maskf, dtype, cache_dtype)
     _, _, kaux1, kaux2 = forward_cuda(level, b2, g1, be1, g2, be2, maskf, 1e-5)
     ties = (near_ties(u, sv, w2, idx, maskm, aux1, aux2, dtype, cache_dtype)

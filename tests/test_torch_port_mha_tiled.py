@@ -12,6 +12,10 @@ route) against the JAX package.
 - The route: the fused kernel for the smoke's d <= 256 shapes, the tiled
   chain above, and no attention shape of Config()'s models refused under
   fused_attn "1" or "all".
+- The tiled chain's attention core: its plan (one sweep where a chunk of
+  16, 32 or 64 keys holds every key, else two), and a plain emulation of
+  its order of sums held to the one-block function (controls: online
+  softmax, padded key slots biased like masked keys).
 
 The kernels themselves run only on the card: tests/test_torch_port_cuda.py.
 """
@@ -252,37 +256,39 @@ def test_a_fused_route_has_a_plan_at_every_batch(dtype):
 
 def test_check_tiled_names_its_limit():
     """The tiled chain refuses D off the multiples of 128 and a head too wide
-    for the key-tiled core's smallest tile (dh = 1280 in f32), naming the
-    shared-memory limit; no length is refused."""
+    for the attention core's smallest key chunk (dh = 2048 in f32), naming
+    the shared-memory limit; no length is refused. dh = 1280 in f32, past
+    the largest chunk, takes the smallest in two sweeps."""
     with pytest.raises(ValueError, match="232448"):
-        cuda_mha.check_tiled(512, 512, 1280, 1, torch.float32)
+        cuda_mha.check_tiled(512, 512, 2048, 1, torch.float32)
     with pytest.raises(ValueError, match="multiple of 128"):
         cuda_mha.check_tiled(16, 16, 320, 4, torch.bfloat16)
     cuda_mha.check_tiled(512, 512, 1024, 4, torch.float32)
+    wide = cuda_mha.check_tiled(512, 512, 1280, 1, torch.float32)
+    assert (wide.chunk, wide.sweeps) == (16, 2) and wide.smem <= 232448
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("length", [117, 128, 512])
 def test_check_tiled_takes_every_length(dtype, length):
-    """At E=1024 with 4 heads the one-block core's layout exceeds a block's
-    shared memory from Lq = Lk = 117 in bf16 (70 in f32); the chain takes
-    such lengths with the key-tiled core, whose shared memory does not grow
-    with Lq or Lk, self- and cross-attention alike."""
+    """At E=1024 with 4 heads every length gets a plan: past a chunk's 64
+    keys the core sweeps the keys twice in chunks of 64, with shared memory
+    that does not grow with Lq or Lk, self- and cross-attention alike."""
     layout = cuda_mha.check_tiled(length, length, 1024, 4, dtype)
     cuda_mha.check_tiled(16, length, 1024, 4, dtype)
     assert layout == cuda_mha.core_layout(length, length, 1024, 4, dtype)
-    assert cuda_mha.core_smem(length, length, 1024, 4, dtype) > 232448
-    assert layout.kind == "keys" and 0 < layout.smem <= 232448
+    assert (layout.rows, layout.chunk, layout.sweeps) == (16, 64, 2)
+    assert 0 < layout.smem <= 232448
     assert layout == cuda_mha.core_layout(4 * length, 3 * length, 1024, 4, dtype)
-    assert layout.smem == cuda_mha.keys_smem(layout.rows, layout.chunk, 256, dtype)
+    assert layout.smem == cuda_mha.core_smem(64, 2, 256, dtype)
 
 
 def test_config_shapes_keep_the_one_block_core():
     """Every attention shape of Config()'s models that takes the tiled chain
     (at every pair of the config's sequence lengths, both dtypes, fused_attn
-    "all") still gets the one-block core, the one the smoke measures; the
-    key-tiled core starts where that layout stops fitting (Lq = Lk = 117 in
-    bf16, 70 in f32, at E=1024)."""
+    "all") gets the one-sweep core, whose chunk holds every key, the one the
+    smoke measures; two sweeps start past 64 keys, at E=1024 in both
+    dtypes."""
     cfg = Config()
     m = cfg.model
     lengths = sorted({m.max_hint_tokens, m.num_mentioned, m.object_size, m.pad_size})
@@ -297,16 +303,38 @@ def test_config_shapes_keep_the_one_block_core():
                 for lk in lengths:
                     for self_attn in ((True, False) if lq == lk else (False,)):
                         if cuda_mha.route(lq, lk, d, heads, dtype, self_attn=self_attn) == "tiled":
-                            assert cuda_mha.core_layout(lq, lk, d, heads, dtype).kind == "block"
+                            plan = cuda_mha.core_layout(lq, lk, d, heads, dtype)
+                            assert plan.sweeps == 1 and plan.chunk >= lk
                             seen += 1
     assert seen > 0
-    for dtype, first in ((torch.bfloat16, 117), (torch.float32, 70)):
-        assert cuda_mha.core_layout(first - 1, first - 1, 1024, 4, dtype).kind == "block"
-        assert cuda_mha.core_layout(first, first, 1024, 4, dtype).kind == "keys"
+    for dtype in (torch.bfloat16, torch.float32):
+        assert cuda_mha.core_layout(64, 64, 1024, 4, dtype).sweeps == 1
+        assert cuda_mha.core_layout(65, 65, 1024, 4, dtype).sweeps == 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [32, 64, 128, 256])
+def test_core_plan_sweeps_and_chunks(dtype, dh):
+    """The core's plan at every length from 1 to 200 keys: the smallest of
+    the chunks 16, 32, 64 that holds every key, in one sweep, with two
+    buffers where they fit a block (the block pipelines its items); past 64
+    keys, chunks of 64 in two sweeps with one buffer. Shared memory as
+    core_smem sums it, within a block's."""
+    buf = {c: cuda_mha._core_buffer(c, dh, dtype) for c in cuda_mha.CORE_CHUNKS}
+    for lk in range(1, 201):
+        plan = cuda_mha.core_layout(16, lk, 4 * dh, 4, dtype)
+        if lk <= 64:
+            want = min(c for c in cuda_mha.CORE_CHUNKS if c >= lk)
+            smem = 2 * buf[want] if 2 * buf[want] <= 232448 else buf[want]
+            assert (plan.rows, plan.chunk, plan.sweeps, plan.smem) == (16, want, 1, smem)
+        else:
+            assert (plan.rows, plan.chunk, plan.sweeps, plan.smem) == (16, 64, 2, buf[64])
+        assert plan.smem == cuda_mha.core_smem(plan.chunk, plan.sweeps, dh, dtype) <= 232448
+    assert cuda_mha.core_smem(16, 1, dh, dtype) == 2 * buf[16]
 
 
 def _one_block_core(s, v, dt):
-    """The one-block core's arithmetic on f32 scores s [Lq, Lk] (key bias
+    """The one-block core's function on f32 scores s [Lq, Lk] (key bias
     added) and v [Lk, dh]: the row max; the sum of exp(s - max) in key
     order; p = round_T(exp(s - max) / sum); o sums p v in key order."""
     m = s.amax(dim=1)
@@ -321,68 +349,144 @@ def _one_block_core(s, v, dt):
     return p, o
 
 
-def _key_tiled_core(q, k, v, bias, dt, rq, ck):
-    """The key-tiled core's arithmetic (csrc/mha_tiled.cu): per tile of rq
-    query rows, three sweeps over key chunks of ck rows, each recomputing
-    the chunk's scores: the rows' max; their sum of exp(s - max) in key
-    order; p = round_T(exp(s - max) / sum) and the output sums carried from
-    chunk to chunk. Returns (p [Lq, Lk], o [Lq, dh])."""
+def _quad_sums(e):
+    """A chunk's rows of exp(s - max) [rows, chunk] summed as the kernel sums
+    them: lane t of a quad holds keys 8 j + 2 t and 8 j + 2 t + 1 and adds
+    each pair in j order; the quad's butterfly adds lanes 0 + 1 and 2 + 3,
+    then the two."""
+    parts = []
+    for t in range(4):
+        acc = torch.zeros(e.shape[0])
+        for j in range(e.shape[1] // 8):
+            acc = acc + (e[:, 8 * j + 2 * t] + e[:, 8 * j + 2 * t + 1])
+        parts.append(acc)
+    return (parts[0] + parts[1]) + (parts[2] + parts[3])
+
+
+def _tiled_core(q, k, v, bias, dt, chunk, *, pads_as_keys=False, round_unnormalised=False):
+    """The attention core's arithmetic (csrc/mha_tiled.cu) for one head:
+    keys in chunks of `chunk`, the slots past Lk in the last chunk -inf.
+    One sweep where a chunk holds every key: the chunk's max and sum, then
+    p = round_T(exp(s - max) / sum) and o = p v. Two sweeps beyond: the
+    rows' running max and rescaled sum over the chunks, then p and p v chunk
+    by chunk. Returns (p [Lq, Lk], o [Lq, dh]). Controls: `pads_as_keys`
+    biases the padded slots -1e9 (as masked keys); `round_unnormalised` is
+    online softmax, which rounds exp(s - running max) before normalising."""
     lq, lk = q.shape[0], k.shape[0]
-    p_all = torch.zeros(lq, lk)
-    o_all = torch.zeros(lq, v.shape[1])
-    for q0 in range(0, lq, rq):
-        qt = q[q0:q0 + rq]
-        m = torch.full((qt.shape[0],), -math.inf)
-        total = torch.zeros(qt.shape[0])
-        acc = torch.zeros(qt.shape[0], v.shape[1])
-        for sweep in range(3):
-            for c0 in range(0, lk, ck):
-                s = qt @ k[c0:c0 + ck].t() + bias[c0:c0 + ck]
-                if sweep == 0:
-                    m = torch.maximum(m, s.amax(dim=1))
-                elif sweep == 1:
-                    e = torch.exp(s - m[:, None])
-                    for j in range(s.shape[1]):
-                        total = total + e[:, j]
-                else:
-                    p = (torch.exp(s - m[:, None]) / total[:, None]).to(dt).float()
-                    p_all[q0:q0 + rq, c0:c0 + ck] = p
-                    for j in range(s.shape[1]):
-                        acc = acc + p[:, j:j + 1] * v[c0 + j]
-        o_all[q0:q0 + rq] = acc
-    return p_all, o_all
+    n = -(-lk // chunk) * chunk
+    s_all = torch.full((lq, n), -1e9 if pads_as_keys else -math.inf)
+    s_all[:, :lk] = q @ k.t() + bias
+    vp = torch.zeros(n, v.shape[1])
+    vp[:lk] = v
+    m = torch.full((lq,), -math.inf)
+    total = torch.zeros(lq)
+    acc = torch.zeros(lq, v.shape[1])
+    sweeps = 1 if lk <= chunk else 2
+    p_all = torch.zeros(lq, n)
+    if sweeps == 2 or round_unnormalised:
+        seen = []
+        for c0 in range(0, n, chunk):
+            s = s_all[:, c0:c0 + chunk]
+            mn = torch.maximum(m, s.amax(dim=1))
+            if round_unnormalised:
+                p = torch.exp(s - mn[:, None]).to(dt).float()
+                acc = acc * torch.exp(m - mn)[:, None] + p @ vp[c0:c0 + chunk]
+                p_all[:, c0:c0 + chunk] = p
+                seen.append(mn)
+            total = total * torch.exp(m - mn) + _quad_sums(torch.exp(s - mn[:, None]))
+            m = mn
+        if round_unnormalised:   # the weight each key's v gets in the end
+            for i, mc in enumerate(seen):
+                p_all[:, i * chunk:(i + 1) * chunk] *= (torch.exp(mc - m) / total)[:, None]
+            return p_all[:, :lk], acc / total[:, None]
+    for c0 in range(0, n, chunk):
+        s = s_all[:, c0:c0 + chunk]
+        if sweeps == 1:
+            m = s.amax(dim=1)
+            total = _quad_sums(torch.exp(s - m[:, None]))
+        p = (torch.exp(s - m[:, None]) / total[:, None]).to(dt).float()
+        p_all[:, c0:c0 + chunk] = p
+        acc = acc + p @ vp[c0:c0 + chunk]
+    return p_all[:, :lk], acc
+
+
+def _bf16_ulps(p):
+    """The bf16 spacing at each value of p (0 < p <= 1; 2^-133 at 0)."""
+    return torch.exp2(torch.floor(torch.log2(p.clamp_min(2.0 ** -126))) - 7)
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
-def test_key_tiled_softmax_matches_the_one_block_core(dt):
-    """The key-tiled core's two-pass chunked softmax (max, then the sum of
-    exponentials, then normalised p) against the one-block core's softmax:
-    in f32 p and o within 1e-6 of it, in bf16 the same rounded p, for a
-    sample with a whole chunk of masked keys and an all-masked sample
-    (which attends uniformly over its own keys); both within 1e-5 (f32) of
-    the plain core, whose softmax is torch's."""
+@pytest.mark.parametrize("lq,lk,dh", [(70, 100, 64), (16, 117, 256), (33, 13, 32)])
+def test_key_tiled_softmax_matches_the_one_block_core(dt, lq, lk, dh):
+    """The core's sweeps (one where the plan's chunk holds every key, else
+    two: the running max and rescaled sum, then normalised p) against the
+    one-block core's function, for a sample with masked keys (16 of them
+    where Lk > 32) and an all-masked sample (uniform over its own keys): in f32 p
+    within 1e-6 and o within 1e-6 x max|o|, and within 1e-5 of the plain
+    core; in bf16 every p the same rounded value or one bf16 spacing off
+    (the f32 sum's order of terms moves a quotient lying at a rounding
+    boundary), in at most 1e-3 of the entries, o within 4e-4 x max|o|.
+    Online softmax, which rounds the unnormalised p and scales it after,
+    gives each key another weight than that rounded p in most entries, on
+    every sample."""
     rng = np.random.default_rng(11)
-    lq, lk, dh, rq, ck = 70, 100, 64, 32, 16
+    chunk = cuda_mha.core_layout(lq, lk, 4 * dh, 4, dt).chunk
     q, k, v = (torch.from_numpy((rng.normal(size=(2, n, dh)) * scale).astype(np.float32))
                .to(dt).float() for n, scale in ((lq, dh ** -0.5), (lk, 1.0), (lk, 1.0)))
     mask = torch.from_numpy(rng.random((2, lk)) > 0.3)
-    mask[0, 16:32] = False                            # a chunk of masked keys
+    mask[0, :1] = True
+    if lk > 32:
+        mask[0, 16:32] = False                        # a chunk of masked keys
+    else:
+        mask[0, 3:6] = False
     mask[1] = False                                   # an all-masked sample
     bias = torch.where(mask, 0.0, -1e9).float()
     plain = mha_core_plain(q.to(dt), k.to(dt), v.to(dt), mask, num_heads=1).float()
     for b in range(2):
         p_one, o_one = _one_block_core(q[b] @ k[b].t() + bias[b], v[b], dt)
-        p_key, o_key = _key_tiled_core(q[b], k[b], v[b], bias[b], dt, rq, ck)
+        p_key, o_key = _tiled_core(q[b], k[b], v[b], bias[b], dt, chunk)
+        top = o_one.abs().max()
         if dt == torch.float32:
             assert (p_key - p_one).abs().max() <= 1e-6
-            assert (o_key - o_one).abs().max() <= 1e-6 * o_one.abs().max()
+            assert (o_key - o_one).abs().max() <= 1e-6 * top
             assert (o_key - plain[b]).abs().max() <= 1e-5 * plain[b].abs().max()
         else:
-            assert torch.equal(p_key, p_one)
+            off = p_key != p_one
+            assert off.float().mean() <= 1e-3
+            assert ((p_key - p_one).abs() <= _bf16_ulps(torch.maximum(p_key, p_one))).all()
+            assert (o_key - o_one).abs().max() <= 4e-4 * top
+            p_online, _ = _tiled_core(q[b], k[b], v[b], bias[b], dt, chunk,
+                                      round_unnormalised=True)
+            assert (p_online != p_one).float().mean() > 0.5
         if b == 0:
             assert (p_key[:, ~mask[0]] == 0).all()
         else:
             assert torch.allclose(p_key, torch.full_like(p_key, 1.0 / lk), rtol=1e-2)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lk", [13, 117])
+def test_padded_key_slots_are_not_keys(dt, lk):
+    """An all-masked sample attends uniformly over its own Lk keys: with 13
+    keys in a chunk of 16 (one sweep), and 117 in chunks of 64 (two sweeps),
+    the padded slots of the last chunk are excluded, so p = 1/Lk rounded;
+    biased -1e9 like masked keys, they would take a share (1/16, 1/128)."""
+    rng = np.random.default_rng(5)
+    dh = 64
+    chunk = cuda_mha.core_layout(16, lk, 4 * dh, 4, dt).chunk
+    q, k, v = (torch.from_numpy(rng.normal(size=(n, dh)).astype(np.float32)).to(dt).float()
+               for n in (16, lk, lk))
+    q = q * dh ** -0.5
+    bias = torch.full((lk,), -1e9)
+    p, o = _tiled_core(q, k, v, bias, dt, chunk)
+    want = torch.tensor(1.0 / lk).to(dt).float()
+    assert torch.allclose(p, want.expand_as(p), rtol=1e-2, atol=0)
+    p_one, o_one = _one_block_core(q @ k.t() + bias, v, dt)
+    assert (o - o_one).abs().max() <= 4e-4 * o_one.abs().max()
+    p_pad, _ = _tiled_core(q, k, v, bias, dt, chunk, pads_as_keys=True)
+    slots = -(-lk // chunk) * chunk
+    assert torch.allclose(p_pad, torch.full_like(p_pad, 1.0 / slots), rtol=1e-2)
+    assert not torch.allclose(p_pad, p, rtol=1e-2)
 
 
 @pytest.mark.parametrize("value", ["1", "all"])

@@ -31,8 +31,9 @@ SOURCES = ("fps.cu", "sa_select.cu", "sa_select_bisect.cu", "sa_gather.cu",
            "sa_exact.cu", "sa_all.cu", "mha_addln.cu", "mha_tiled.cu", "ffn_addln.cu",
            "ffn_tiled.cu", "sa_train_fwd.cu", "sa_train_bwd.cu", "sa_train_e_fwd.cu",
            "sa_train_e_bwd.cu", "add_ln.cu", "gather_rows.cu")
-HEADERS = ("common.cuh", "fused_block.cuh", "gemm_tc.cuh", "layernorm_rows.cuh",
-           "sa_select_tc.cuh", "sa_train_tiles.cuh", "sa_train_fwd.cuh", "sa_train_bwd.cuh")
+HEADERS = ("common.cuh", "fused_block.cuh", "gemm_tc.cuh", "gemm_wgmma.cuh",
+           "layernorm_rows.cuh", "sa_select_tc.cuh", "sa_train_tiles.cuh", "sa_train_fwd.cuh",
+           "sa_train_bwd.cuh")
 # -Xptxas -v: each source's registers, shared memory and spills per kernel,
 # kept beside the library as <source>.log (ptxas_report reads them).
 _NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -105,7 +106,7 @@ def build() -> Path:
         tmp_lib = work / LIB_NAME
         proc = subprocess.run(
             [nvcc, "-shared", "-o", str(tmp_lib), *map(str, objs),
-             "-lcudart"],
+             "-lcudart", "-ldl"],
             capture_output=True, text=True,
         )
         if proc.returncode != 0:
@@ -133,10 +134,11 @@ _SIGNATURES = {
        for sel in TILE_SELECTIONS},
     "t2l_mha_addln_layout": ([_I] * 8, ctypes.c_size_t),
     "t2l_mha_addln": ([_P] * 14 + [_I] * 5 + [_F, _F] + [_I] * 5 + [_P], _I),
-    "t2l_mha_tiled_core_smem": ([_I] * 7, ctypes.c_size_t),
-    "t2l_mha_addln_tiled": ([_P] * 13 + [_I] * 7 + [_F, _F, _I, _I, _P], _I),
+    "t2l_mha_tiled_core_smem": ([_I] * 8, ctypes.c_size_t),
+    "t2l_mha_addln_tiled": ([_P] * 17 + [_I] * 8 + [_F, _F, _I, _I, _P], _I),
+    "t2l_mha_tiled_project": ([_P] * 9 + [_I] * 4 + [_F, _I, _I, _P], _I),
     "t2l_mha_tiled_gemm": ([_P, _I, _P, _I, _P, _P, _I, _P] + [_I] * 5 + [_F, _I, _P], _I),
-    "t2l_mha_tiled_core": ([_P, _I, _P, _P, _I, _P, _P] + [_I] * 8 + [_P], _I),
+    "t2l_mha_tiled_core": ([_P, _I, _P, _P, _I, _P, _P] + [_I] * 9 + [_P], _I),
     "t2l_mha_tiled_ln": ([_P] * 4 + [_I, _I, _F, _I, _P], _I),
     "t2l_ffn_addln_layout": ([_I] * 5, ctypes.c_size_t),
     "t2l_ffn_addln": ([_P] * 8 + [_I] * 3 + [_F] + [_I] * 4 + [_P], _I),

@@ -1,9 +1,11 @@
 """Wrappers of the attention block's two CUDA kernels: the fused block to
 d=256 (csrc/mha_addln.cu: groups of samples, each on one CUDA block or on a
 cluster of one block per head, as fused_plan says); the tiled chain over
-all rows (csrc/mha_tiled.cu: tensor-core GEMMs, an attention core, a row
-LayerNorm) above it and wherever the fused block does not take the shape.
-`route` picks one; there is no fallback."""
+all rows (csrc/mha_tiled.cu: wgmma products fed by TMA in bf16
+(csrc/gemm_wgmma.cuh), FP32 FMA products in f32, a tensor-core attention
+core planned by core_layout, a row LayerNorm) above it and wherever the
+fused block does not take the shape. `route` picks one; there is no
+fallback."""
 
 from __future__ import annotations
 
@@ -110,55 +112,71 @@ def fused_plan(b: int, lq: int, lk: int, d: int, heads: int, dtype, *,
     raise AssertionError("unreachable: route checked one block of one sample")
 
 
-def core_smem(lq: int, lk: int, d: int, heads: int, dtype) -> int:
-    """Shared bytes of the tiled chain's one-block attention core (one block
-    per sample and head): q, k, v of the head in the dtype, then the f32
-    [lq, lk] probabilities (core_smem in csrc/mha_tiled.cu)."""
-    return _align16(_tsize(dtype) * (lq + 2 * lk) * (d // heads)) + 4 * lq * lk
+# The tiled chain's attention core (csrc/mha_tiled.cu): a block per (sample,
+# head, tile of CORE_ROWS query rows), the keys in chunks of one of
+# CORE_CHUNKS rows (the kernel's instantiations), up to CORE_COLS output
+# columns a pass.
+CORE_ROWS = 16
+CORE_CHUNKS = (16, 32, 64)
+CORE_COLS = 256
 
 
-def keys_smem(rq: int, ck: int, dh: int, dtype) -> int:
-    """Shared bytes of the key-tiled core for rq query rows and key chunks
-    of ck rows (keys_layout in csrc/mha_tiled.cu): q [rq][dh], a chunk of k
-    and of v [ck][dh] in the dtype; the chunk's f32 scores [rq][ck], the f32
-    output sums [rq][dh], each row's max and sum."""
+def _core_buffer(chunk: int, dh: int, dtype) -> int:
+    """Shared bytes of one buffer of the core's block for key chunks of
+    `chunk` rows at head width dh (layout() in csrc/mha_tiled.cu): q
+    [16][dh'] and a chunk of k [chunk][dh'] over the head width padded to 16
+    (dh'), a chunk of v [chunk][min(dh', 256)] over one pass's columns; rows
+    padded (bf16 by 8 elements; f32 q and k by 4, v by 8)."""
     t = _tsize(dtype)
-    return (_align16(t * rq * dh) + 2 * _align16(t * ck * dh) + _align16(4 * rq * ck)
-            + _align16(4 * rq * dh) + 2 * _align16(4 * rq))
+    dhp = -(-dh // 16) * 16
+    ldqk = dhp + (8 if t == 2 else 4)
+    ldv = min(dhp, CORE_COLS) + 8
+    return (_align16(t * CORE_ROWS * ldqk) + _align16(t * chunk * ldqk)
+            + _align16(t * chunk * ldv))
 
 
-KEY_TILES = ((32, 64), (32, 32), (32, 16), (16, 16), (8, 16))   # (rq, ck), first that fits
+def core_smem(chunk: int, sweeps: int, dh: int, dtype) -> int:
+    """Shared bytes of the core's block (smem() in csrc/mha_tiled.cu): two
+    buffers where the block pipelines its items (one sweep, a head of at
+    most CORE_COLS columns, both buffers within a block's shared memory:
+    the next item's q, k, v land while this one's are used), else one. It
+    does not grow with Lq or Lk."""
+    one = _core_buffer(chunk, dh, dtype)
+    piped = sweeps == 1 and -(-dh // 16) * 16 <= CORE_COLS and 2 * one <= _cuda.SMEM_LIMIT
+    return 2 * one if piped else one
 
 
 class CoreLayout(NamedTuple):
-    kind: str       # "block": one block per (sample, head); "keys": key-tiled
-    rows: int       # query rows per block of the key-tiled core (0 for "block")
-    chunk: int      # keys per chunk of the key-tiled core (0 for "block")
+    """The attention core's plan."""
+
+    rows: int       # query rows of a block (one m16 tile)
+    chunk: int      # keys of a chunk
+    sweeps: int     # 1: a chunk holds every key; 2: running max and sum, then p and P V
     smem: int       # dynamic shared bytes per block
 
 
 def core_layout(lq: int, lk: int, d: int, heads: int, dtype) -> Optional[CoreLayout]:
-    """The attention core the tiled chain launches, passed to the kernels
-    as (rows, chunk), which only check it (t2l_mha_tiled_core_smem): the
-    one-block core where a head's q, k, v and probabilities fit a block's
-    shared memory, else the key-tiled core with the first of KEY_TILES that
-    fits, whose shared memory does not grow with Lq or Lk; None where
-    neither fits (a head far wider than any model's)."""
-    one = core_smem(lq, lk, d, heads, dtype)
-    if one <= _cuda.SMEM_LIMIT:
-        return CoreLayout("block", 0, 0, one)
-    for rq, ck in KEY_TILES:
-        need = keys_smem(rq, ck, d // heads, dtype)
-        if need <= _cuda.SMEM_LIMIT:
-            return CoreLayout("keys", rq, ck, need)
-    return None
+    """The attention core's plan, passed to the kernel as (rows, chunk,
+    sweeps), which only checks it (t2l_mha_tiled_core_smem): the smallest
+    chunk of CORE_CHUNKS that holds every key, in one sweep, else the
+    largest chunk, in two; only chunks within a block's shared memory at
+    the head's width count (a wide head takes a narrower one); None where
+    not even the smallest fits (a head far wider than any model's). Every
+    length has a plan: the shared memory does not grow with Lq or Lk."""
+    dh = d // heads
+    fits = [c for c in CORE_CHUNKS if _core_buffer(c, dh, dtype) <= _cuda.SMEM_LIMIT]
+    if not fits:
+        return None
+    chunk = next((c for c in fits if c >= lk), fits[-1])
+    sweeps = 1 if lk <= chunk else 2
+    return CoreLayout(CORE_ROWS, chunk, sweeps, core_smem(chunk, sweeps, dh, dtype))
 
 
 def check_tiled(lq: int, lk: int, d: int, heads: int, dtype) -> CoreLayout:
-    """The attention core's layout of the tiled chain at this shape;
+    """The attention core's plan of the tiled chain at this shape;
     ValueError where the chain cannot take it: D a multiple of 128 (the GEMM
-    tiles; the TPU kernel asks the same), and a head's q rows and key chunks
-    within a block's shared memory (any Lq and Lk: the key-tiled core
+    tiles; the TPU kernel asks the same), and a head whose q rows and
+    smallest key chunk fit a block's shared memory (any Lq and Lk: the core
     streams the keys)."""
     if d % 128:
         raise ValueError(f"the tiled attention block takes D a multiple of 128, not {d}")
@@ -166,8 +184,8 @@ def check_tiled(lq: int, lk: int, d: int, heads: int, dtype) -> CoreLayout:
     if layout is None:
         dh = d // heads
         raise ValueError(
-            f"the key-tiled attention core needs at least {keys_smem(*KEY_TILES[-1], dh, dtype)} "
-            f"B of shared memory at dh={dh} ({dtype}); the limit is {_cuda.SMEM_LIMIT} B")
+            f"the attention core needs at least {_core_buffer(CORE_CHUNKS[0], dh, dtype)} B of "
+            f"shared memory at dh={dh} ({dtype}); the limit is {_cuda.SMEM_LIMIT} B")
     return layout
 
 
@@ -208,8 +226,10 @@ def mha_addln_cuda(x, kv, wq, bq, wk, bk, wv, bv, wo, bo, scale, bias,
         launch_fused(x, kv, (wq, wk, wv, wo), (bq, bk, bv, bo, scale, bias), key_mask, out,
                      num_heads=num_heads, eps=eps)
         return out
-    mats = [t.to(dt).contiguous() for t in (wq, wk, wv, wo)]
-    vecs = [t.float().contiguous() for t in (bq, bk, bv, bo, scale, bias)]
+    # The products read bf16 weights by TMA (f32 ones as they are): the
+    # model's f32 weights are cast in bf16, nothing is packed.
+    mats = [_cuda.as_given(t, dt) for t in (wq, wk, wv, wo)]
+    vecs = [_cuda.as_given(t, torch.float32) for t in (bq, bk, bv, bo, scale, bias)]
     b, lq, lk, d = _check_block(x, kv, mats, vecs, num_heads)
     layout = check_tiled(lq, lk, d, num_heads, dt)
     kb = key_bias(key_mask, b, lk, x.device).contiguous()
@@ -261,25 +281,17 @@ def launch_fused(x, kv, mats, vecs, key_mask, out, *, num_heads: int, eps: float
     )
 
 
-def _packed_qkv(wq, bq, wk, bk, wv, bv, dt):
-    """[Wq|Wk|Wv] [D, 3D] in the dtype and [bq|bk|bv] [3D] in f32: one
-    projection GEMM for self-attention, column slices for cross."""
-    return (torch.cat([t.to(dt) for t in (wq, wk, wv)], dim=1),
-            torch.cat([t.float() for t in (bq, bk, bv)]))
-
-
 def _tiled_block(x, kv, kb, mats, vecs, num_heads, eps, self_attn, layout):
-    """One call of t2l_mha_addln_tiled: the projection GEMM(s), the core
-    (of `layout`), the out-projection GEMM with the residual, the
-    LayerNorm. Scratch
-    from torch.empty: q/k/v and o in the dtype, the pre-norm rows in f32."""
+    """One call of t2l_mha_addln_tiled: the projection product(s), the core
+    (of `layout`), the out-projection with the residual, the LayerNorm; the
+    weights and biases passed as they are, one pointer each. Scratch from
+    torch.empty: q/k/v and o in the dtype, the pre-norm rows in f32."""
     dt = x.dtype
     b, lq, d = x.shape
     lk = kv.shape[1]
     m, mk = b * lq, b * lk
     wq, wk, wv, wo = mats
     bq, bk, bv, bo, g, be = vecs
-    wqkv, bqkv = _packed_qkv(wq, bq, wk, bk, wv, bv, dt)
     qkv = torch.empty(m * 3 * d if self_attn else m * d + mk * 2 * d, dtype=dt,
                       device=x.device)
     o = torch.empty((m, d), dtype=dt, device=x.device)
@@ -288,9 +300,9 @@ def _tiled_block(x, kv, kb, mats, vecs, num_heads, eps, self_attn, layout):
     if b:
         _cuda.launch(
             KERNEL_TILED, "t2l_mha_addln_tiled",
-            *(_cuda.ptr(t) for t in (x, kv, kb, wqkv, bqkv, wo, bo, g, be, out, qkv,
-                                     o, s2)),
-            b, lq, lk, d, num_heads, layout.rows, layout.chunk,
+            *(_cuda.ptr(t) for t in (x, kv, kb, wq, wk, wv, bq, bk, bv, wo, bo, g, be, out,
+                                     qkv, o, s2)),
+            b, lq, lk, d, num_heads, layout.rows, layout.chunk, layout.sweeps,
             ctypes.c_float(1.0 / math.sqrt(d // num_heads)), ctypes.c_float(eps),
             int(self_attn), _cuda.DTYPE_CODE[dt],
         )
@@ -304,9 +316,8 @@ def _tiled_block(x, kv, kb, mats, vecs, num_heads, eps, self_attn, layout):
 
 def _gemm(a, w, bias, c, *, res=None, nscale=0, scale=1.0):
     """c = round((a w + bias) * colscale) (the first nscale columns scaled),
-    or with `res` c (f32) = (f32(res) + a w) + bias. a [M, K] and res [M, N]
-    contiguous; w [K, N] and c [M, N] may be column slices of a wider
-    matrix (row strides taken from them)."""
+    or with `res` c (f32) = (f32(res) + a w) + bias. a [M, K], w [K, N], c
+    [M, N] and res [M, N] contiguous."""
     m, k = a.shape
     n = c.shape[1]
     _cuda.launch(KERNEL_TILED, "t2l_mha_tiled_gemm", _cuda.ptr(a), k, _cuda.ptr(w),
@@ -317,25 +328,34 @@ def _gemm(a, w, bias, c, *, res=None, nscale=0, scale=1.0):
 
 def tiled_project_cuda(x, kv, wq, bq, wk, bk, wv, bv, *, num_heads: int):
     """Stage (a): (q, k, v) as mha_project_plain returns them, by the
-    projection GEMM(s) of the main path (one over [Wq|Wk|Wv] when `kv is
-    x`, else x Wq and kv [Wk|Wv])."""
+    projection product(s) of the main path (one over Wq, Wk, Wv side by side
+    when `kv is x`, else x Wq and kv [Wk|Wv])."""
     dt = x.dtype
     b, lq, d = x.shape
     lk = kv.shape[1]
     _cuda.check(x, "x", dtype=dt)
     _cuda.check(kv, "kv", dtype=dt)
-    wqkv, bqkv = _packed_qkv(wq, bq, wk, bk, wv, bv, dt)
-    scale = 1.0 / math.sqrt(d // num_heads)
-    x2, kv2 = x.reshape(b * lq, d), kv.reshape(b * lk, d)
-    if kv is x:
-        qkv = torch.empty((b * lq, 3 * d), dtype=dt, device=x.device)
-        _gemm(x2, wqkv, bqkv, qkv, nscale=d, scale=scale)
+    mats = [_cuda.as_given(t, dt) for t in (wq, wk, wv)]
+    vecs = [_cuda.as_given(t, torch.float32) for t in (bq, bk, bv)]
+    for name, t in zip(("wq", "wk", "wv"), mats):
+        _cuda.check(t, name, shape=(d, d))
+    for name, t in zip(("bq", "bk", "bv"), vecs):
+        _cuda.check(t, name, shape=(d,))
+    self_attn = kv is x
+    m, mk = b * lq, b * lk
+    qkv = torch.empty(m * 3 * d if self_attn else m * d + mk * 2 * d, dtype=dt,
+                      device=x.device)
+    if b:
+        _cuda.launch(KERNEL_TILED, "t2l_mha_tiled_project", _cuda.ptr(x), _cuda.ptr(kv),
+                     *(_cuda.ptr(t) for t in (*mats, *vecs, qkv)), b, lq, lk, d,
+                     ctypes.c_float(1.0 / math.sqrt(d // num_heads)), int(self_attn),
+                     _cuda.DTYPE_CODE[dt], count=False)
+    if self_attn:
+        qkv = qkv.view(m, 3 * d)
         q, k, v = qkv[:, :d], qkv[:, d:2 * d], qkv[:, 2 * d:]
     else:
-        q = torch.empty((b * lq, d), dtype=dt, device=x.device)
-        kvp = torch.empty((b * lk, 2 * d), dtype=dt, device=x.device)
-        _gemm(x2, wqkv[:, :d], bqkv[:d], q, nscale=d, scale=scale)
-        _gemm(kv2, wqkv[:, d:], bqkv[d:], kvp)
+        q = qkv[:m * d].view(m, d)
+        kvp = qkv[m * d:].view(mk, 2 * d)
         k, v = kvp[:, :d], kvp[:, d:]
     return q.reshape(b, lq, d), k.reshape(b, lk, d), v.reshape(b, lk, d)
 
@@ -354,7 +374,7 @@ def tiled_core_cuda(q, k, v, key_mask=None, *, num_heads: int):
     o = torch.empty_like(q)
     _cuda.launch(KERNEL_TILED, "t2l_mha_tiled_core", _cuda.ptr(q), d, _cuda.ptr(k),
                  _cuda.ptr(v), d, _cuda.ptr(kb), _cuda.ptr(o), b, lq, lk, d, num_heads,
-                 layout.rows, layout.chunk, _cuda.DTYPE_CODE[dt], count=False)
+                 layout.rows, layout.chunk, layout.sweeps, _cuda.DTYPE_CODE[dt], count=False)
     return o
 
 
@@ -368,8 +388,8 @@ def tiled_out_addln_cuda(x, o, wo, bo, scale, bias, *, eps: float = 1e-5):
     m = x.numel() // d
     _cuda.check(x, "x", dtype=dt)
     _cuda.check(o, "o", dtype=dt, shape=(*x.shape[:-1], k))
-    wo_, bo_, g, be = (wo.to(dt).contiguous(), bo.float().contiguous(),
-                       scale.float().contiguous(), bias.float().contiguous())
+    wo_, bo_, g, be = (_cuda.as_given(wo, dt), *(_cuda.as_given(t, torch.float32)
+                                                 for t in (bo, scale, bias)))
     _cuda.check(wo_, "wo", shape=(k, d))
     s2 = torch.empty((m, d), dtype=torch.float32, device=x.device)
     _gemm(o.reshape(m, k), wo_, bo_, s2, res=x.reshape(m, d))
