@@ -912,16 +912,41 @@ def test_ffn_kernel(dev, dtype, rows, d, f):
                                       (25344, 1024, 4096)])
 def test_ffn_tiled_stages(dev, dtype, rows, d, f):
     """Each stage of the tiled chain alone against its plain stage, on the
-    plain stage's inputs: the hidden GEMM with the relu epilogue, then the
-    residual GEMM (K = F) and the LayerNorm. The stage entry points launch
-    no counted block."""
+    plain stage's inputs, through the chain's own stage entries (the
+    functions the block runs: wgmma in bf16, FP32 FMAs in f32): the hidden
+    product with the relu epilogue, then the residual product (K = F) and
+    the row LayerNorm. The stage entry points launch no counted block."""
     x, w1, b1, w2, b2, g, be = _ffn_args(dev, dtype, rows, d, f, seed=4)
     before = (cuda_ffn.KERNEL_TILED.launches, cuda_mha.KERNEL_TILED.launches)
     _close(cuda_ffn.tiled_hidden_cuda(x, w1, b1), ffn_hidden_plain(x, w1, b1), dtype)
     h = ffn_hidden_plain(x, w1, b1)
-    _close(cuda_mha.tiled_out_addln_cuda(x, h, w2, b2, g, be),
+    _close(cuda_ffn.tiled_out_addln_cuda(x, h, w2, b2, g, be),
            ffn_out_addln_plain(h, x, w2, b2, g, be), dtype)
     assert (cuda_ffn.KERNEL_TILED.launches, cuda_mha.KERNEL_TILED.launches) == before
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ffn_tiled_call_device_ops(dev, dtype):
+    """A tiled call at the intra stack's shape (25,344 rows, D=1024,
+    F=4096) whose weights are already in the dtype and contiguous issues no
+    copy: three runtime calls issue device work, and every device op the
+    profiler records is one of the chain's three kernels (the two products
+    and the row LayerNorm); one counted launch. With f32 weights under bf16
+    activations each weight takes its one cast: two runtime calls more."""
+    args = list(_ffn_args(dev, dtype, 1584 * 16, 1024, 4096))
+    cast = list(args)
+    cast[1], cast[3] = args[1].to(dtype), args[3].to(dtype)
+    product = "gemm_wgmma_kernel" if dtype == torch.bfloat16 else "gemm_f32_kernel"
+    for a, extra in ((cast, 0), (args, 2 if dtype == torch.bfloat16 else 0)):
+        ffn_addln(*a)
+        torch.cuda.synchronize()
+        ops, issued, launched = _profiled_device_ops(lambda: ffn_addln(*a),
+                                                     cuda_ffn.KERNEL_TILED)
+        assert launched == 1 and len(issued) == 3 + extra, (issued, ops)
+        kernels = [op for op in ops if product in op or "layernorm_rows_kernel" in op]
+        assert len(kernels) <= 3 and len(ops) <= 3 + extra, ops
+        if not extra:
+            assert len(kernels) == len(ops), ops
 
 
 def test_ffn_route_layout_is_the_kernels(dev):
@@ -1332,6 +1357,45 @@ def test_add_ln_kernel_rejects_what_it_cannot_take(dev):
     x = torch.rand(4, 128, device=dev)
     with pytest.raises(ValueError):
         add_layernorm(x, x.to(torch.bfloat16), x[0], x[0])
+    # Data off a 16-byte boundary (the kernel loads 16-byte vectors), in
+    # either dtype and in either operand.
+    for dtype in DTYPES:
+        flat = torch.rand(4 * 128 + 1, device=dev).to(dtype)
+        off = flat[1:].view(4, 128)
+        ok = torch.rand(4, 128, device=dev).to(dtype)
+        g = torch.ones(128, device=dev)
+        for a, b in ((off, ok), (ok, off)):
+            with pytest.raises(ValueError, match="16-byte"):
+                cuda_ln.add_layernorm_cuda(a, b, g, g)
+            with pytest.raises(ValueError, match="16-byte"):
+                add_layernorm(a, b, g, g)
+
+
+def test_add_ln_plan_is_the_kernels(dev):
+    """cuda_ln.row_plan's blocks are the ones the chains' LayerNorm stage
+    computes on this card (t2l_ln_rows_blocks) at every width the routine
+    takes in both dtypes, over row counts from 1 to past the one-wave cap;
+    the add+LayerNorm entry refuses a plan whose rows a warp are not the
+    layout's or whose blocks the rows do not fill."""
+    lib = _cuda.library()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for dtype in DTYPES:
+        code = _cuda.DTYPE_CODE[dtype]
+        for d in (128, 256, 384, 512, 768, 1024):
+            for rows in (1, 7, 16, 17, 129, 1795, 3001, 10241, 25344, 100000):
+                plan = cuda_ln.row_plan(rows, d, dtype, sms=sms)
+                assert lib.t2l_ln_rows_blocks(rows, d, code) == plan.blocks, (d, rows)
+        x = torch.rand(100, 128, device=dev).to(dtype)
+        g = torch.ones(128, device=dev)
+        plan = cuda_ln.row_plan(100, 128, dtype, sms=sms)
+        stream = torch.cuda.current_stream().cuda_stream
+        for rpw, blocks in ((3 - plan.rows_per_warp, plan.blocks), (plan.rows_per_warp, 0),
+                            (plan.rows_per_warp, plan.blocks + 1)):
+            assert lib.t2l_add_ln(*(_cuda.ptr(t) for t in (x, x, g, g, x)), 100, 128,
+                                  ctypes.c_float(1e-5), rpw, blocks, code, stream) != 0
+        assert lib.t2l_add_ln(*(_cuda.ptr(t) for t in (x, x, g, g, torch.empty_like(x))), 100,
+                              128, ctypes.c_float(1e-5), plan.rows_per_warp, plan.blocks,
+                              code, stream) == 0
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

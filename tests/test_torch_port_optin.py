@@ -49,6 +49,7 @@ from text2loc_tpu_torch.models.text_embedding import HintTextEmbedder
 from text2loc_tpu_torch.models.transformer import (DecoderLayer, EncoderLayer, Gates,
                                                    fused_attn_enabled, fused_ffn_enabled,
                                                    fused_ln_enabled)
+from text2loc_tpu_torch.ops import _cuda, cuda_ln
 from text2loc_tpu_torch.ops.ballquery import gather_neighbors, onehot_gather
 from text2loc_tpu_torch.ops.gather import (gather_rows, gather_rows_grad,
                                            gather_rows_plain, scatter_rows_plain)
@@ -101,6 +102,71 @@ def test_add_layernorm_rejects_a_mismatched_residual():
     port, _ = _ln_case(0, 4, 128, "float32")
     with pytest.raises(ValueError):
         add_layernorm(port[0], port[1].to(torch.bfloat16), *port[2:])
+
+
+SMS = 132
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", cuda_ln.WIDTHS + (192, 384, 640, 768))
+def test_row_plan_invariants(d, dtype):
+    """cuda_ln.row_plan (the row LayerNorm of add_ln and of the tiled
+    chains' last stage) at the add+LN widths and at other multiples of the
+    chains' 128 grid, rows 1 to 30,000 on a 132-SM card: a row is lanes x
+    chunks 16-byte chunks with fewer than half of them to spare; a half-warp
+    owns a row of exactly 16 chunks (D=128 in bf16), two rows a warp, a
+    whole warp any wider one; the blocks cover every row once, or fill
+    per_sm blocks on every SM, per_sm by the values a lane keeps; and the
+    grid-stride walk of the blocks' warps takes each row exactly once."""
+    v = 8 if dtype == torch.bfloat16 else 4
+    n = d // v
+    for rows in range(1, 30001):
+        p = cuda_ln.row_plan(rows, d, dtype, sms=SMS)
+        assert (p.lanes == 16) == (n == 16) and p.lanes in (16, 32)
+        assert p.chunks in (1, 2, 4, 8) and p.lanes * p.chunks >= n > p.lanes * p.chunks // 2
+        assert p.rows_per_warp * p.lanes == 32
+        values = p.chunks * v
+        assert p.per_sm == (6 if values <= 8 else 5 if values <= 16
+                            else 4 if p.chunks <= 4 else 3)
+        need = -(-rows // (cuda_ln.WARPS * p.rows_per_warp))
+        assert p.blocks == min(need, SMS * p.per_sm) >= 1
+    if (d, dtype) == (128, torch.bfloat16):
+        assert cuda_ln.row_plan(10240, d, dtype, sms=SMS)[:3] == (16, 1, 2)
+    if d == 1024:
+        assert cuda_ln.row_plan(25344, d, dtype, sms=SMS)[:3] == (32, 32 // v, 1)
+    for rows in (1, 15, 16, 17, 1795, 3001, 10241, 25344, 100000):
+        p = cuda_ln.row_plan(rows, d, dtype, sms=SMS)
+        warps, rpw = p.blocks * cuda_ln.WARPS, p.rows_per_warp
+        seen = np.zeros(rows, np.int64)
+        for w in range(warps):
+            for r0 in range(w * rpw, rows, warps * rpw):
+                seen[r0:min(r0 + rpw, rows)] += 1
+        assert (seen == 1).all()
+
+
+def test_row_plan_refuses_what_the_routine_does_not_take():
+    """Widths not a multiple of 16 bytes, of fewer than 16 chunks, or of
+    more than 256 (eight a lane) raise ValueError."""
+    for d, dtype in ((102, torch.float32), (132, torch.bfloat16), (64, torch.bfloat16),
+                     (32, torch.float32), (1028, torch.float32), (2048, torch.float32),
+                     (4096, torch.bfloat16), (0, torch.float32)):
+        with pytest.raises(ValueError, match="16-byte chunks"):
+            cuda_ln.row_plan(16, d, dtype, sms=SMS)
+    assert cuda_ln.row_plan(16, 2048, torch.bfloat16, sms=SMS)[:2] == (32, 8)
+    assert cuda_ln.row_plan(16, 1024, torch.float32, sms=SMS)[:2] == (32, 8)
+
+
+def test_as_given_returns_a_ready_tensor_itself():
+    """_cuda.as_given: the tensor itself where it is contiguous and in the
+    dtype (no device op), a converted contiguous copy otherwise."""
+    t = torch.arange(24, dtype=torch.float32).reshape(4, 6)
+    assert _cuda.as_given(t, torch.float32) is t
+    b = _cuda.as_given(t, torch.bfloat16)
+    assert b is not t and b.dtype == torch.bfloat16 and torch.equal(b, t.to(torch.bfloat16))
+    tt = t.t()
+    c = _cuda.as_given(tt, torch.float32)
+    assert c is not tt and c.is_contiguous() and torch.equal(c, tt)
+    assert c.data_ptr() != t.data_ptr()
 
 
 @pytest.mark.parametrize("value", ["0", "1", "all"])

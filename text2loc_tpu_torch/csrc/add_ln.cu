@@ -10,85 +10,58 @@
 //
 // What bounds it on the H100: bytes. Each element is read twice (x, res)
 // and written once for about ten FLOPs, far below the card's ~20 FLOPs per
-// byte at f32. What the design does about it: one warp per row, the whole
-// row in registers (D / 32 values per lane), so x and res are read once and
-// the output written once, with no shared memory and no padding of the row
-// count (the TPU kernel pads rows to its 512-row tile).
+// byte at f32. What the design does about it: the row routine of
+// layernorm_rows.cuh (rows in registers, 16-byte vectors, gamma and beta
+// staged once a block in shared memory for a grid-stride loop over the
+// rows), with no padding of the row count (the TPU kernel pads rows to its
+// 512-row tile). The plan
+// (rows a warp, blocks) is ops/cuda_ln.row_plan's; this file checks it.
 #include "common.cuh"
+#include "layernorm_rows.cuh"
 
 namespace {
 
-using t2l::from_f;
-using t2l::to_f;
-using t2l::warp_sum;
-
-constexpr int kThreads = 256;
-constexpr int kRowsPerBlock = kThreads / 32;
-
-template <typename T, int VPL>  // VPL: values per lane, D = 32 * VPL
-__global__ void __launch_bounds__(kThreads)
-    add_ln_kernel(const T* __restrict__ x, const T* __restrict__ res,
-                  const float* __restrict__ scale, const float* __restrict__ bias,
-                  T* __restrict__ out, int rows, float eps) {
-  constexpr int D = 32 * VPL;
-  const int row = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;  // whole warps leave together
-  const size_t base = (size_t)row * D;
-  float v[VPL];
-  float s = 0.f;
-#pragma unroll
-  for (int j = 0; j < VPL; ++j) {
-    const int c = lane + 32 * j;
-    v[j] = to_f<T>(x[base + c]) + to_f<T>(res[base + c]);
-    s += v[j];
-  }
-  const float mu = warp_sum(s) / (float)D;
-  float q = 0.f;
-#pragma unroll
-  for (int j = 0; j < VPL; ++j) {
-    const float t = v[j] - mu;
-    q += t * t;
-  }
-  const float inv = rsqrtf(warp_sum(q) / (float)D + eps);
-#pragma unroll
-  for (int j = 0; j < VPL; ++j) {
-    const int c = lane + 32 * j;
-    out[base + c] = from_f<T>((v[j] - mu) * inv * scale[c] + bias[c]);
-  }
-}
+namespace rows = t2l::rows;
 
 template <typename T>
 int launch(const void* x, const void* res, const void* scale, const void* bias, void* out,
-           int rows, int d, float eps, cudaStream_t st) {
-  const int blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
-  const T* xp = static_cast<const T*>(x);
-  const T* rp = static_cast<const T*>(res);
-  const float* gp = static_cast<const float*>(scale);
-  const float* bp = static_cast<const float*>(bias);
-  T* op = static_cast<T*>(out);
-  switch (d) {
-    case 128: add_ln_kernel<T, 4><<<blocks, kThreads, 0, st>>>(xp, rp, gp, bp, op, rows, eps); break;
-    case 256: add_ln_kernel<T, 8><<<blocks, kThreads, 0, st>>>(xp, rp, gp, bp, op, rows, eps); break;
-    case 512: add_ln_kernel<T, 16><<<blocks, kThreads, 0, st>>>(xp, rp, gp, bp, op, rows, eps); break;
-    case 1024: add_ln_kernel<T, 32><<<blocks, kThreads, 0, st>>>(xp, rp, gp, bp, op, rows, eps); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+           int rows_, int d, float eps, int rows_per_warp, int blocks, cudaStream_t st) {
+  const rows::Layout l = rows::layout(d, sizeof(T));
+  if (l.lanes == 0 || rows_per_warp != 32 / l.lanes || reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(res) % 16)
+    return (int)cudaErrorInvalidValue;
+  const int per_block = rows::kWarps * rows_per_warp;
+  if (rows_ > 0 && blocks > (rows_ + per_block - 1) / per_block) return (int)cudaErrorInvalidValue;
+  return (int)rows::launch<T>(
+      rows::SumRows<T>{static_cast<const T*>(x), static_cast<const T*>(res), d},
+      static_cast<const float*>(scale), static_cast<const float*>(bias), static_cast<T*>(out),
+      rows_, d, eps, blocks, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// x, res, out [rows, d] in the dtype (f32 or bf16), scale / bias [d] f32;
-// d in {128, 256, 512, 1024}.
+// x, res, out [rows, d] in the dtype (f32 or bf16), scale / bias [d] f32,
+// all 16-byte aligned; d a multiple of 16 bytes of the dtype, 16 to 256 of
+// them (the wrapper takes 128, 256, 512, 1024). rows_per_warp and blocks:
+// ops/cuda_ln.row_plan's, refused unless rows_per_warp is the layout's and
+// blocks at least 1 and no more than the rows fill.
 int t2l_add_ln(const void* x, const void* res, const void* scale, const void* bias,
-               void* out, int rows, int d, float eps, int dtype, void* stream) {
+               void* out, int rows, int d, float eps, int rows_per_warp, int blocks, int dtype,
+               void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == t2l::kBF16)
-    return launch<__nv_bfloat16>(x, res, scale, bias, out, rows, d, eps, st);
-  return launch<float>(x, res, scale, bias, out, rows, d, eps, st);
+    return launch<__nv_bfloat16>(x, res, scale, bias, out, rows, d, eps, rows_per_warp, blocks,
+                                 st);
+  return launch<float>(x, res, scale, bias, out, rows, d, eps, rows_per_warp, blocks, st);
+}
+
+// The blocks that the tiled chains' LayerNorm stage launches for m rows of
+// width d (layernorm_rows.cuh grid() on this device), for the tests that
+// hold ops/cuda_ln.row_plan to it; 0 where the width is refused.
+int t2l_ln_rows_blocks(int m, int d, int dtype) {
+  return t2l::rows::grid(m, d, dtype == t2l::kBF16 ? 2 : 4, t2l::gemm::sm_count());
 }
 
 }  // extern "C"

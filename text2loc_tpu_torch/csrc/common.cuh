@@ -1,6 +1,7 @@
 // Shared helpers of the port's Hopper kernels: dtype conversion between the
-// compute dtype (float or bfloat16) and f32, and the one-warp LayerNorm row
-// used by the fused MHA and FFN blocks.
+// compute dtype (float or bfloat16) and f32, the warp sum, and the one-warp
+// LayerNorm of a row already in shared memory (the fused feed-forward block,
+// ffn_addln.cu; rows in device memory take layernorm_rows.cuh).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -42,8 +43,9 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// LayerNorm of one f32 row of width d by one whole warp: f32 statistics,
-// biased variance, (v - mu) / sqrt(var + eps) * gamma + beta, stored in T.
+// LayerNorm of one f32 row of width d by one whole warp (the row in shared
+// memory): f32 statistics, biased variance,
+// (v - mu) / sqrt(var + eps) * gamma + beta, stored in T.
 template <typename T>
 __device__ __forceinline__ void warp_layernorm_row(const float* row, int d,
                                                    const float* gamma,

@@ -18,33 +18,68 @@
 // GFLOP: 0.43 ms at the bf16 tensor-core peak of 989 TFLOP/s, 6.35 ms at
 // the FP32 peak of 67, against about 0.04 ms to read x and the weights and
 // write the output once. It is bound by operations.
-// What the design does about it: both products run as row-tiled GEMMs over
-// all rows at once (gemm_tc.cuh: mma.sync bf16 tensor cores with cp.async
-// staging; in f32 register-tiled FP32 FMAs, no TF32), so each weight tile
-// is reused by a whole row tile of 128 instead of being re-read from L2 by
-// every 16 rows, and the products run on the tensor cores in bf16. The price
-// is the hidden's round trip through HBM (R x F in T, about 0.12 ms in bf16
-// at the intra shape), which the TPU kernel keeps in VMEM, and the f32
-// pre-norm rows s2 (R x D).
+// What the design does about it: both products run over all rows at once,
+// so each weight tile is reused by every row tile instead of being re-read
+// from L2 by every 16 rows. In bf16 they run on wgmma (gemm_wgmma.cuh: a
+// TMA ring of k-slices feeding two consumer warpgroups, persistent 128 x
+// 128 output tiles, each epilogue overlapping the next tile's loads; the
+// weights as the caller holds them, [in, out], by the transposed-B form);
+// in f32 on register-tiled FP32 FMAs (gemm_tc.cuh, no TF32: wgmma takes a
+// transposed B only in 16-bit types). The price is the hidden's round trip
+// through HBM (R x F in T, about 0.12 ms in bf16 at the intra shape), which
+// the TPU kernel keeps in VMEM, and the f32 pre-norm rows s2 (R x D).
 // The chain, all on the caller's stream:
-//   (a) h = round_T(relu(x W1 + b1)), the GEMM with EpiBiasRelu;
-//   (b) s2 = (f32(x) + h W2) + b2, f32, the GEMM with the residual epilogue
-//       (K = F);
-//   (c) out = LayerNorm(s2) in T, one warp per row (layernorm_rows.cuh).
-// wgmma, TMA, persistent tiles and keeping h on chip are later work.
+//   (a) h = round_T(relu(x W1 + b1)), the product with the bias + relu
+//       epilogue (N = F: one tensor map over W1 [D, F]);
+//   (b) s2 = (f32(x) + h W2) + b2, f32, the product with the residual
+//       epilogue (K = F: 64 k-slices a tile through the ring);
+//   (c) out = LayerNorm(s2) in T, the row routine of layernorm_rows.cuh
+//       (rows in registers, 16-byte vectors), which the attention chain's
+//       last stage and add_ln.cu share.
+#include <type_traits>
+
 #include "common.cuh"
 #include "gemm_tc.cuh"
+#include "gemm_wgmma.cuh"
 #include "layernorm_rows.cuh"
 
 namespace {
 
+using bf16 = __nv_bfloat16;
+
+// (a): h [m, f] = round_T(relu(x [m, d] w1 [d, f] + b1)).
 template <typename T>
 cudaError_t gemm_relu(const void* x, const void* w1, const void* b1, void* h, int m, int d,
                       int f, cudaStream_t st) {
-  return t2l::gemm::run(static_cast<const T*>(x), d, static_cast<const T*>(w1), f, m, f, d,
-                        t2l::gemm::EpiBiasRelu<T>{static_cast<T*>(h), f,
-                                                  static_cast<const float*>(b1)},
+  const T* X = static_cast<const T*>(x);
+  const T* W = static_cast<const T*>(w1);
+  const float* b = static_cast<const float*>(b1);
+  if constexpr (std::is_same<T, bf16>::value)
+    return t2l::wg::run(X, d, m, d, &W, f, 1, f, t2l::wg::EpiBiasRelu<T>{static_cast<T*>(h), f, b},
                         st);
+  else
+    return t2l::gemm::run(X, d, W, f, m, f, d,
+                          t2l::gemm::EpiBiasRelu<T>{static_cast<T*>(h), f, b}, st);
+}
+
+// (b) and (c): s2 [m, d] f32 = (f32(x) + h [m, f] w2 [f, d]) + b2, then
+// out [m, d] T = LayerNorm(s2).
+template <typename T>
+cudaError_t out_addln(const void* x, const void* h, const void* w2, const void* b2,
+                      const void* gamma, const void* beta, void* out, void* s2, int m, int d,
+                      int f, float eps, cudaStream_t st) {
+  const T* H = static_cast<const T*>(h);
+  const T* W = static_cast<const T*>(w2);
+  float* S = static_cast<float*>(s2);
+  const float* b = static_cast<const float*>(b2);
+  const T* X = static_cast<const T*>(x);
+  cudaError_t e;
+  if constexpr (std::is_same<T, bf16>::value)
+    e = t2l::wg::run(H, f, m, f, &W, d, 1, d, t2l::wg::EpiResidual<T>{S, d, b, X, d}, st);
+  else
+    e = t2l::gemm::run(H, f, W, d, m, d, f, t2l::gemm::EpiResidual<T>{S, d, b, X, d}, st);
+  if (e == cudaSuccess) e = t2l::rows::layernorm<T>(s2, gamma, beta, out, m, d, eps, st);
+  return e;
 }
 
 template <typename T>
@@ -52,13 +87,7 @@ cudaError_t block(const void* x, const void* w1, const void* b1, const void* w2,
                   const void* b2, const void* gamma, const void* beta, void* out, void* h,
                   void* s2, int m, int d, int f, float eps, cudaStream_t st) {
   cudaError_t e = gemm_relu<T>(x, w1, b1, h, m, d, f, st);
-  if (e == cudaSuccess)
-    e = t2l::gemm::run(static_cast<const T*>(h), f, static_cast<const T*>(w2), d, m, d, f,
-                       t2l::gemm::EpiResidual<T>{static_cast<float*>(s2), d,
-                                                 static_cast<const float*>(b2),
-                                                 static_cast<const T*>(x), d},
-                       st);
-  if (e == cudaSuccess) e = t2l::rows::layernorm<T>(s2, gamma, beta, out, m, d, eps, st);
+  if (e == cudaSuccess) e = out_addln<T>(x, h, w2, b2, gamma, beta, out, s2, m, d, f, eps, st);
   return e;
 }
 
@@ -68,27 +97,37 @@ extern "C" {
 
 // The whole block. x [rows, d] T, w1 [d, f] T, b1 [f] f32, w2 [f, d] T,
 // b2/gamma/beta [d] f32 -> out [rows, d] T. Scratch: h [rows, f] T,
-// s2 [rows, d] f32. d and f multiples of 128.
+// s2 [rows, d] f32. d and f multiples of 128; every pointer 16-byte
+// aligned.
 int t2l_ffn_addln_tiled(const void* x, const void* w1, const void* b1, const void* w2,
                         const void* b2, const void* gamma, const void* beta, void* out,
                         void* h, void* s2, int rows, int d, int f, float eps, int dtype,
                         void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == t2l::kBF16)
-    return (int)block<__nv_bfloat16>(x, w1, b1, w2, b2, gamma, beta, out, h, s2, rows, d, f,
-                                     eps, st);
+    return (int)block<bf16>(x, w1, b1, w2, b2, gamma, beta, out, h, s2, rows, d, f, eps, st);
   return (int)block<float>(x, w1, b1, w2, b2, gamma, beta, out, h, s2, rows, d, f, eps, st);
 }
 
-// Stage (a) alone, for the tests that hold it against its plain version:
-// h [rows, f] T = round_T(relu(x w1 + b1)). Stages (b) and (c) are the
-// attention chain's residual GEMM and LayerNorm entries (mha_tiled.cu),
-// the same templates.
+// The stages alone, for the tests that hold each against its plain
+// version; the block runs the same functions. (a):
+// h [rows, f] T = round_T(relu(x w1 + b1)).
 int t2l_ffn_tiled_gemm_relu(const void* x, const void* w1, const void* b1, void* h, int rows,
                             int d, int f, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == t2l::kBF16) return (int)gemm_relu<__nv_bfloat16>(x, w1, b1, h, rows, d, f, st);
+  if (dtype == t2l::kBF16) return (int)gemm_relu<bf16>(x, w1, b1, h, rows, d, f, st);
   return (int)gemm_relu<float>(x, w1, b1, h, rows, d, f, st);
+}
+
+// (b) and (c): out [rows, d] T = LayerNorm((f32(x) + h w2) + b2), through
+// the scratch s2 [rows, d] f32.
+int t2l_ffn_tiled_out_addln(const void* x, const void* h, const void* w2, const void* b2,
+                            const void* gamma, const void* beta, void* out, void* s2, int rows,
+                            int d, int f, float eps, int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == t2l::kBF16)
+    return (int)out_addln<bf16>(x, h, w2, b2, gamma, beta, out, s2, rows, d, f, eps, st);
+  return (int)out_addln<float>(x, h, w2, b2, gamma, beta, out, s2, rows, d, f, eps, st);
 }
 
 }  // extern "C"

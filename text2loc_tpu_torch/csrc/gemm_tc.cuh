@@ -1,20 +1,18 @@
-// Row-tiled GEMMs of the port's transformer blocks (mha_tiled.cu,
-// ffn_tiled.cu):
+// Row-tiled f32 GEMMs of the port's tiled transformer-block chains
+// (mha_tiled.cu, ffn_tiled.cu; their bf16 products run on wgmma,
+// gemm_wgmma.cuh), and the tensor-core and copy helpers that the fused
+// blocks and the SA tiles share (cp.async, ldmatrix, mma.sync, the
+// epilogues):
 //   C[M, N] = epilogue(A[M, K] . B[K, N]),
 // A and B row-major (the port keeps weights [in, out]), f32 sums.
 //
-// bf16: mma.sync.m16n8k16 tensor-core products with f32 accumulators, A
-// fragments by ldmatrix and B fragments by ldmatrix.trans from row-major
-// shared tiles, tiles staged by cp.async in a ring of three stages. Two tile
-// shapes: 128x128 (8 warps, 64x32 each) where that fills the card, else
-// 32x64 (4 warps, 16x32 each) for the short row counts of a serve batch.
 // f32: register-tiled FP32 FMAs (8x8 outputs a thread), double-buffered
 // shared tiles. No TF32: f32 operands are never rounded.
 //
-// The ragged edge: rows of A at or past M are loaded as zeros (cp.async
-// with a zero source size) and their outputs are not stored. N must be a
-// multiple of the tile width (64 or 128) and K of 32 (bf16) or 8 (f32);
-// the blocks' D and F are multiples of 128, as the TPU kernels ask.
+// The ragged edge: rows of A at or past M are loaded as zeros and their
+// outputs are not stored. N must be a multiple of the tile width (64 or
+// 128) and K of 8; the blocks' D and F are multiples of 128, as the TPU
+// kernels ask.
 //
 // An epilogue is a functor called as epi(row, col, v0, v1) with the f32
 // sums of the two adjacent columns col, col + 1 of one row.
@@ -120,115 +118,6 @@ struct EpiResidual {
   }
 };
 
-// ------------------------------------------------------------ bf16, mma.sync
-
-template <int BM_, int BN_, int WM_, int WN_>
-struct TcTile {
-  static constexpr int BM = BM_, BN = BN_, WM = WM_, WN = WN_, BK = 32, STAGES = 3;
-  static constexpr int THREADS = WM * WN * 32;
-  static constexpr int WTM = BM / WM, WTN = BN / WN;  // one warp's tile
-  static constexpr int MT = WTM / 16, NT = WTN / 8;    // mma tiles of a warp
-  // Shared rows padded by 16 bytes: ldmatrix's eight 16-byte rows then
-  // fall on distinct banks.
-  static constexpr int LDA = BK + 8, LDB = BN + 8;
-  static constexpr int A_ELEMS = BM * LDA, B_ELEMS = BK * LDB;
-  static constexpr size_t SMEM = (size_t)STAGES * (A_ELEMS + B_ELEMS) * sizeof(bf16);
-  static_assert(MT >= 1 && NT % 2 == 0, "warp tile");
-};
-using TcBig = TcTile<128, 128, 2, 4>;
-using TcSmall = TcTile<32, 64, 2, 2>;
-
-template <class Tile, class Epi>
-__global__ void __launch_bounds__(Tile::THREADS)
-    gemm_bf16_kernel(const bf16* __restrict__ A, int lda, const bf16* __restrict__ B,
-                     int ldb, int M, int K, int mtile0, Epi epi) {
-  constexpr int BM = Tile::BM, BN = Tile::BN, BK = Tile::BK, STAGES = Tile::STAGES;
-  constexpr int LDA = Tile::LDA, LDB = Tile::LDB, THREADS = Tile::THREADS;
-  constexpr int MT = Tile::MT, NT = Tile::NT;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* As = reinterpret_cast<bf16*>(smem_raw);  // [STAGES][BM][LDA]
-  bf16* Bs = As + STAGES * Tile::A_ELEMS;         // [STAGES][BK][LDB]
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp / Tile::WN, wn = warp % Tile::WN;
-  const int m0 = (mtile0 + blockIdx.y) * BM, n0 = blockIdx.x * BN;
-  const int kt_count = K / BK;
-
-  auto load_stage = [&](int stage, int kt) {
-    const int k0 = kt * BK;
-    bf16* as = As + stage * Tile::A_ELEMS;
-    bf16* bs = Bs + stage * Tile::B_ELEMS;
-    for (int c = tid; c < BM * (BK / 8); c += THREADS) {
-      const int r = c / (BK / 8), cc = (c % (BK / 8)) * 8;
-      const int gr = m0 + r;
-      cp_async16(as + r * LDA + cc, A + (size_t)min(gr, M - 1) * lda + k0 + cc,
-                 gr < M ? 16 : 0);
-    }
-    for (int c = tid; c < BK * (BN / 8); c += THREADS) {
-      const int r = c / (BN / 8), cc = (c % (BN / 8)) * 8;
-      cp_async16(bs + r * LDB + cc, B + (size_t)(k0 + r) * ldb + n0 + cc, 16);
-    }
-  };
-
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < kt_count) load_stage(s, s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < kt_count; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // stage kt landed; every warp is done with stage kt - 1
-    const int next = kt + STAGES - 1;
-    if (next < kt_count) load_stage(next % STAGES, next);
-    cp_async_commit();
-    const bf16* as = As + (kt % STAGES) * Tile::A_ELEMS;
-    const bf16* bs = Bs + (kt % STAGES) * Tile::B_ELEMS;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t af[MT][4], bfr[NT][2];
-#pragma unroll
-      for (int i = 0; i < MT; ++i)  // a0..a3: rows 0-7/8-15 x k 0-7/8-15
-        ldmatrix_x4(af[i], as + (wm * Tile::WTM + i * 16 + (lane & 15)) * LDA + kk +
-                               (lane >> 4) * 8);
-#pragma unroll
-      for (int j = 0; j < NT; j += 2) {  // two n8 tiles: b0 (k 0-7), b1 (k 8-15)
-        uint32_t r[4];
-        ldmatrix_x4_trans(r, bs + (kk + (lane & 15)) * LDB + wn * Tile::WTN + j * 8 +
-                                 (lane >> 4) * 8);
-        bfr[j][0] = r[0];
-        bfr[j][1] = r[1];
-        bfr[j + 1][0] = r[2];
-        bfr[j + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j) mma_bf16(acc[i][j], af[i], bfr[j][0], bfr[j][1]);
-    }
-  }
-  cp_async_wait<0>();
-
-  // c0, c1: row lane / 4, columns 2 (lane % 4) + {0, 1}; c2, c3: row + 8.
-#pragma unroll
-  for (int i = 0; i < MT; ++i) {
-    const int r = m0 + wm * Tile::WTM + i * 16 + (lane >> 2);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int col = n0 + wn * Tile::WTN + j * 8 + (lane & 3) * 2;
-      if (r < M) epi(r, col, acc[i][j][0], acc[i][j][1]);
-      if (r + 8 < M) epi(r + 8, col, acc[i][j][2], acc[i][j][3]);
-    }
-  }
-}
-
 // ---------------------------------------------------------------- f32, FMAs
 
 template <int BM, int BN, class Epi>
@@ -330,28 +219,9 @@ inline int sm_count() {
   return n;
 }
 
-// Both launchers cover the rows in chunks of at most kMaxGridY tiles
+// The launcher covers the rows in chunks of at most kMaxGridY tiles
 // (grid.y's limit); grid.x walks the column tiles, so the blocks in flight
 // share A's rows.
-template <class Tile, class Epi>
-cudaError_t launch_tc(const bf16* A, int lda, const bf16* B, int ldb, int M, int N, int K,
-                      const Epi& epi, cudaStream_t st) {
-  auto kern = gemm_bf16_kernel<Tile, Epi>;
-  if (Tile::SMEM > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Tile::SMEM);
-    if (e != cudaSuccess) return e;
-  }
-  const int mtiles = (M + Tile::BM - 1) / Tile::BM;
-  for (int t0 = 0; t0 < mtiles; t0 += kMaxGridY) {
-    const dim3 grid(N / Tile::BN, mtiles - t0 < kMaxGridY ? mtiles - t0 : kMaxGridY);
-    kern<<<grid, Tile::THREADS, Tile::SMEM, st>>>(A, lda, B, ldb, M, K, t0, epi);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-  }
-  return cudaSuccess;
-}
-
 template <int BM, int BN, class Epi>
 cudaError_t launch_f32(const float* A, int lda, const float* B, int ldb, int M, int N,
                        int K, const Epi& epi, cudaStream_t st) {
@@ -367,17 +237,6 @@ cudaError_t launch_f32(const float* A, int lda, const float* B, int ldb, int M, 
 }
 
 // The large tile where its blocks fill every SM, else the small one.
-template <class Epi>
-cudaError_t run(const bf16* A, int lda, const bf16* B, int ldb, int M, int N, int K,
-                const Epi& epi, cudaStream_t st) {
-  if (M <= 0) return cudaSuccess;
-  if (K % TcBig::BK || N % TcSmall::BN) return cudaErrorInvalidValue;
-  const long big = (long)((M + TcBig::BM - 1) / TcBig::BM) * (N / TcBig::BN);
-  if (N % TcBig::BN == 0 && big >= sm_count())
-    return launch_tc<TcBig>(A, lda, B, ldb, M, N, K, epi, st);
-  return launch_tc<TcSmall>(A, lda, B, ldb, M, N, K, epi, st);
-}
-
 template <class Epi>
 cudaError_t run(const float* A, int lda, const float* B, int ldb, int M, int N, int K,
                 const Epi& epi, cudaStream_t st) {

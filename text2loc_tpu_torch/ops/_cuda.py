@@ -144,13 +144,15 @@ _SIGNATURES = {
     "t2l_ffn_addln": ([_P] * 8 + [_I] * 3 + [_F] + [_I] * 4 + [_P], _I),
     "t2l_ffn_addln_tiled": ([_P] * 10 + [_I] * 3 + [_F, _I, _P], _I),
     "t2l_ffn_tiled_gemm_relu": ([_P] * 4 + [_I] * 4 + [_P], _I),
+    "t2l_ffn_tiled_out_addln": ([_P] * 8 + [_I] * 3 + [_F, _I, _P], _I),
     **{f"t2l_sa_train_{d}_smem": ([_I] * 7, ctypes.c_size_t) for d in ("fwd", "bwd")},
     **{f"t2l_sa_train{e}_fwd": ([_I] + [_P] * 9 + [_I] * 10 + [_P], _I) for e in ("", "_e")},
     **{f"t2l_sa_train{e}_bwd": ([_I] + [_P] * 13 + [_I] * 10 + [_P], _I) for e in ("", "_e")},
     **{f"t2l_sa_train{e}_{d}_occupancy": ([_I] * 8 + [_P], _I)
        for e in ("", "_e") for d in ("fwd", "bwd")},
     "t2l_sa_train_reduce": ([_P, _I, _I, _P, _P], _I),
-    "t2l_add_ln": ([_P] * 5 + [_I, _I, _F, _I, _P], _I),
+    "t2l_add_ln": ([_P] * 5 + [_I, _I, _F] + [_I] * 3 + [_P], _I),
+    "t2l_ln_rows_blocks": ([_I] * 3, _I),
     "t2l_gather_rows_smem": ([_I] * 3, ctypes.c_size_t),
     "t2l_gather_rows": ([_P] * 3 + [_I] * 7 + [_P], _I),
     "t2l_scatter_rows_smem": ([_I, _I], ctypes.c_size_t),

@@ -1,9 +1,11 @@
 """Wrappers of the feed-forward block's two CUDA kernels: the fused block to
 d=256 (csrc/ffn_addln.cu: tiles of rows, each on one CUDA block or with the
 hidden split over a cluster of blocks, as fused_plan says); the tiled chain
-over all rows (csrc/ffn_tiled.cu: two tensor-core GEMMs and a row
-LayerNorm) above it and wherever the fused block's one-block layout does
-not fit in shared memory. `route` picks one; there is no fallback."""
+over all rows (csrc/ffn_tiled.cu: two products, on wgmma fed by TMA in bf16
+(csrc/gemm_wgmma.cuh) and on FP32 FMAs in f32, then the row LayerNorm of
+csrc/layernorm_rows.cuh) above it and wherever the fused block's one-block
+layout does not fit in shared memory. `route` picks one; there is no
+fallback."""
 
 from __future__ import annotations
 
@@ -127,14 +129,16 @@ def check_tiled(d: int, f: int) -> None:
 
 def _operands(x, w1, b1, w2, b2, scale, bias):
     """The tiled chain's operands: the weights in x.dtype and the vectors in
-    f32, contiguous and checked against x [..., D] and w1 [D, F]."""
+    f32, contiguous (each read as given where it already is so; a cast
+    otherwise, as f32 weights under bf16 activations take), checked against
+    x [..., D] and w1 [D, F]."""
     dt = x.dtype
     if dt not in _cuda.DTYPE_CODE:
         raise ValueError(f"x: unsupported dtype {dt}")
     _cuda.check(x, "x", dtype=dt)
     d, f = x.shape[-1], w1.shape[1]
-    w1_, w2_ = w1.to(dt).contiguous(), w2.to(dt).contiguous()
-    b1_, b2_, g_, be_ = (t.float().contiguous() for t in (b1, b2, scale, bias))
+    w1_, w2_ = _cuda.as_given(w1, dt), _cuda.as_given(w2, dt)
+    b1_, b2_, g_, be_ = (_cuda.as_given(t, torch.float32) for t in (b1, b2, scale, bias))
     _cuda.check(w1_, "w1", shape=(d, f))
     _cuda.check(w2_, "w2", shape=(f, d))
     _cuda.check(b1_, "b1", shape=(f,))
@@ -214,10 +218,9 @@ def fused_block_cuda(x, w1, b1, w2, b2, scale, bias, eps: float = 1e-5, *, out=N
 
 
 # The tiled chain's stages launched one at a time, each to be held against
-# its plain stage (ops/ffn.py). The main path never calls these, and they
-# do not count as launches of the block. Stages (b) and (c), the residual
-# GEMM (K = F) and the LayerNorm, are the attention chain's:
-# cuda_mha.tiled_out_addln_cuda(x, h, w2, b2, scale, bias).
+# its plain stage (ops/ffn.py), through the C entries that run the block's
+# own functions. The main path never calls these, and they do not count as
+# launches of the block.
 
 
 def tiled_hidden_cuda(x, w1, b1):
@@ -227,7 +230,7 @@ def tiled_hidden_cuda(x, w1, b1):
     _cuda.check(x, "x", dtype=dt)
     d, f = x.shape[-1], w1.shape[1]
     check_tiled(d, f)
-    w1_, b1_ = w1.to(dt).contiguous(), b1.float().contiguous()
+    w1_, b1_ = _cuda.as_given(w1, dt), _cuda.as_given(b1, torch.float32)
     _cuda.check(w1_, "w1", shape=(d, f))
     _cuda.check(b1_, "b1", shape=(f,))
     h = torch.empty((*x.shape[:-1], f), dtype=dt, device=x.device)
@@ -236,3 +239,25 @@ def tiled_hidden_cuda(x, w1, b1):
                  count=False)
     return h
 
+
+def tiled_out_addln_cuda(x, h, w2, b2, scale, bias, eps: float = 1e-5):
+    """Stages (b) and (c): LayerNorm((f32(x) + h W2) + b2) [..., D] in
+    x.dtype, as ffn_out_addln_plain; x [..., D], h [..., F], w2 [F, D]."""
+    dt = x.dtype
+    _cuda.check(x, "x", dtype=dt)
+    d, f = x.shape[-1], h.shape[-1]
+    check_tiled(d, f)
+    _cuda.check(h, "h", dtype=dt, shape=(*x.shape[:-1], f))
+    w2_ = _cuda.as_given(w2, dt)
+    b2_, g_, be_ = (_cuda.as_given(t, torch.float32) for t in (b2, scale, bias))
+    _cuda.check(w2_, "w2", shape=(f, d))
+    for name, t in (("b2", b2_), ("scale", g_), ("bias", be_)):
+        _cuda.check(t, name, shape=(d,))
+    rows = x.numel() // d
+    s2 = torch.empty((rows, d), dtype=torch.float32, device=x.device)
+    out = torch.empty_like(x)
+    if rows:
+        _cuda.launch(KERNEL_TILED, "t2l_ffn_tiled_out_addln",
+                     *(_cuda.ptr(t) for t in (x, h, w2_, b2_, g_, be_, out, s2)),
+                     rows, d, f, ctypes.c_float(eps), _cuda.DTYPE_CODE[dt], count=False)
+    return out

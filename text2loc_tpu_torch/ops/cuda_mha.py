@@ -380,9 +380,9 @@ def tiled_core_cuda(q, k, v, key_mask=None, *, num_heads: int):
 
 def tiled_out_addln_cuda(x, o, wo, bo, scale, bias, *, eps: float = 1e-5):
     """Stages (c) and (d): LayerNorm((f32(x) + o Wo) + bo) in x.dtype, as
-    mha_out_addln_plain; x [..., D], o [..., K] and wo [K, D]. K = D here;
-    with the hidden h as o and K = F, the feed-forward chain's stages (b)
-    and (c), as ffn_out_addln_plain."""
+    mha_out_addln_plain; x [..., D], o [..., K] and wo [K, D] (K = D in the
+    block). The feed-forward chain's stages (b) and (c) have their own entry,
+    cuda_ffn.tiled_out_addln_cuda."""
     dt = x.dtype
     d, k = x.shape[-1], o.shape[-1]
     m = x.numel() // d
