@@ -189,6 +189,26 @@ toolkit. Phases, each printing one JSON line:
    card: no fps or SA kernel with the class table (no PointNet), fps and
    sa_select_first with the colour table alone, mha_addln and ffn_addln
    in both.
+17. prep_serve: from a raw KITTI-360 scene to a served map inside the
+   port. A synthetic drive in KITTI-360's raw layout, written with numpy
+   from a seed (data_3d_semantics/<scene>/static/*.ply with x, y, z, rgb,
+   semantic and instance; data_poses/<scene>/poses.txt): 4 static windows
+   of 1,050,000 points over a 400 m trajectory (a pose a metre), road,
+   sidewalk, terrain and trees along all of it, buildings and poles (and
+   cars, which no class takes) along it. The port's prep CLI
+   (prep/prepare.py) on the card at its defaults (cell_size 30, cell_dist
+   10, pose_dist 10, pose_count 4, num_mentioned 6, describe_by all, seed
+   4096, --array_dir): the seconds of gather_objects, cells, poses and
+   ingest, and the counts of windows, points, objects, cells and poses. On
+   a cut of one window, the card's prep against the CPU's: the objects,
+   cells, poses, direction JSON and npz arrays equal, the CPU's seconds
+   beside the card's. Then the full scene's arrays served at Config()
+   width (bf16, seeded weights): build seconds, a batch of 8 requests
+   (checked as phase 4 checks them, median ms), the launches of fps,
+   sa_select_first, mha_addln, mha_addln_tiled and ffn_addln (each > 0,
+   no opt-in kernel); and the f32 serve of the same 8 requests on the card
+   against the CPU over the same map, by phase 5's criteria; on a line
+   with the card's name and power limit.
 
 Phase 3 also holds the opt-in kernels against their plain versions: add_ln
 at the E=1024 trunk's rows and at D=128/256 (bf16, f32), each line with
@@ -202,8 +222,8 @@ step's three levels (f32, bf16), with the time of one PyTorch call that
 computes the same function where there is one (library_ms).
 
 Then the kernels line (launches: the counts during phases 4, 6, 8, 9b (every
-rank), 10 (serve_optin too), 12, 14, 15 and 16, each path's counts set to 0
-just before it;
+rank), 10 (serve_optin too), 12, 14, 15, 16 and 17, each path's counts set
+to 0 just before it;
 max_abs_err, ms, plain_ms, bound_ms and library_ms: over the inference
 kernels' bf16 cases of phase 3 (sa_gather's approximate ball query cases),
 FPS's f32 case, the training kernels' f32 cases, the "e" kernels' bf16
@@ -2501,7 +2521,6 @@ def phase_dp(dev, smi: str) -> dict:
 # -------------------------------------------------------------- serve paths
 
 KITTI_SCENE = "2013_05_28_drive_0010_sync"   # the val split's one scene
-REFERENCE_MODULE = "datapreparation.kitti360pose.imports"
 
 
 def _write_kitti_scene(base: str, name: str, seed: int, grid: int = 4,
@@ -2511,9 +2530,6 @@ def _write_kitti_scene(base: str, name: str, seed: int, grid: int = 4,
     hints (every third unmatched), pickled under the reference's module path
     as the published pickles are, and the compass neighbour map in
     direction/<name>.json."""
-    import pickle
-    import types
-
     from text2loc_tpu_torch import constants as C
     from text2loc_tpu_torch.data import structs as S
 
@@ -2550,27 +2566,9 @@ def _write_kitti_scene(base: str, name: str, seed: int, grid: int = 4,
                                                         d.offset_closest))
         poses.append(S.Pose(pose_in_cell, cell.bbox_w[:3] + np.r_[pose_in_cell * 30.0, 0.0],
                             cell.id, name, descrs))
-    # Pickle under the reference's module path (pickle checks that the
-    # module imports, so stub modules stand in while it writes).
-    classes = (S.Object3d, S.DescriptionPoseCell, S.DescriptionBestCell, S.Pose, S.Cell)
-    own = [c.__module__ for c in classes]
-    parts = REFERENCE_MODULE.split(".")
-    stubs = {".".join(parts[:i + 1]): types.ModuleType(".".join(parts[:i + 1]))
-             for i in range(len(parts))}
-    for c in classes:
-        c.__module__ = REFERENCE_MODULE
-        setattr(stubs[REFERENCE_MODULE], c.__name__, c)
-    sys.modules.update(stubs)
-    try:
-        for kind, obj in (("cells", cells), ("poses", poses)):
-            os.makedirs(os.path.join(base, kind), exist_ok=True)
-            with open(os.path.join(base, kind, f"{name}.pkl"), "wb") as f:
-                pickle.dump(obj, f)
-    finally:
-        for c, m in zip(classes, own):
-            c.__module__ = m
-        for mod in stubs:
-            sys.modules.pop(mod, None)
+    for kind, obj in (("cells", cells), ("poses", poses)):
+        os.makedirs(os.path.join(base, kind), exist_ok=True)
+        S.dump_compat_pickle(obj, os.path.join(base, kind, f"{name}.pkl"))
     neighbors = {}
     for i, cell in enumerate(cells):
         gx, gy = i % grid, i // grid
@@ -3298,6 +3296,262 @@ def phase_readers_tables(dev, kernels, smi: str, data) -> dict:
     return totals
 
 
+# ---------------------------------------------------------- prep and serve
+
+PREP_SCENE = "2013_05_28_drive_0000_sync"
+PREP_WINDOWS = 4                 # static windows of the raw scene
+PREP_WINDOW_POINTS = 1_050_000   # raw points a window
+PREP_LENGTH_M = 400.0            # the trajectory (a KITTI-360 drive runs for kilometres)
+PREP_OVERLAP_M = 10.0            # windows overlap by this much at each end
+# KITTI-360 semantic ids; "car" is no class of the dataset: the prep drops it.
+_SEM = dict(road=7, sidewalk=8, building=11, pole=17, vegetation=21, terrain=22, car=26)
+# Share of a window's points by class.
+_SHARE = dict(road=0.20, sidewalk=0.14, terrain=0.14, vegetation=0.24, building=0.20,
+              pole=0.02, car=0.06)
+
+
+def _write_ply(path: str, xyz, rgb, semantic, instance) -> None:
+    """A binary little-endian PLY of KITTI-360's static windows: float x, y,
+    z, uchar red, green, blue, int semantic, instance."""
+    dt = np.dtype([("x", "<f4"), ("y", "<f4"), ("z", "<f4"), ("red", "u1"),
+                   ("green", "u1"), ("blue", "u1"), ("semantic", "<i4"), ("instance", "<i4")])
+    rec = np.empty(len(xyz), dt)
+    rec["x"], rec["y"], rec["z"] = xyz.T
+    rec["red"], rec["green"], rec["blue"] = rgb.T
+    rec["semantic"], rec["instance"] = semantic, instance
+    ply_type = {"<f4": "float", "u1": "uchar", "<i4": "int"}
+    header = (f"ply\nformat binary_little_endian 1.0\nelement vertex {len(xyz)}\n"
+              + "".join(f"property {ply_type[dt[n].str.replace('|', '')]} {n}\n"
+                        for n in dt.names)
+              + "end_header\n")
+    with open(path, "wb") as f:
+        f.write(header.encode())
+        f.write(rec.tobytes())
+
+
+def _road_y(x):
+    return 3.0 * np.sin(x / 60.0)
+
+
+def _window_points(w: int, seed: int, points: int):
+    """One static window of the synthetic drive: x over the window's stretch
+    of road (with the overlap), and along it road, sidewalks and terrain
+    (stuff sheets), trees (vegetation), buildings and poles (instances) and
+    cars."""
+    rng = np.random.default_rng([seed, w])
+    step = PREP_LENGTH_M / PREP_WINDOWS
+    x0, x1 = w * step - PREP_OVERLAP_M, (w + 1) * step + PREP_OVERLAP_M
+    parts = []
+
+    def emit_part(name, xyz, iid, colour):
+        n = len(xyz)
+        rgb = np.clip(np.asarray(colour) + rng.normal(0, 18, (n, 3)), 0, 255).astype(np.uint8)
+        parts.append((xyz.astype(np.float32), rgb, np.full(n, _SEM[name], np.int32),
+                      np.full(n, iid, np.int32)))
+
+    def sheet(name, lo, hi, z0, zs, colour):
+        n = int(points * _SHARE[name])
+        x = rng.uniform(x0, x1, n)
+        dy = rng.uniform(lo, hi, n) * rng.choice((-1.0, 1.0), n) if lo > 0 else rng.uniform(-hi, hi, n)
+        emit_part(name, np.column_stack([x, _road_y(x) + dy, z0 + rng.normal(0, zs, n)]),
+                  _SEM[name] * 1000, colour)
+
+    sheet("road", 0.0, 3.5, 0.0, 0.03, (90, 90, 95))
+    sheet("sidewalk", 3.5, 5.5, 0.15, 0.02, (160, 150, 140))
+    sheet("terrain", 5.5, 8.5, 0.0, 0.1, (120, 110, 60))
+
+    def along(every, offset):
+        """Objects at x = every * k + offset on both sides, inside the window."""
+        ks = np.arange(np.ceil((x0 - offset) / every), np.floor((x1 - offset) / every) + 1)
+        return [(int(k), side, every * k + offset) for k in ks for side in (0, 1)]
+
+    trees = along(7.0, 3.5)
+    n = int(points * _SHARE["vegetation"])
+    pick = rng.integers(len(trees), size=n)
+    cx = np.array([t[2] for t in trees])[pick]
+    cy = _road_y(cx) + np.where(np.array([t[1] for t in trees])[pick] == 0, 10.0, -10.0)
+    emit_part("vegetation", np.column_stack([cx, cy, np.full(n, 3.0)])
+              + rng.normal(0, 1, (n, 3)) * [1.2, 1.2, 1.0], _SEM["vegetation"] * 1000,
+              (60, 110, 50))
+
+    def per_object(name, objects, shape, colour):
+        n = int(points * _SHARE[name]) // max(len(objects), 1)
+        for k, side, x in objects:
+            centre = np.array([x, _road_y(x) + shape["dy"] * (1 if side == 0 else -1), 0.0])
+            emit_part(name, centre + shape["points"](n, k), _SEM[name] * 1000 + 2 * k + side,
+                      colour)
+
+    def facades(n, k):
+        h = 8.0 + 2.0 * (k % 4)
+        u = rng.uniform(-1, 1, (n, 2))
+        wall = rng.integers(4, size=n)
+        x = np.where(wall < 2, np.where(wall == 0, -4.0, 4.0), 4.0 * u[:, 0])
+        y = np.where(wall >= 2, np.where(wall == 2, -3.0, 3.0), 3.0 * u[:, 1])
+        return np.column_stack([x, y, rng.uniform(0, h, n)]) + rng.normal(0, 0.02, (n, 3))
+
+    per_object("building", along(12.0, 6.0), dict(dy=13.5, points=facades), (170, 120, 100))
+    per_object("pole", along(9.0, 4.5), dict(dy=5.0, points=lambda n, k: np.column_stack(
+        [rng.normal(0, 0.08, n), rng.normal(0, 0.08, n), rng.uniform(0, 6.0, n)])), (80, 80, 80))
+    per_object("car", along(20.0, 10.0), dict(dy=2.0, points=lambda n, k: rng.normal(
+        0, 1, (n, 3)) * [2.0, 0.8, 0.6] + [0, 0, 0.8]), (30, 40, 150))
+    return [np.concatenate(c) for c in zip(*parts)], (x0, x1)
+
+
+def _write_raw_scene(base: str, seed: int, windows=range(PREP_WINDOWS),
+                     points: int = PREP_WINDOW_POINTS) -> int:
+    """The synthetic drive in KITTI-360's raw layout under `base`:
+    data_3d_semantics/<scene>/static/<first>_<last>.ply per window and
+    data_poses/<scene>/poses.txt (a pose a metre along the windows'
+    stretch). Returns the raw points written."""
+    static = os.path.join(base, "data_3d_semantics", PREP_SCENE, "static")
+    os.makedirs(static)
+    total, lo, hi = 0, np.inf, -np.inf
+    for w in windows:
+        cols, (x0, x1) = _window_points(w, seed, points)
+        _write_ply(os.path.join(static, f"{w * 1000:010d}_{w * 1000 + 999:010d}.ply"), *cols)
+        total += len(cols[0])
+        lo, hi = min(lo, max(x0, 0.0)), max(hi, min(x1, PREP_LENGTH_M))
+    x = np.arange(lo, hi + 1e-9, 1.0)
+    rows = [np.r_[i, np.hstack([np.eye(3), [[xi], [_road_y(xi)], [1.7]]]).ravel()]
+            for i, xi in enumerate(x)]
+    os.makedirs(os.path.join(base, "data_poses", PREP_SCENE))
+    np.savetxt(os.path.join(base, "data_poses", PREP_SCENE, "poses.txt"), np.array(rows))
+    return total
+
+
+def _same_graph(got, want, where="") -> None:
+    """Equal object graphs: the same classes, equal attributes, arrays equal
+    with equal dtypes."""
+    if isinstance(want, (list, tuple)):
+        check(isinstance(got, (list, tuple)) and len(got) == len(want), f"{where}: length")
+        for i, (g, w) in enumerate(zip(got, want)):
+            _same_graph(g, w, f"{where}[{i}]")
+    elif isinstance(want, dict):
+        check(isinstance(got, dict) and sorted(got) == sorted(want), f"{where}: keys")
+        for k in want:
+            _same_graph(got[k], want[k], f"{where}.{k}")
+    elif isinstance(want, np.ndarray):
+        check(isinstance(got, np.ndarray) and got.dtype == want.dtype
+              and got.shape == want.shape and np.array_equal(got, want), f"{where}: array")
+    elif hasattr(want, "__dict__"):
+        check(type(got) is type(want), f"{where}: class")
+        _same_graph(vars(got), vars(want), where)
+    else:
+        check(type(got) is type(want) and got == want, f"{where}: {got!r} != {want!r}")
+
+
+def _prepare(raw: str, out: str, device: str) -> dict:
+    """The port's prep CLI at its defaults on `device`: its stage seconds
+    and counts."""
+    import contextlib
+    import io
+
+    from text2loc_tpu_torch.prep import prepare
+
+    argv = ["--path_in", raw, "--path_out", os.path.join(out, "data"), "--scene_name",
+            PREP_SCENE, "--array_dir", os.path.join(out, "arrays"), "--device", device]
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        stats = prepare.main(argv)
+    stats["seconds"] = time.perf_counter() - t
+    return stats
+
+
+def _prepared(out: str, raw: str) -> dict:
+    from text2loc_tpu_torch.data.structs import load_compat_pickle
+
+    data = os.path.join(out, "data")
+    with open(os.path.join(data, "direction", f"{PREP_SCENE}.json")) as f:
+        direction = json.load(f)
+    with np.load(os.path.join(out, "arrays", f"{PREP_SCENE}.npz")) as f:
+        arrays = {k: f[k] for k in f.files}
+    return {"objects": load_compat_pickle(os.path.join(raw, "objects", f"{PREP_SCENE}.pkl")),
+            "cells": load_compat_pickle(os.path.join(data, "cells", f"{PREP_SCENE}.pkl")),
+            "poses": load_compat_pickle(os.path.join(data, "poses", f"{PREP_SCENE}.pkl")),
+            "direction": direction, "arrays": arrays}
+
+
+def phase_prep_serve(dev, kernels, smi: str, absent=()) -> dict:
+    """From a raw KITTI-360 scene to a served map inside the port: the prep
+    CLI on the card at its defaults over a synthetic 4-window drive, the
+    card's prep against the CPU's on a cut of one window (every output
+    equal), then the prepared map served at Config() width (bf16): a batch
+    of 8 requests and the launches of the serve kernels, and the f32 serve
+    on the card against the CPU over the same map (phase 5's criteria).
+    Returns the phase's launches."""
+    import shutil
+    import tempfile
+
+    from text2loc_tpu_torch.config import Config
+    from text2loc_tpu_torch.data.arrays import MultiSceneArrays, SceneArrays
+    from text2loc_tpu_torch.models.text_embedding import HintTextEmbedder
+    from text2loc_tpu_torch.serving import Localizer
+
+    t_phase = time.perf_counter()
+    report = {"phase": "prep_serve", "card": smi}
+    for k in (*kernels, *absent):
+        k.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        raw_points = _write_raw_scene(os.path.join(tmp, "raw"), SEED + 17)
+        cut_points = _write_raw_scene(os.path.join(tmp, "cut_cuda"), SEED + 17, windows=(0,))
+        shutil.copytree(os.path.join(tmp, "cut_cuda"), os.path.join(tmp, "cut_cpu"))
+        report["write_raw_s"] = time.perf_counter() - t
+
+        # 1. The whole scene on the card.
+        full = _prepare(os.path.join(tmp, "raw"), os.path.join(tmp, "out"), "cuda")
+        report["scene"] = {"raw_points": raw_points, **full}
+        check(full["windows"] == PREP_WINDOWS and raw_points >= PREP_WINDOWS * 1_000_000,
+              f"the raw scene: {full['windows']} windows, {raw_points} points")
+        check(full["cells"] >= 30 and full["poses"] >= 100,
+              f"prepared {full['cells']} cells and {full['poses']} poses")
+
+        # 2. The cut: the card's prep against the CPU's, every output equal.
+        cut = {where: _prepare(os.path.join(tmp, f"cut_{where}"),
+                               os.path.join(tmp, f"cut_out_{where}"), where)
+               for where in ("cuda", "cpu")}
+        report["cut"] = {"raw_points": cut_points, "card": cut["cuda"], "cpu": cut["cpu"]}
+        check(cut["cuda"]["cells"] > 0 and cut["cuda"]["poses"] > 0, f"the cut: {cut['cuda']}")
+        got, want = (_prepared(os.path.join(tmp, f"cut_out_{w}"), os.path.join(tmp, f"cut_{w}"))
+                     for w in ("cuda", "cpu"))
+        for key in want:
+            _same_graph(got[key], want[key], f"cut {key}: the card against the CPU")
+
+        # 3. The prepared map served on the card.
+        data = MultiSceneArrays([SceneArrays.load_npz(
+            os.path.join(tmp, "out", "arrays", f"{PREP_SCENE}.npz"))])
+    cfg = Config()
+    emb = HintTextEmbedder.compositional(cfg.model.text_embed_dim, cfg.model.max_hint_tokens)
+    hints = _serve_queries(data, 8)
+    coarse, fine = _models(cfg, torch.Generator().manual_seed(SEED + 17))
+    t = time.perf_counter()
+    loc = Localizer(data, coarse, fine, emb, cfg, top_k=10, device=dev)
+    torch.cuda.synchronize()
+    report["serve_build_s"] = time.perf_counter() - t
+    _check_result(loc.localize(*hints), data, 8, loc.top_k)
+    report["serve_ms_batch8"] = _median_ms(lambda: loc.localize(*hints))
+    counts = {k.name: k.launches for k in (*kernels, *absent)}
+    report["launches"] = counts
+
+    # 4. The f32 serve, card against CPU, over the same map.
+    cfg32 = _serve_cfg()
+    results = {}
+    for where in ("cuda", "cpu"):
+        coarse, fine = _models(cfg32, torch.Generator().manual_seed(SEED + 17))
+        results[where] = Localizer(data, coarse, fine, emb, cfg32, top_k=5,
+                                   device=dev if where == "cuda" else "cpu").localize(*hints)
+    compared, top1_equal, pos_err = _top1_agreement(results["cuda"], results["cpu"])
+    report["serve_vs_cpu"] = {"compared": compared, "top1_equal": top1_equal,
+                              "max_pos_err_m": pos_err}
+    report["seconds"] = time.perf_counter() - t_phase
+    emit(report)
+    check(all(counts[k.name] > 0 for k in kernels), f"a kernel never launched: {counts}")
+    _check_absent(counts, absent, "prep_serve")
+    check(top1_equal and pos_err <= 1e-2,
+          f"the prepared map's f32 serve: the card differs from the CPU: {report['serve_vs_cpu']}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on a card",
@@ -3344,6 +3598,7 @@ def main() -> int:
     counts.append(serve_paths_counts)
     counts.append(phase_t5_text(dev, serve_kernels, smi, scene, absent=optin))
     counts.append(phase_readers_tables(dev, pipeline_kernels, smi, scene))
+    counts.append(phase_prep_serve(dev, serve_kernels, smi, absent=optin))
     kernels = (serve_kernels + train_kernels[1:3] + list(cuda_pointconv.KERNELS[1:])
                + optin + [cuda_gather.KERNEL_SCATTER, cuda_sa_train.KERNEL_E_FWD,
                           cuda_sa_train.KERNEL_E_BWD])

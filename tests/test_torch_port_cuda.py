@@ -1746,3 +1746,49 @@ def test_embedding_tables_cached_serve_equals_the_cpu(dev):
     np.testing.assert_array_equal(card.cell_indices[clear, 0], cpu.cell_indices[clear, 0])
     same = card.cell_indices == cpu.cell_indices
     assert np.abs(card.candidates_w - cpu.candidates_w)[same].max() <= 1e-2
+
+
+def test_prep_blocks_card_equal_cpu(dev):
+    """The prep's float64 point work gives the CPU's results bit for bit on
+    the card: the packed voxel grid, DBSCAN over packed clouds (chunks of
+    candidate pairs included), the closest-point query with its ties, and
+    the close-location test at exactly cell_size / 2."""
+    from text2loc_tpu_torch.data.structs import Object3d
+    from text2loc_tpu_torch.prep import cells
+    from text2loc_tpu_torch.prep.dbscan import dbscan
+    from text2loc_tpu_torch.prep.voxel import voxel_keep
+
+    rng = np.random.default_rng(0)
+    xyz = rng.normal(0, 3, (200_000, 3)) * [1, 1, 0.3] - [501.3, 20.7, 1.1]
+    seg = np.sort(rng.integers(0, 40, len(xyz)))
+    size = rng.choice([0.125, 0.25], 40)
+    cloud = np.sort(rng.integers(0, 12, 60_000))
+    pts = rng.normal(0, 1, (60_000, 3)) * [4, 4, 1] + cloud[:, None] * 50.0
+    objects = [Object3d(i, i, rng.normal(0, 2, (n, 3)) + rng.uniform(-30, 30, 3),
+                        rng.random((n, 3)).astype(np.float32), "pole")
+               for i, n in enumerate(rng.integers(50, 3000, 30))]
+    objects.append(Object3d(30, 30, np.array([[1.0, 0, 0], [-1.0, 0, 0]]),
+                            np.zeros((2, 3), np.float32), "pole"))
+    anchors = [np.zeros(3), rng.uniform(-20, 20, 3), rng.uniform(-20, 20, 3)]
+    locs = np.concatenate([rng.uniform(-50, 50, (40, 3)), [objects[-1].xyz[0] + [9, 12, 0]]])
+
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        keep = voxel_keep(torch.as_tensor(xyz, device=d), torch.as_tensor(seg, device=d),
+                          torch.as_tensor(size, device=d)).cpu()
+        labels = dbscan(torch.as_tensor(pts, device=d), torch.as_tensor(cloud, device=d),
+                        max_pairs=1 << 20).cpu()
+        scene = cells.ScenePoints(objects, d)
+        cell = cells.CellPoints(0, "s", np.r_[-60.0, -60, -60, 60, 60, 60], 120.0,
+                                scene.instance_ids, scene.labels, scene.xyz, scene.rgb,
+                                scene.counts)
+        out[d.type] = (keep, labels, [cell.closest_points(a) for a in anchors],
+                       np.array(cells.get_close_locations(locs, scene, 30.0)))
+    card, cpu = out["cuda"], out["cpu"]
+    assert torch.equal(card[0], cpu[0]) and torch.equal(card[1], cpu[1])
+    assert int(cpu[1].max()) > 0
+    for g, w in zip(card[2], cpu[2]):
+        np.testing.assert_array_equal(g, w)
+    assert cpu[2][0][-1].tolist() == [1.0, 0.0, 0.0]
+    np.testing.assert_array_equal(card[3], cpu[3])
+    assert 0 < len(cpu[3]) < len(locs)

@@ -1,10 +1,11 @@
 """Dataset constants for KITTI360Pose (the port's own copy of the parts of
 text2loc_tpu/constants.py that the port uses: the class and colour
 vocabularies, the direction vocabulary with its flip tables, the point-count
-standardization, the PMC neighbour order, the scene splits, the hint
-template and the hint-id arithmetic). The values are the reference's
-public dataset constants; the two copies must stay equal
-(tests/test_torch_port_data.py checks that they do)."""
+standardization, the prep's semantic ids and per-class thresholds, the PMC
+neighbour order, the scene splits, the hint template and the hint-id
+arithmetic). The values are the reference's public dataset constants; the
+two copies must stay equal (tests/test_torch_port_data.py and
+tests/test_torch_port_prep.py check that they do)."""
 
 from __future__ import annotations
 
@@ -134,6 +135,66 @@ DIRECTION_H_FLIP = np.array(
 DIRECTION_V_FLIP = np.array(
     [DIRECTION_TO_INDEX[_V_FLIP.get(d, d)] for d in DIRECTIONS], dtype=np.int32
 )
+
+# Stuff classes: the prep crops them into a cell and splits the crop into
+# DBSCAN pseudo-instances (text2loc_tpu/constants.py STUFF_CLASSES).
+STUFF_CLASSES = [
+    "sidewalk",
+    "road",
+    "parking",
+    "wall",
+    "fence",
+    "guard rail",
+    "bridge",
+    "tunnel",
+    "vegetation",
+    "terrain",
+]
+
+# KITTI-360 semantic-label ids per class: the prep extracts instances of
+# these labels from the raw semantic point clouds.
+CLASS_TO_SEMANTIC_ID = {
+    "building": 11,
+    "pole": 17,
+    "traffic light": 19,
+    "traffic sign": 20,
+    "garage": 34,
+    "stop": 36,
+    "smallpole": 37,
+    "lamp": 38,
+    "trash bin": 39,
+    "vending machine": 40,
+    "box": 41,
+    "road": 7,
+    "sidewalk": 8,
+    "parking": 9,
+    "wall": 12,
+    "fence": 13,
+    "guard rail": 14,
+    "bridge": 15,
+    "tunnel": 16,
+    "vegetation": 21,
+    "terrain": 22,
+}
+SEMANTIC_ID_TO_CLASS = {v: k for k, v in CLASS_TO_SEMANTIC_ID.items()}
+
+# Per-class prep thresholds: the fewest points an object keeps, and the
+# voxel grid applied after each merge (None: no grid).
+CLASS_TO_MINPOINTS = {
+    "building": 250, "pole": 25, "traffic light": 25, "traffic sign": 25,
+    "garage": 250, "stop": 25, "smallpole": 25, "lamp": 25, "trash bin": 25,
+    "vending machine": 25, "box": 25, "sidewalk": 1000, "road": 1000,
+    "parking": 1000, "wall": 250, "fence": 250, "guard rail": 250,
+    "bridge": 1000, "tunnel": 1000, "vegetation": 250, "terrain": 250,
+}
+CLASS_TO_VOXELSIZE = {
+    "building": 0.25, "pole": None, "traffic light": None, "traffic sign": None,
+    "garage": 0.125, "stop": None, "smallpole": None, "lamp": None,
+    "trash bin": None, "vending machine": None, "box": None, "sidewalk": 0.25,
+    "road": 0.25, "parking": 0.25, "wall": 0.125, "fence": 0.125,
+    "guard rail": 0.125, "bridge": 0.25, "tunnel": 0.25, "vegetation": 0.25,
+    "terrain": 0.25,
+}
 
 # Compass neighbour-slot order of the PMC tables ([C, 8] cell_neighbors,
 # [N, 8] pmc_valid / pmc_weight, [N, 8, S] pmc_match).

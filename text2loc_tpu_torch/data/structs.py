@@ -1,6 +1,7 @@
 """Reader structs for the published KITTI360Pose pickles (the port's own
 copy of text2loc_tpu/data/structs.py: Object3d, DescriptionPoseCell,
-DescriptionBestCell, Pose, Cell, CompatUnpickler, load_compat_pickle).
+DescriptionBestCell, Pose, Cell, CompatUnpickler, load_compat_pickle; and
+dump_compat_pickle, which writes the published schema's module path).
 
 The pickles hold the reference's object graph; these classes carry the same
 attribute schema, so the pickles deserialize without the reference's code
@@ -178,16 +179,22 @@ _CLASSES = {
 }
 
 
+# The module path of the published pickles' classes.
+REFERENCE_MODULE = "datapreparation.kitti360pose.imports"
+
+
 class CompatUnpickler(pickle.Unpickler):
     """Deserialize published pickles without importing the reference.
 
     Maps every "datapreparation.*" module path (both the current
     "kitti360pose" name and the legacy "kitti360" alias the reference shims in
-    dataloading/__init__.py:8-10) onto the reader structs above.
+    dataloading/__init__.py:8-10), and the JAX package's own struct module,
+    onto the reader structs above.
     """
 
     def find_class(self, module: str, name: str):
-        if module.startswith("datapreparation.") and name in _CLASSES:
+        if (module.startswith("datapreparation.")
+                or module == "text2loc_tpu.data.structs") and name in _CLASSES:
             return _CLASSES[name]
         return super().find_class(module, name)
 
@@ -195,3 +202,29 @@ class CompatUnpickler(pickle.Unpickler):
 def load_compat_pickle(path: str):
     with open(path, "rb") as f:
         return CompatUnpickler(f).load()
+
+
+def dump_compat_pickle(obj, path: str) -> None:
+    """Pickle obj with the structs above under REFERENCE_MODULE, as the
+    published pickles are (pickle checks that the module imports, so stub
+    modules stand in while it writes)."""
+    import sys
+    import types
+
+    classes = tuple(_CLASSES.values())
+    own = [c.__module__ for c in classes]
+    parts = REFERENCE_MODULE.split(".")
+    stubs = {".".join(parts[:i + 1]): types.ModuleType(".".join(parts[:i + 1]))
+             for i in range(len(parts))}
+    for c in classes:
+        c.__module__ = REFERENCE_MODULE
+        setattr(stubs[REFERENCE_MODULE], c.__name__, c)
+    sys.modules.update(stubs)
+    try:
+        with open(path, "wb") as f:
+            pickle.dump(obj, f)
+    finally:
+        for c, m in zip(classes, own):
+            c.__module__ = m
+        for mod in stubs:
+            sys.modules.pop(mod, None)
