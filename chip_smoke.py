@@ -41,7 +41,10 @@ toolkit. Phases, each printing one JSON line:
    R=25,344 rows, D=1024, F=4096 in bf16 and f32, each stage against its
    plain stage through the chain's own stage entries, the bf16 case faster
    than plain and no slower than stock_ms, the port's fused_ffn="0" block,
-   on its line);
+   on its line); both tiled chains over rows past one warp's LayerNorm
+   (the row routine's wide layout): D=2048 in f32 and 4096 in bf16, 16
+   heads, F = 4D, a few hundred rows, lines of their own, not summed, with
+   stock_ms, the feed-forward chain's stages too;
    then the training SA level (sa_train_fwd, sa_train_bwd)
    against its plain forward and hand-derived plain backward at the coarse
    train step's three levels (896 clouds, K=32), f32 and bf16, each case
@@ -61,6 +64,11 @@ toolkit. Phases, each printing one JSON line:
    versions) over an 8-cell map, by path (the cached serve, the stepwise
    path precompute_fine=False, localize_embedded): equal top-1 cells where
    the top-1/top-2 score margin exceeds 1e-4, positions within 1e-2 m;
+5b. layers: EncoderLayer and DecoderLayer at d_model 384 and 768 (f32,
+   seeded weights), card against CPU within TOLERANCE, under
+   fused_attn="all", fused_ffn="all" (mha_addln_tiled and ffn_addln_tiled
+   launch, add_ln and the fused blocks not) and under fused_attn="0",
+   fused_ffn="0", fused_ln="all" (add_ln launches, no block kernel);
 6. pipeline: run_pipeline (coarse retrieval, fine refinement, the two
    tables) at full Config() width (bf16) over the 64-cell map, once per
    mode of scripts/validate_kernels.py's sweep table: wall seconds,
@@ -212,7 +220,11 @@ toolkit. Phases, each printing one JSON line:
 
 Phase 3 also holds the opt-in kernels against their plain versions: add_ln
 at the E=1024 trunk's rows and at D=128/256 (bf16, f32), each line with
-kernel_ms and its plan (rows a warp, blocks), gather_rows at the
+kernel_ms and its plan (rows a warp, warps a row, chunks a lane, blocks,
+blocks an SM), and, not summed, at the trunk's rows at D=384 and 768
+(bf16, f32), at 6,336 rows at D=2048 (f32) and 4096 (bf16), and at the row
+routine's limits, 8192 (f32) and 16384 (bf16); a width past the limit
+must raise ValueError before any launch; gather_rows at the
 gallery's three mode-off shapes (bf16, f32) and at the gather probe's
 shapes (f32), each line with kernel_ms and its plan (copy word, chunk
 bytes, chunks a cloud; the fps line with kernel_ms and its points a lane),
@@ -221,8 +233,8 @@ and the training level of the token "e" (sa_train_e_fwd / _bwd) at the coarse
 step's three levels (f32, bf16), with the time of one PyTorch call that
 computes the same function where there is one (library_ms).
 
-Then the kernels line (launches: the counts during phases 4, 6, 8, 9b (every
-rank), 10 (serve_optin too), 12, 14, 15, 16 and 17, each path's counts set
+Then the kernels line (launches: the counts during phases 4, 5b, 6, 8, 9b
+(every rank), 10 (serve_optin too), 12, 14, 15, 16 and 17, each path's counts set
 to 0 just before it;
 max_abs_err, ms, plain_ms, bound_ms and library_ms: over the inference
 kernels' bf16 cases of phase 3 (sa_gather's approximate ball query cases),
@@ -552,7 +564,7 @@ def _all_tiles(inr, plan) -> dict:
 SA_KERNELS = ("sa_select_first", "sa_select_bisect", "sa_gather", "sa_exact", "sa_all")
 
 
-def _stock_attention_fn(args, dt):
+def _stock_attention_fn(args, dt, heads=4):
     """The port's fused_attn="0" block (models/transformer.py: stock
     projections and attention, cuBLAS products, then the stock add +
     LayerNorm) with the case's weights: a yardstick the port's fused route
@@ -563,7 +575,7 @@ def _stock_attention_fn(args, dt):
 
     x, kv, wq, bq, wk, bk, wv, bv, wo, bo, g, be, mask = args
     d = x.shape[-1]
-    params = MultiheadAttentionParams(d, 4).to(x.device)
+    params = MultiheadAttentionParams(d, heads).to(x.device)
     norm = torch.nn.LayerNorm(d).to(x.device)
     with torch.no_grad():
         for proj, w, b in zip((params.query, params.key, params.value, params.out),
@@ -628,11 +640,11 @@ def _stage_checks(kname, name, dt, stages, info=None) -> None:
         check(ok, f"{kname} {name} stage {stage}: error {err} above {limit}")
 
 
-def _core_plan_info(lq, lk, d, dt) -> dict:
-    """The tiled chain's attention-core plan at this shape (4 heads)."""
+def _core_plan_info(lq, lk, d, dt, heads=4) -> dict:
+    """The tiled chain's attention-core plan at this shape."""
     from text2loc_tpu_torch.ops import cuda_mha
 
-    plan = cuda_mha.core_layout(lq, lk, d, 4, dt)
+    plan = cuda_mha.core_layout(lq, lk, d, heads, dt)
     return {"core_rows": plan.rows, "core_chunk": plan.chunk, "core_sweeps": plan.sweeps}
 
 
@@ -877,8 +889,54 @@ def phase_kernels(dev) -> dict:
                       "(limit: faster than plain, no slower than stock)")
             if kname == "ffn_addln_tiled":
                 _ffn_tiled_stages(name, args, dt)
+    _wide_chains(dev, records)
     torch.cuda.synchronize()
     return records
+
+
+# Both tiled chains at rows wider than one warp's LayerNorm (the row
+# routine's wide layout, two warps a row): D=2048 in f32 and 4096 in bf16,
+# 16 heads, F = 4D, a few hundred rows (the f32 products are FMAs). No
+# Config() shape reaches them: lines of their own, not summed, with stock_ms.
+WIDE_ATTN = [("wide self", 24, 16, 16, 2048, True, torch.float32),
+             ("wide self", 24, 16, 16, 4096, True, torch.bfloat16)]
+WIDE_FFN = [("wide", 384, 2048, 8192, torch.float32),
+            ("wide", 384, 4096, 16384, torch.bfloat16)]
+WIDE_HEADS = 16
+
+
+def _wide_chains(dev, records) -> None:
+    from text2loc_tpu_torch.ops import cuda_ffn, cuda_ln, cuda_mha, ffn, mha
+
+    gen = torch.Generator().manual_seed(SEED + 12)
+    for name, b, lq, lk, d, self_attn, dt in WIDE_ATTN:
+        args = _attention_args(gen, dev, dt, b, lq, lk, d, self_attn, True)
+        es = args[0].element_size()
+        work = (2.0 * (2 * b * lq * d * d + 2 * b * lk * d * d + 2 * b * lq * lk * d),
+                2 * b * lq * d * es + 4 * d * d * 4 + 6 * d * 4 + b * lk, dt)
+        check(cuda_mha.route(lq, lk, d, WIDE_HEADS, dt, self_attn=self_attn) == "tiled"
+              and cuda_ln.row_plan(b * lq, d, dt, sms=1).warps == 2,
+              f"mha_addln_tiled {name} D={d}: not the tiled chain over the wide rows")
+        records["mha_addln_tiled"].add(
+            f"mha_addln_tiled {name} B={b} Lq={lq} Lk={lk} D={d} H={WIDE_HEADS}", dt,
+            [(cuda_mha.mha_addln_cuda(*args, num_heads=WIDE_HEADS),
+              mha.mha_addln_plain(*args, num_heads=WIDE_HEADS))],
+            lambda a=args: cuda_mha.mha_addln_cuda(*a, num_heads=WIDE_HEADS),
+            lambda a=args: mha.mha_addln_plain(*a, num_heads=WIDE_HEADS), work, counts=False,
+            yardsticks={"stock_ms": _stock_attention_fn(args, dt, WIDE_HEADS)},
+            info=_core_plan_info(lq, lk, d, dt, WIDE_HEADS))
+    for name, rows, d, f, dt in WIDE_FFN:
+        args = _ffn_args(gen, dev, dt, rows, d, f)
+        es = args[0].element_size()
+        check(cuda_ffn.route(d, f, dt) == "tiled", f"ffn_addln_tiled {name} D={d}: not tiled")
+        records["ffn_addln_tiled"].add(
+            f"ffn_addln_tiled {name} R={rows} D={d} F={f}", dt,
+            [(cuda_ffn.ffn_addln_cuda(*args), ffn.ffn_addln_plain(*args))],
+            lambda a=args: cuda_ffn.ffn_addln_cuda(*a),
+            lambda a=args: ffn.ffn_addln_plain(*a),
+            (4.0 * rows * d * f, 2 * rows * d * es + 2 * d * f * 4 + (f + 3 * d) * 4, dt),
+            counts=False, yardsticks={"stock_ms": _stock_ffn_fn(args, dt)})
+        _ffn_tiled_stages(name, args, dt)
 
 
 # The training SA level's gradients are checked by relative L2 error, not
@@ -1112,8 +1170,10 @@ GATHER_PROBE = [(256, 128 * 32, 32), (128, 64 * 32, 128), (64, 32 * 32, 256)]
 
 
 def phase_optin_kernels(dev) -> dict:
-    """add_ln, gather_rows and gather_rows_scatter against their plain
-    versions, with the time of one PyTorch call for the same function:
+    """add_ln (at the serve's widths and at every layout of the row routine:
+    the half-warp, one warp, and 2 and 8 warps a row), gather_rows and
+    gather_rows_scatter against their plain versions, with the time of one
+    PyTorch call for the same function:
     F.layer_norm(x + res), torch.gather, and ATen's scatter_add_ (the
     backward of torch.gather), both over an expanded view of the int64
     index, cast outside the timing."""
@@ -1121,14 +1181,29 @@ def phase_optin_kernels(dev) -> dict:
 
     gen = torch.Generator().manual_seed(SEED + 8)
     records = {k: KernelRecord() for k in ("add_ln", "gather_rows", "gather_rows_scatter")}
-    # (name, rows, D): the E=1024 trunk (1584 sentences x 16 tokens), the
-    # CCT's rows, obj_inter's rows.
-    for name, rows, d in [("intra E=1024", 1584 * 16, 1024), ("cct", 640 * 16, 128),
-                          ("obj_inter", 64 * 28, 256)]:
-        for dt in (torch.bfloat16, torch.float32):
-            x = _rand(gen, (rows, d), 2.0, dev, 0.3).to(dt)
-            res = _rand(gen, (rows, d), 1.0, dev).to(dt)
-            g, b = _rand(gen, d, 0.1, dev, 1.0), _rand(gen, d, 0.1, dev)
+    # (name, rows, D, dtypes, summed): the E=1024 trunk (1584 sentences x 16
+    # tokens), the CCT's rows, obj_inter's rows; then the trunk's rows at
+    # the widths the JAX gate opens past the add+LN block's own: 384 and 768
+    # (one warp a row), 2048 in f32 and 4096 in bf16 (two warps a row, the
+    # wide layout) and the routine's limits, 8192 in f32 and 16384 in bf16
+    # (eight warps a row), lines of their own, not summed, with inputs from
+    # a generator of their own (the other cases keep theirs).
+    ln_cases = [(name, rows, d, (torch.bfloat16, torch.float32), True)
+                for name, rows, d in [("intra E=1024", 1584 * 16, 1024), ("cct", 640 * 16, 128),
+                                      ("obj_inter", 64 * 28, 256)]]
+    ln_cases += [("width", 1584 * 16, 384, (torch.bfloat16, torch.float32), False),
+                 ("width", 1584 * 16, 768, (torch.bfloat16, torch.float32), False),
+                 ("wide", 1584 * 4, 2048, (torch.float32,), False),
+                 ("wide", 1584 * 4, 4096, (torch.bfloat16,), False),
+                 ("limit", 1584 * 4, 8192, (torch.float32,), False),
+                 ("limit", 1584 * 4, 16384, (torch.bfloat16,), False)]
+    gen_widths = torch.Generator().manual_seed(SEED + 11)
+    for name, rows, d, dts, summed in ln_cases:
+        gl = gen if summed else gen_widths
+        for dt in dts:
+            x = _rand(gl, (rows, d), 2.0, dev, 0.3).to(dt)
+            res = _rand(gl, (rows, d), 1.0, dev).to(dt)
+            g, b = _rand(gl, d, 0.1, dev, 1.0), _rand(gl, d, 0.1, dev)
             es = x.element_size()
             plan = cuda_ln.row_plan(rows, d, dt, sms=_cuda.sm_count(dev.index or 0))
             records["add_ln"].add(
@@ -1137,12 +1212,25 @@ def phase_optin_kernels(dev) -> dict:
                 lambda a=(x, res, g, b): cuda_ln.add_layernorm_cuda(*a),
                 lambda a=(x, res, g, b): ln.add_layernorm_plain(*a),
                 (9.0 * rows * d, 3 * rows * d * es + 2 * d * 4, torch.float32),
-                limit_fn=_ulp_limit(dt),
+                counts=None if summed else False, limit_fn=_ulp_limit(dt),
                 library_fn=lambda a=(x, res, g, b), d=d: torch.nn.functional.layer_norm(
                     a[0] + a[1], (d,), a[2].to(a[0].dtype), a[3].to(a[0].dtype), 1e-5),
                 info={"kernel_ms": kernel_ms(lambda a=(x, res, g, b):
                                              cuda_ln.add_layernorm_cuda(*a)),
-                      "rows_per_warp": plan.rows_per_warp, "blocks": plan.blocks})
+                      "rows_per_warp": plan.rows_per_warp, "warps": plan.warps,
+                      "chunks": plan.chunks, "blocks": plan.blocks, "per_sm": plan.per_sm})
+    # Past the routine's limit: ValueError before any launch.
+    for d, dt in ((8192 + 128, torch.float32), (16384 + 128, torch.bfloat16)):
+        x = torch.zeros((4, d), device=dev, dtype=dt)
+        g = torch.ones(d, device=dev)
+        before = cuda_ln.KERNEL.launches
+        try:
+            cuda_ln.add_layernorm_cuda(x, x, g, g)
+            refused = False
+        except ValueError:
+            refused = True
+        check(refused and cuda_ln.KERNEL.launches == before,
+              f"add_ln D={d} {dt}: past the row routine's limit, not refused before launch")
 
     def gather_case(n, p, q, c, dt, counts, tag):
         values = _rand(gen, (n, p, c), 1.0, dev).to(dt)
@@ -1179,6 +1267,72 @@ def phase_optin_kernels(dev) -> dict:
             library_fn=lambda: torch.zeros((n, p, c), device=dev).scatter_add_(1, full, g))
     torch.cuda.synchronize()
     return records
+
+
+# ------------------------------------------------------------------- layers
+
+# The transformer layers at widths between the serve's: d_model 384 and 768
+# (heads of 64, F = 4D), 64 samples of 16 tokens over 6 memory tokens, one
+# sample's memory fully masked; f32. Each gate set's kernels must launch and
+# the other's not: the tiled chains under "all", add_ln after stock blocks.
+LAYER_WIDTHS = (384, 768)
+LAYER_GATES = {"attn_ffn_all": (dict(attn="all", ffn="all"),
+                                ("mha_addln_tiled", "ffn_addln_tiled"),
+                                ("add_ln", "mha_addln", "ffn_addln")),
+               "stock_ln_all": (dict(attn="0", ffn="0", ln="all"), ("add_ln",),
+                                ("mha_addln_tiled", "ffn_addln_tiled", "mha_addln",
+                                 "ffn_addln"))}
+
+
+def phase_layers(dev, kernels) -> dict:
+    """EncoderLayer and DecoderLayer (models/transformer.py) in f32 on the
+    card against the CPU (the plain versions) at LAYER_WIDTHS under each of
+    LAYER_GATES, seeded weights: max |card - CPU| within TOLERANCE x
+    max|CPU|, the card's median ms a call, and the launches of `kernels`
+    over the card's calls."""
+    import copy
+
+    from text2loc_tpu_torch.convert import init_weights
+    from text2loc_tpu_torch.models.transformer import DecoderLayer, EncoderLayer, Gates
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED + 13)
+    b, lt, lm = 64, 16, 6
+    report, totals = {"phase": "layers", "dtype": "float32", "cases": []}, {}
+    for name, (gates, want_on, want_off) in LAYER_GATES.items():
+        for d in LAYER_WIDTHS:
+            heads = d // 64
+            x = torch.randn(b, lt, d, generator=gen)
+            mem = torch.randn(b, lm, d, generator=gen)
+            xm, mm = torch.rand(b, lt, generator=gen) > 0.3, torch.rand(b, lm, generator=gen) > 0.3
+            xm[:, 0] = mm[:, 0] = True
+            mm[1] = False
+            for cls, inputs in ((EncoderLayer, (x, xm)), (DecoderLayer, (x, mem, xm, mm))):
+                cpu = init_weights(cls(d, heads, 4 * d, gates=Gates(**gates)), gen).eval()
+                card = copy.deepcopy(cpu).to(dev)
+                on_card = [t.to(dev) for t in inputs]
+                for k in kernels:
+                    k.launches = 0
+                with torch.no_grad():
+                    want = cpu(*inputs)
+                    got = card(*on_card)
+                    counts = {k.name: k.launches for k in kernels}
+                    ms = cuda_ms(lambda: card(*on_card))
+                err = (got.cpu() - want).abs().max().item()
+                limit = TOLERANCE[torch.float32] * want.abs().max().item()
+                case = {"gates": name, "layer": cls.__name__, "d_model": d, "heads": heads,
+                        "max_abs_err": err, "bound": limit, "ms": ms, "launches": counts}
+                report["cases"].append(case)
+                for k, v in counts.items():
+                    totals[k] = totals.get(k, 0) + v
+                check(bool(torch.isfinite(got).all()) and err <= limit,
+                      f"layers {name} {cls.__name__} d={d}: card vs CPU {err} above {limit}")
+                check(all(counts[k] > 0 for k in want_on)
+                      and all(counts[k] == 0 for k in want_off),
+                      f"layers {name} {cls.__name__} d={d}: launches {counts}")
+    report["seconds"] = time.perf_counter() - t_phase
+    emit(report)
+    return totals
 
 
 # -------------------------------------------------------------------- serve
@@ -3578,6 +3732,8 @@ def main() -> int:
     records.update(phase_optin_kernels(dev))
     counts = [phase_serve(dev, serve_kernels, absent=optin)]
     phase_serve_vs_cpu(dev)
+    counts.append(phase_layers(dev, [cuda_ln.KERNEL, cuda_mha.KERNEL_TILED,
+                                     cuda_ffn.KERNEL_TILED, cuda_mha.KERNEL, cuda_ffn.KERNEL]))
     counts.append(phase_pipeline(dev, pipeline_kernels, absent=optin))
     phase_pipeline_vs_cpu(dev)
     train_counts, f32_default = phase_train(

@@ -925,6 +925,68 @@ def test_ffn_tiled_stages(dev, dtype, rows, d, f):
     assert (cuda_ffn.KERNEL_TILED.launches, cuda_mha.KERNEL_TILED.launches) == before
 
 
+# Both tiled chains over rows past one warp's LayerNorm (the row routine's
+# wide layout), 16 heads: D=2048 in f32 and 4096 in bf16 (two warps a row,
+# F = 4D) and D=8192 in f32 (eight warps a row, the limit; F = D, a few
+# dozen rows). (d, dtype, warps a row, feed-forward rows, F)
+WIDE_ROWS = [(2048, torch.float32, 2, 301, 8192), (4096, torch.bfloat16, 2, 301, 16384),
+             (8192, torch.float32, 8, 40, 8192)]
+
+
+@pytest.mark.parametrize("d,dtype,warps,rows,f", WIDE_ROWS)
+@pytest.mark.parametrize("self_attn", [True, False])
+def test_mha_tiled_chain_over_wide_rows(dev, d, dtype, warps, rows, f, self_attn):
+    """The attention chain, one counted launch, against its plain version,
+    and its last stage (the out-projection and the wide row LayerNorm)
+    alone against its plain stage."""
+    b, lq, lk, heads = 5, 16, 16 if self_attn else 6, 16
+    args = _mha_args(dev, dtype, b, lq, lk, d, self_attn)
+    assert cuda_mha.route(lq, lk, d, heads, dtype, self_attn=self_attn) == "tiled"
+    assert cuda_ln.row_plan(b * lq, d, dtype, sms=132).warps == warps
+    before = cuda_mha.KERNEL_TILED.launches
+    got = mha_addln(*args, num_heads=heads)
+    assert cuda_mha.KERNEL_TILED.launches == before + 1
+    _close(got, mha_addln_plain(*args, num_heads=heads), dtype)
+    x, kv, wq, bq, wk, bk, wv, bv, wo, bo, g, be, mask = args
+    q, k, v = mha_project_plain(x, kv, wq, bq, wk, bk, wv, bv, num_heads=heads)
+    o = mha_core_plain(q, k, v, mask, num_heads=heads)
+    _close(cuda_mha.tiled_out_addln_cuda(x, o, wo, bo, g, be),
+           mha_out_addln_plain(x, o, wo, bo, g, be), dtype)
+
+
+@pytest.mark.parametrize("d,dtype,warps,rows,f", WIDE_ROWS)
+def test_ffn_tiled_chain_over_wide_rows(dev, d, dtype, warps, rows, f):
+    """The feed-forward chain, one counted launch, against its plain
+    version, and its stages alone against their plain stages."""
+    args = _ffn_args(dev, dtype, rows, d, f)
+    assert cuda_ffn.route(d, f, dtype) == "tiled"
+    assert cuda_ln.row_plan(rows, d, dtype, sms=132).warps == warps
+    before = cuda_ffn.KERNEL_TILED.launches
+    got = ffn_addln(*args)
+    assert cuda_ffn.KERNEL_TILED.launches == before + 1
+    _close(got, ffn_addln_plain(*args), dtype)
+    x, w1, b1, w2, b2, g, be = args
+    h = ffn_hidden_plain(x, w1, b1)
+    _close(cuda_ffn.tiled_out_addln_cuda(x, h, w2, b2, g, be),
+           ffn_out_addln_plain(h, x, w2, b2, g, be), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_tiled_chains_refuse_rows_past_the_limit(dev, dtype):
+    """Past the row routine's limit (8192 in f32, 16384 in bf16) both
+    chains raise ValueError before any launch."""
+    d = (8192 if dtype == torch.float32 else 16384) + 128
+    x = torch.zeros(2, 16, d, device=dev, dtype=dtype)
+    w, v = torch.empty(d, d, device=dev), torch.zeros(d, device=dev)
+    before = (cuda_mha.KERNEL_TILED.launches, cuda_ffn.KERNEL_TILED.launches)
+    with pytest.raises(ValueError, match="16-byte chunks"):
+        mha_addln(x, x, w, v, w, v, w, v, w, v, v, v, num_heads=d // 128)
+    w1, w2 = torch.empty(d, 128, device=dev), torch.empty(128, d, device=dev)
+    with pytest.raises(ValueError, match="16-byte chunks"):
+        ffn_addln(x.view(-1, d), w1, torch.zeros(128, device=dev), w2, v, v, v)
+    assert (cuda_mha.KERNEL_TILED.launches, cuda_ffn.KERNEL_TILED.launches) == before
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_ffn_tiled_call_device_ops(dev, dtype):
     """A tiled call at the intra stack's shape (25,344 rows, D=1024,
@@ -1329,7 +1391,9 @@ def test_sa_train_bf16_cache_is_deterministic_and_rounds_e(dev):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("d,rows", [(128, 10241), (256, 1795), (1024, 3001), (512, 7)])
+@pytest.mark.parametrize("d,rows", [(128, 10241), (256, 1795), (1024, 3001), (512, 7),
+                                    (384, 1001), (768, 333), (1152, 129), (2048, 301),
+                                    (4096, 77), (8192, 33)])
 def test_add_ln_kernel(dev, dtype, d, rows):
     rng = np.random.default_rng(d + rows)
     x = _randn(rng, (rows, d), dev, 2.0, 0.3).to(dtype)
@@ -1347,6 +1411,28 @@ def test_add_ln_kernel(dev, dtype, d, rows):
     else:
         ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp(min=2.0 ** -8))) - 7)
         assert (err <= ulp).all(), err.max().item()
+
+
+def test_add_ln_kernel_at_the_row_routines_limit(dev):
+    """D=16384 in bf16 (eight warps a row, one block an SM by its shared
+    memory) within one ulp; a width past the limit in either dtype raises
+    ValueError before any launch."""
+    rng = np.random.default_rng(5)
+    d, rows = 16384, 41
+    x = _randn(rng, (rows, d), dev, 2.0, 0.3).to(torch.bfloat16)
+    res = _randn(rng, (rows, d), dev).to(torch.bfloat16)
+    scale, bias = _randn(rng, d, dev, 0.1, 1.0), _randn(rng, d, dev, 0.1)
+    got = add_layernorm(x, res, scale, bias).float().cpu()
+    want = add_layernorm_plain(x, res, scale, bias).float().cpu()
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp(min=2.0 ** -8))) - 7)
+    assert ((got - want).abs() <= ulp).all()
+    for d, dtype in ((8192 + 128, torch.float32), (16384 + 128, torch.bfloat16)):
+        x = torch.zeros(4, d, device=dev, dtype=dtype)
+        g = torch.ones(d, device=dev)
+        before = cuda_ln.KERNEL.launches
+        with pytest.raises(ValueError, match="16-byte chunks"):
+            add_layernorm(x, x, g, g)
+        assert cuda_ln.KERNEL.launches == before
 
 
 def test_add_ln_kernel_rejects_what_it_cannot_take(dev):
@@ -1373,18 +1459,22 @@ def test_add_ln_kernel_rejects_what_it_cannot_take(dev):
 
 def test_add_ln_plan_is_the_kernels(dev):
     """cuda_ln.row_plan's blocks are the ones the chains' LayerNorm stage
-    computes on this card (t2l_ln_rows_blocks) at every width the routine
-    takes in both dtypes, over row counts from 1 to past the one-wave cap;
-    the add+LayerNorm entry refuses a plan whose rows a warp are not the
-    layout's or whose blocks the rows do not fill."""
+    computes on this card (t2l_ln_rows_blocks) at every layout the routine
+    takes in both dtypes (the wide layout's 2, 4 and 8 warps a row among
+    them, and 0 past its limit), over row counts from 1 to past the
+    one-wave cap; the add+LayerNorm entry refuses a plan whose rows a warp
+    are not the layout's or whose blocks the rows do not fill."""
     lib = _cuda.library()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for dtype in DTYPES:
         code = _cuda.DTYPE_CODE[dtype]
-        for d in (128, 256, 384, 512, 768, 1024):
+        wide = (1152, 2048, 4096, 8192) + ((16384,) if dtype == torch.bfloat16 else ())
+        for d in (128, 256, 384, 512, 768, 1024) + wide:
             for rows in (1, 7, 16, 17, 129, 1795, 3001, 10241, 25344, 100000):
                 plan = cuda_ln.row_plan(rows, d, dtype, sms=sms)
                 assert lib.t2l_ln_rows_blocks(rows, d, code) == plan.blocks, (d, rows)
+        too_wide = 8192 + 128 if dtype == torch.float32 else 16384 + 128
+        assert lib.t2l_ln_rows_blocks(100, too_wide, code) == 0
         x = torch.rand(100, 128, device=dev).to(dtype)
         g = torch.ones(128, device=dev)
         plan = cuda_ln.row_plan(100, 128, dtype, sms=sms)
@@ -1395,6 +1485,18 @@ def test_add_ln_plan_is_the_kernels(dev):
                                   ctypes.c_float(1e-5), rpw, blocks, code, stream) != 0
         assert lib.t2l_add_ln(*(_cuda.ptr(t) for t in (x, x, g, g, torch.empty_like(x))), 100,
                               128, ctypes.c_float(1e-5), plan.rows_per_warp, plan.blocks,
+                              code, stream) == 0
+        # The wide layout: two warps a row, four rows a block.
+        x = torch.rand(100, 4096, device=dev).to(dtype)
+        g = torch.ones(4096, device=dev)
+        plan = cuda_ln.row_plan(100, 4096, dtype, sms=sms)
+        assert plan.warps == (4 if dtype == torch.float32 else 2)
+        assert plan.blocks == min(-(-100 // (8 // plan.warps)), sms * plan.per_sm)
+        assert lib.t2l_add_ln(*(_cuda.ptr(t) for t in (x, x, g, g, x)), 100, 4096,
+                              ctypes.c_float(1e-5), plan.rows_per_warp, plan.blocks + 1,
+                              code, stream) != 0
+        assert lib.t2l_add_ln(*(_cuda.ptr(t) for t in (x, x, g, g, torch.empty_like(x))), 100,
+                              4096, ctypes.c_float(1e-5), plan.rows_per_warp, plan.blocks,
                               code, stream) == 0
 
 

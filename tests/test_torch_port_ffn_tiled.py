@@ -121,11 +121,11 @@ def test_route_takes_the_fused_kernel_to_d256_and_the_tiled_chain_above(dtype):
     for d, f in SMOKE_FUSED:
         assert cuda_ffn.route(d, f, dtype) == "fused"
     assert cuda_ffn.route(1024, 4096, dtype) == "tiled"
-    cuda_ffn.check_tiled(1024, 4096)
+    cuda_ffn.check_tiled(1024, 4096, dtype)
     assert cuda_ffn.route(512, 2048, dtype) == "tiled"
     # d <= 256 whose hidden rows exceed a block's shared memory.
     assert cuda_ffn.route(256, 8192, dtype) == "tiled"
-    cuda_ffn.check_tiled(256, 8192)
+    cuda_ffn.check_tiled(256, 8192, dtype)
 
 
 def test_fused_smem_is_make_layouts_sum():
@@ -201,10 +201,11 @@ def test_fused_plan_invariants(dtype):
 
 
 def test_check_tiled_raises_off_the_128_grid():
-    with pytest.raises(ValueError, match="multiples of 128"):
-        cuda_ffn.check_tiled(320, 1280)
-    with pytest.raises(ValueError, match="multiples of 128"):
-        cuda_ffn.check_tiled(512, 2000)
+    for dtype in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError, match="multiples of 128"):
+            cuda_ffn.check_tiled(320, 1280, dtype)
+        with pytest.raises(ValueError, match="multiples of 128"):
+            cuda_ffn.check_tiled(512, 2000, dtype)
     assert cuda_ffn.route(320, 1280, torch.bfloat16) == "tiled"
 
 
@@ -226,7 +227,7 @@ def test_no_ffn_shape_of_the_default_config_is_refused(value):
             continue
         for dtype in (torch.float32, torch.bfloat16):
             if cuda_ffn.route(d, f, dtype) == "tiled":
-                cuda_ffn.check_tiled(d, f)
+                cuda_ffn.check_tiled(d, f, dtype)
                 tiled.add((d, dtype))
     assert tiled == ({(1024, torch.float32), (1024, torch.bfloat16)} if value == "all"
                      else set())

@@ -49,7 +49,7 @@ from text2loc_tpu_torch.models.text_embedding import HintTextEmbedder
 from text2loc_tpu_torch.models.transformer import (DecoderLayer, EncoderLayer, Gates,
                                                    fused_attn_enabled, fused_ffn_enabled,
                                                    fused_ln_enabled)
-from text2loc_tpu_torch.ops import _cuda, cuda_ln
+from text2loc_tpu_torch.ops import _cuda, cuda_ffn, cuda_ln, cuda_mha
 from text2loc_tpu_torch.ops.ballquery import gather_neighbors, onehot_gather
 from text2loc_tpu_torch.ops.gather import (gather_rows, gather_rows_grad,
                                            gather_rows_plain, scatter_rows_plain)
@@ -82,7 +82,8 @@ def _ln_case(seed, rows, d, dtype):
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("d,rows", [(128, 37), (256, 600), (1024, 75)])
+@pytest.mark.parametrize("d,rows", [(128, 37), (256, 600), (1024, 75), (384, 40), (768, 21),
+                                    (2048, 9), (4096, 5)])
 def test_add_layernorm_plain_matches_the_interpret_kernel(d, rows, dtype):
     port, jargs = _ln_case(d + rows, rows, d, dtype)
     got = add_layernorm_plain(*port).float().numpy()
@@ -108,7 +109,7 @@ SMS = 132
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", cuda_ln.WIDTHS + (192, 384, 640, 768))
+@pytest.mark.parametrize("d", (128, 256, 512, 1024, 192, 384, 640, 768))
 def test_row_plan_invariants(d, dtype):
     """cuda_ln.row_plan (the row LayerNorm of add_ln and of the tiled
     chains' last stage) at the add+LN widths and at other multiples of the
@@ -122,7 +123,7 @@ def test_row_plan_invariants(d, dtype):
     n = d // v
     for rows in range(1, 30001):
         p = cuda_ln.row_plan(rows, d, dtype, sms=SMS)
-        assert (p.lanes == 16) == (n == 16) and p.lanes in (16, 32)
+        assert (p.lanes == 16) == (n == 16) and p.lanes in (16, 32) and p.warps == 1
         assert p.chunks in (1, 2, 4, 8) and p.lanes * p.chunks >= n > p.lanes * p.chunks // 2
         assert p.rows_per_warp * p.lanes == 32
         values = p.chunks * v
@@ -146,14 +147,120 @@ def test_row_plan_invariants(d, dtype):
 
 def test_row_plan_refuses_what_the_routine_does_not_take():
     """Widths not a multiple of 16 bytes, of fewer than 16 chunks, or of
-    more than 256 (eight a lane) raise ValueError."""
+    more than 2048 (eight warps of eight chunks a lane) raise ValueError
+    that names the limit; 257 to 2048 chunks take the wide layout."""
     for d, dtype in ((102, torch.float32), (132, torch.bfloat16), (64, torch.bfloat16),
-                     (32, torch.float32), (1028, torch.float32), (2048, torch.float32),
-                     (4096, torch.bfloat16), (0, torch.float32)):
+                     (32, torch.float32), (8196, torch.float32), (8320, torch.float32),
+                     (16392, torch.bfloat16), (16512, torch.bfloat16), (0, torch.float32)):
         with pytest.raises(ValueError, match="16-byte chunks"):
             cuda_ln.row_plan(16, d, dtype, sms=SMS)
+    with pytest.raises(ValueError, match="D <= 8192 in f32, 16384 in bf16"):
+        cuda_ln.row_plan(16, 8320, torch.float32, sms=SMS)
     assert cuda_ln.row_plan(16, 2048, torch.bfloat16, sms=SMS)[:2] == (32, 8)
     assert cuda_ln.row_plan(16, 1024, torch.float32, sms=SMS)[:2] == (32, 8)
+    assert cuda_ln.row_plan(16, 1028, torch.float32, sms=SMS).warps == 2
+    assert cuda_ln.row_plan(16, 2048, torch.float32, sms=SMS).warps == 2
+    assert cuda_ln.row_plan(16, 4096, torch.bfloat16, sms=SMS).warps == 2
+    assert cuda_ln.row_plan(16, 8192, torch.float32, sms=SMS).warps == 8
+    assert cuda_ln.row_plan(16, 16384, torch.bfloat16, sms=SMS).warps == 8
+
+
+def _parent_row_plan(rows, d, dtype, sms):
+    """The row routine's plan before the wide layout, written out: widths
+    of 16 to 256 chunks, a half-warp at 16, else a warp of 1-8 chunks a
+    lane; (lanes, chunks, rows_per_warp, blocks, per_sm)."""
+    v = 8 if dtype == torch.bfloat16 else 4
+    n = d // v
+    assert d % v == 0 and 16 <= n <= 256
+    lanes = 16 if n == 16 else 32
+    chunks = 1
+    while lanes * chunks < n:
+        chunks *= 2
+    values = chunks * v
+    per_sm = ((6 if values <= 8 else 5) if values <= 16
+              else (4 if chunks <= 4 else 3) if values <= 32 else 2)
+    rpw = 32 // lanes
+    return lanes, chunks, rpw, min(-(-rows // (8 * rpw)), sms * per_sm), per_sm
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_row_plan_is_the_parents_at_every_width_the_parent_took(dtype):
+    """Every (rows, d, dtype) the routine planned before the wide layout
+    keeps its plan: every width of 16 to 256 chunks, rows 1 to 40,000 and
+    two card sizes; the wide layout's warps stay 1 there."""
+    v = 8 if dtype == torch.bfloat16 else 4
+    rows_set = sorted({*range(1, 300), *range(300, 40001, 97), 1584 * 16, 25344, 100000})
+    for d in range(16 * v, 256 * v + 1, v):
+        for sms in (132, 114):
+            for rows in rows_set:
+                p = cuda_ln.row_plan(rows, d, dtype, sms=sms)
+                assert tuple(p[:5]) == _parent_row_plan(rows, d, dtype, sms), (d, rows)
+                assert p.warps == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("chunks_a_row", [257, 288, 512, 513, 640, 1024, 1025, 1536, 2048])
+def test_row_plan_wide_layout_invariants(chunks_a_row, dtype):
+    """Past 256 chunks a row (D > 1024 in f32, D > 2048 in bf16) the wide
+    layout: a row over 2, 4 or 8 warps of 32 lanes and 8 chunks a lane,
+    which cover the row with fewer than half the chunks to spare; a block
+    takes 8 / warps rows at a time; per_sm by the registers; the blocks
+    cover every row once or fill per_sm on every SM, and the block-wide
+    grid-stride walk takes each row exactly once."""
+    v = 8 if dtype == torch.bfloat16 else 4
+    d = chunks_a_row * v
+    n = chunks_a_row
+    for rows in range(1, 20001, 7):
+        p = cuda_ln.row_plan(rows, d, dtype, sms=SMS)
+        assert (p.lanes, p.chunks, p.rows_per_warp) == (32, 8, 1)
+        assert p.warps in (2, 4, 8)
+        assert p.warps * 32 * p.chunks >= n > p.warps * 32 * p.chunks // 2
+        assert p.per_sm == (3 if v == 4 else 2)
+        need = -(-rows // (cuda_ln.WARPS // p.warps))
+        assert p.blocks == min(need, SMS * p.per_sm) >= 1
+    for rows in (1, 3, 4, 5, 1795, 3001, 10241, 25344, 100000):
+        p = cuda_ln.row_plan(rows, d, dtype, sms=SMS)
+        per_block = cuda_ln.WARPS // p.warps
+        seen = np.zeros(rows, np.int64)
+        for blk in range(p.blocks):
+            for r0 in range(blk * per_block, rows, p.blocks * per_block):
+                seen[r0:min(r0 + per_block, rows)] += 1
+        assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_widths_past_the_row_routine_raise_before_any_launch(dtype):
+    """add_layernorm_cuda, cuda_mha.check_tiled and cuda_ffn.check_tiled
+    refuse D off the multiples of 128 and past the row routine's limit
+    (8192 in f32, 16384 in bf16) with ValueError, before they look at a
+    device; at the limit the widths pass (on CPU tensors the device check
+    then refuses them)."""
+    limit = 8192 if dtype == torch.float32 else 16384
+    for d in (limit + 128, 2 * limit):
+        x = torch.zeros(2, d, dtype=dtype)
+        g = torch.zeros(d)
+        with pytest.raises(ValueError, match="16-byte chunks"):
+            cuda_ln.add_layernorm_cuda(x, x, g, g)
+        with pytest.raises(ValueError, match="16-byte chunks"):
+            cuda_mha.check_tiled(16, 16, d, d // 128, dtype)
+        with pytest.raises(ValueError, match="16-byte chunks"):
+            cuda_ffn.check_tiled(d, 4 * d, dtype)
+    for d in (96, 192, 1000):
+        x = torch.zeros(2, d, dtype=dtype)
+        g = torch.zeros(d)
+        with pytest.raises(ValueError, match="multiple of 128"):
+            cuda_ln.add_layernorm_cuda(x, x, g, g)
+        with pytest.raises(ValueError, match="multiple of 128"):
+            cuda_mha.check_tiled(16, 16, d, 1, dtype)
+        with pytest.raises(ValueError, match="multiples of 128"):
+            cuda_ffn.check_tiled(d, 4 * 128, dtype)
+    for d in (384, 768, 2048, 4096, limit):
+        x = torch.zeros(2, d, dtype=dtype)
+        g = torch.zeros(d)
+        with pytest.raises(ValueError, match="expected a CUDA tensor"):
+            cuda_ln.add_layernorm_cuda(x, x, g, g)
+        cuda_ffn.check_tiled(d, 4 * d, dtype)
+        cuda_mha.check_tiled(16, 16, d, d // 128, dtype)
 
 
 def test_as_given_returns_a_ready_tensor_itself():

@@ -30,7 +30,7 @@ int launch(const void* x, const void* res, const void* scale, const void* bias, 
   if (l.lanes == 0 || rows_per_warp != 32 / l.lanes || reinterpret_cast<uintptr_t>(x) % 16 ||
       reinterpret_cast<uintptr_t>(res) % 16)
     return (int)cudaErrorInvalidValue;
-  const int per_block = rows::kWarps * rows_per_warp;
+  const int per_block = rows::rows_a_block(l);
   if (rows_ > 0 && blocks > (rows_ + per_block - 1) / per_block) return (int)cudaErrorInvalidValue;
   return (int)rows::launch<T>(
       rows::SumRows<T>{static_cast<const T*>(x), static_cast<const T*>(res), d},
@@ -43,10 +43,11 @@ int launch(const void* x, const void* res, const void* scale, const void* bias, 
 extern "C" {
 
 // x, res, out [rows, d] in the dtype (f32 or bf16), scale / bias [d] f32,
-// all 16-byte aligned; d a multiple of 16 bytes of the dtype, 16 to 256 of
-// them (the wrapper takes 128, 256, 512, 1024). rows_per_warp and blocks:
-// ops/cuda_ln.row_plan's, refused unless rows_per_warp is the layout's and
-// blocks at least 1 and no more than the rows fill.
+// all 16-byte aligned; d a multiple of 16 bytes of the dtype, 16 to 2048
+// of them (the wrapper takes every multiple of 128 among them: D <= 8192
+// in f32, 16384 in bf16). rows_per_warp and blocks: ops/cuda_ln.row_plan's,
+// refused unless rows_per_warp is the layout's and blocks at least 1 and
+// no more than the rows fill (a block's rows: rows_a_block).
 int t2l_add_ln(const void* x, const void* res, const void* scale, const void* bias,
                void* out, int rows, int d, float eps, int rows_per_warp, int blocks, int dtype,
                void* stream) {

@@ -23,12 +23,25 @@
 // a row of 16 chunks (D = 128 in bf16) is a half-warp's, with half-warp
 // shuffles, two rows a warp; a wider row is a whole warp's, up to eight
 // chunks a lane (lane l holds chunks l, l + 32, ...; the last ones masked
-// where the chunks do not fill the lanes). Blocks are kWarps warps; the
-// launch bounds guarantee blocks_per_sm resident blocks.
+// where the chunks do not fill the lanes). A row past one warp's eight
+// chunks a lane (D > 1024 in f32, D > 2048 in bf16) is spread over W = 2,
+// 4 or 8 warps of a block, eight chunks a lane (lane l of the row's W x 32
+// holds chunks l, l + 32 W, ...): the wide layout, to D = 8192 in f32 and
+// 16384 in bf16. Its warps meet in shared memory for each of the two
+// statistics; its gamma and beta (up to 128 KB) are staged in dynamic
+// shared memory, as the narrow layouts stage theirs in static arrays, so
+// that a row's bytes stay HBM's alone (read from L2 instead, gamma and
+// beta would add 4 or 8 bytes of L2 reads to each 6 or 8 bytes of HBM
+// traffic an element), at the cost of one resident block an SM past
+// D = 14336 in bf16. Blocks are kWarps warps; the launch bounds guarantee
+// blocks_per_sm resident blocks by the registers, and the grid counts on
+// that many (past D = 14336 in bf16 the second block of an SM waits).
 // ops/cuda_ln.row_plan computes the same layout and grid on the host;
 // t2l_add_ln checks the plan it is given, and the chains' stage, whose C
 // entries take no plan, computes the grid here by the same rule.
 #pragma once
+
+#include <atomic>
 
 #include "common.cuh"
 #include "gemm_tc.cuh"
@@ -55,27 +68,41 @@ __host__ __device__ constexpr int blocks_per_sm(int chunks, int v) {
 struct Layout {
   int lanes;   // lanes of a row: 16 or 32; 0 where the width is refused
   int chunks;  // 16-byte chunks a lane: 1, 2, 4 or 8
+  int warps;   // warps of a row: 1, or 2, 4 or 8 in the wide layout
 };
 
 // d in an element type of `tsize` bytes: a multiple of a vector, 16 to
-// 256 chunks.
+// kWarps x 32 x kMaxChunks = 2048 chunks.
 inline Layout layout(int d, int tsize) {
   const int v = 16 / tsize;
   const int n = d / v;
-  if (d <= 0 || d % v || n < 16 || n > 32 * kMaxChunks) return {0, 0};
-  if (n == 16) return {16, 1};
-  int c = 1;
-  while (32 * c < n) c *= 2;
-  return {32, c};
+  if (d <= 0 || d % v || n < 16 || n > kWarps * 32 * kMaxChunks) return {0, 0, 0};
+  if (n == 16) return {16, 1, 1};
+  if (n <= 32 * kMaxChunks) {
+    int c = 1;
+    while (32 * c < n) c *= 2;
+    return {32, c, 1};
+  }
+  int w = 2;
+  while (32 * kMaxChunks * w < n) w *= 2;
+  return {32, kMaxChunks, w};
 }
 
-// Blocks of a call: one row a warp (two where a half-warp owns a row)
-// over the rows, at most blocks_per_sm on every SM.
+// The wide layout's dynamic shared memory: gamma and beta in f32.
+inline int wide_smem(int d) { return 2 * d * (int)sizeof(float); }
+
+// Rows a block takes at a time: one a warp (two where a half-warp owns a
+// row), one every W warps in the wide layout.
+inline int rows_a_block(const Layout& l) { return kWarps * (32 / l.lanes) / l.warps; }
+
+// Blocks of a call: the rows once, at most blocks_per_sm blocks on every
+// SM (in the wide layout past D = 14336 in bf16 only one block's gamma and
+// beta fit an SM: the second block of each SM waits for the first).
 inline int grid(int m, int d, int tsize, int sms) {
   const Layout l = layout(d, tsize);
   if (l.lanes == 0 || m <= 0) return 0;
-  const int rows_a_block = kWarps * (32 / l.lanes);
-  const int need = (m + rows_a_block - 1) / rows_a_block;
+  const int rows = rows_a_block(l);
+  const int need = (m + rows - 1) / rows;
   const int cap = sms * blocks_per_sm(l.chunks, 16 / tsize);
   return need < cap ? need : cap;
 }
@@ -228,6 +255,106 @@ __global__ void __launch_bounds__(kThreads, blocks_per_sm(C, 16 / sizeof(T)))
   }
 }
 
+// The wide layout: a row over W warps, eight chunks a lane. The rows walk
+// in a loop that is the block's (every warp takes as many turns), so that
+// the row's warps can meet at the block's barriers; a group of W warps
+// whose row lies past m computes on zeros and stores nothing.
+template <typename T, int W, class Load>
+__global__ void __launch_bounds__(kThreads, blocks_per_sm(kMaxChunks, 16 / sizeof(T)))
+    layernorm_wide_kernel(Load load, const float* __restrict__ gamma,
+                          const float* __restrict__ beta, float eps, T* __restrict__ out, int m,
+                          int d) {
+  constexpr int V = 16 / sizeof(T), C = kMaxChunks, L = 32 * W, G = kWarps / W;
+  extern __shared__ __align__(16) float gb[];  // gamma [d], then beta [d]
+  __shared__ float part_s[kWarps], part_q[kWarps];
+  float* gs = gb;
+  float* bs = gb + d;
+  const int warp = (int)(threadIdx.x >> 5), lane = threadIdx.x & 31;
+  const int g = warp / W;                  // the block's row of this warp
+  const int l = (warp % W) * 32 + lane;    // the lane within the row's W warps
+  const int n = d / V;
+  const int stride = gridDim.x * G;
+  for (int i = 4 * (int)threadIdx.x; i < d; i += 4 * kThreads) {
+    gemm::cp_async16(gs + i, gamma + i, 16);
+    gemm::cp_async16(bs + i, beta + i, 16);
+  }
+  gemm::cp_async_commit();
+  float v[C][V];
+  fetch_row<L>(load, (int)blockIdx.x * G + g, m, l, n, v);
+  gemm::cp_async_wait<0>();
+  __syncthreads();
+  for (int r0 = (int)blockIdx.x * G; r0 < m; r0 += stride) {
+    const int row = r0 + g;
+    float s = 0.f;
+#pragma unroll
+    for (int j = 0; j < C; ++j)
+#pragma unroll
+      for (int i = 0; i < V; ++i) s += v[j][i];
+    s = group_sum<32>(s);
+    if (lane == 0) part_s[warp] = s;
+    __syncthreads();
+    s = 0.f;
+#pragma unroll
+    for (int k = 0; k < W; ++k) s += part_s[g * W + k];
+    const float mu = s / (float)d;
+    float q = 0.f;
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      if (j * L + l < n) {
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          const float t = v[j][i] - mu;
+          q += t * t;
+        }
+      }
+    }
+    q = group_sum<32>(q);
+    if (lane == 0) part_q[warp] = q;
+    __syncthreads();
+    q = 0.f;
+#pragma unroll
+    for (int k = 0; k < W; ++k) q += part_q[g * W + k];
+    const float inv = rsqrtf(q / (float)d + eps);
+    if (row < m) {
+#pragma unroll
+      for (int j = 0; j < C; ++j) {
+        if (j * L + l < n) {
+          const int col = (j * L + l) * V;
+          float gv[V], bv[V], o[V];
+          load_f32<V>(gs + col, gv);
+          load_f32<V>(bs + col, bv);
+#pragma unroll
+          for (int i = 0; i < V; ++i) o[i] = (v[j][i] - mu) * inv * gv[i] + bv[i];
+          store_vec(out + (size_t)row * d + col, o);
+        }
+      }
+    }
+    fetch_row<L>(load, row + stride, m, l, n, v);
+  }
+}
+
+// The wide kernel of W warps a row may take the shared memory of its widest
+// row (W x 32 lanes x kMaxChunks chunks) on every device: set once a device
+// (a bit a device, for the first 64), not at every launch.
+template <typename T, int W, class Load>
+cudaError_t launch_wide(const Load& load, const float* gamma, const float* beta, T* out, int m,
+                        int d, float eps, int blocks, cudaStream_t st) {
+  auto kern = layernorm_wide_kernel<T, W, Load>;
+  static std::atomic<unsigned long long> ready{0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (!(ready.load(std::memory_order_relaxed) & bit)) {
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             wide_smem(W * 32 * kMaxChunks * (16 / (int)sizeof(T))));
+    if (e != cudaSuccess) return e;
+    ready.fetch_or(bit, std::memory_order_relaxed);
+  }
+  kern<<<blocks, kThreads, wide_smem(d), st>>>(load, gamma, beta, eps, out, m, d);
+  return cudaGetLastError();
+}
+
 // out [m, d] in T from the loader's rows on `blocks` blocks. gamma, beta
 // and out 16-byte aligned (as the loader's rows).
 template <typename T, class Load>
@@ -239,6 +366,16 @@ cudaError_t launch(const Load& load, const float* gamma, const float* beta, T* o
     return cudaErrorInvalidValue;
   if (m <= 0) return cudaSuccess;
   if (blocks < 1) return cudaErrorInvalidValue;
+  if (l.warps > 1) {
+    switch (l.warps) {
+      case 2:
+        return launch_wide<T, 2>(load, gamma, beta, out, m, d, eps, blocks, st);
+      case 4:
+        return launch_wide<T, 4>(load, gamma, beta, out, m, d, eps, blocks, st);
+      default:
+        return launch_wide<T, 8>(load, gamma, beta, out, m, d, eps, blocks, st);
+    }
+  }
   if (l.lanes == 16) {
     layernorm_rows_kernel<T, 16, 1, Load><<<blocks, kThreads, 0, st>>>(load, gamma, beta, eps,
                                                                        out, m, d);

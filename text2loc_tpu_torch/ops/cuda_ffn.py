@@ -15,7 +15,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from text2loc_tpu_torch.ops import _cuda
+from text2loc_tpu_torch.ops import _cuda, cuda_ln
 
 KERNEL = _cuda.Kernel(
     name="ffn_addln",
@@ -119,12 +119,15 @@ def fused_plan(rows: int, d: int, f: int, dtype, *, sms: int) -> Optional[FusedP
     return plan(tile, 1)
 
 
-def check_tiled(d: int, f: int) -> None:
+def check_tiled(d: int, f: int, dtype) -> None:
     """Raise ValueError where the tiled chain cannot take the shape: D and
-    F multiples of 128 (the GEMM tiles; the TPU kernel asserts the same)."""
+    F multiples of 128 (the GEMM tiles; the TPU kernel asserts the same),
+    D within the last stage's row LayerNorm in `dtype`
+    (cuda_ln.check_width: D <= 8192 in f32, 16384 in bf16)."""
     if d % 128 or f % 128:
         raise ValueError(f"the tiled feed-forward block takes D and F multiples of 128, "
                          f"not D={d}, F={f}")
+    cuda_ln.check_width(d, dtype)
 
 
 def _operands(x, w1, b1, w2, b2, scale, bias):
@@ -153,7 +156,7 @@ def ffn_addln_cuda(x, w1, b1, w2, b2, scale, bias, eps: float = 1e-5):
     d, f = x.shape[-1], w1.shape[1]
     if route(d, f, x.dtype) == "fused":
         return fused_block_cuda(x, w1, b1, w2, b2, scale, bias, eps)
-    check_tiled(d, f)
+    check_tiled(d, f, x.dtype)
     ops = _operands(x, w1, b1, w2, b2, scale, bias)
     rows = x.numel() // d
     # Scratch: the hidden [rows, F] in the dtype (208 MB in bf16 at the
@@ -229,7 +232,7 @@ def tiled_hidden_cuda(x, w1, b1):
     dt = x.dtype
     _cuda.check(x, "x", dtype=dt)
     d, f = x.shape[-1], w1.shape[1]
-    check_tiled(d, f)
+    check_tiled(d, f, x.dtype)
     w1_, b1_ = _cuda.as_given(w1, dt), _cuda.as_given(b1, torch.float32)
     _cuda.check(w1_, "w1", shape=(d, f))
     _cuda.check(b1_, "b1", shape=(f,))
@@ -246,7 +249,7 @@ def tiled_out_addln_cuda(x, h, w2, b2, scale, bias, eps: float = 1e-5):
     dt = x.dtype
     _cuda.check(x, "x", dtype=dt)
     d, f = x.shape[-1], h.shape[-1]
-    check_tiled(d, f)
+    check_tiled(d, f, x.dtype)
     _cuda.check(h, "h", dtype=dt, shape=(*x.shape[:-1], f))
     w2_ = _cuda.as_given(w2, dt)
     b2_, g_, be_ = (_cuda.as_given(t, torch.float32) for t in (b2, scale, bias))

@@ -15,7 +15,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from text2loc_tpu_torch.ops import _cuda
+from text2loc_tpu_torch.ops import _cuda, cuda_ln
 
 KERNEL = _cuda.Kernel(
     name="mha_addln",
@@ -175,11 +175,13 @@ def core_layout(lq: int, lk: int, d: int, heads: int, dtype) -> Optional[CoreLay
 def check_tiled(lq: int, lk: int, d: int, heads: int, dtype) -> CoreLayout:
     """The attention core's plan of the tiled chain at this shape;
     ValueError where the chain cannot take it: D a multiple of 128 (the GEMM
-    tiles; the TPU kernel asks the same), and a head whose q rows and
-    smallest key chunk fit a block's shared memory (any Lq and Lk: the core
-    streams the keys)."""
+    tiles; the TPU kernel asks the same) within the last stage's row
+    LayerNorm (cuda_ln.check_width: D <= 8192 in f32, 16384 in bf16), and a
+    head whose q rows and smallest key chunk fit a block's shared memory
+    (any Lq and Lk: the core streams the keys)."""
     if d % 128:
         raise ValueError(f"the tiled attention block takes D a multiple of 128, not {d}")
+    cuda_ln.check_width(d, dtype)
     layout = core_layout(lq, lk, d, heads, dtype)
     if layout is None:
         dh = d // heads
@@ -386,6 +388,7 @@ def tiled_out_addln_cuda(x, o, wo, bo, scale, bias, *, eps: float = 1e-5):
     dt = x.dtype
     d, k = x.shape[-1], o.shape[-1]
     m = x.numel() // d
+    cuda_ln.check_width(d, dt)
     _cuda.check(x, "x", dtype=dt)
     _cuda.check(o, "o", dtype=dt, shape=(*x.shape[:-1], k))
     wo_, bo_, g, be = (_cuda.as_given(wo, dt), *(_cuda.as_given(t, torch.float32)
