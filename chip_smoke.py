@@ -25,26 +25,34 @@ toolkit. Phases, each printing one JSON line:
    mha_addln_tiled, the tiled chain, at the intra stack's E=1024 in bf16
    and f32, with each stage of the chain against its plain stage and, as a
    yardstick the port never calls, stock_ms: the port's fused_attn="0" path
-   with cuBLAS products, on the bf16 case's line, which must be no slower;
+   with cuBLAS products (TF32 off), on every tiled line; the intra lines
+   faster than plain and no slower than stock_ms (bf16 also at most 3 ms);
    and at two lengths past the attention core's one-sweep chunk, self
    128x128 and cross 16x600 at E=1024, which take its two sweeps: lines of
-   their own, not summed, each stage against its plain stage, the bf16
-   lines faster than plain; every tiled line and stage line with the core's
-   plan (core_rows, core_chunk, core_sweeps), the project and core stage
-   lines with library_ms, one PyTorch call the port never makes: torch.addmm
-   over the packed bf16 weights, F.scaled_dot_product_attention with the
-   additive key bias); the
-   feed-forward block by its route (ffn_addln, the fused kernel, to d=256,
-   each line with kernel_ms and its plan (tile rows, cluster, blocks), and
-   the blocks of a batch-1 serve request as lines of their own, not
-   summed; ffn_addln_tiled, the tiled chain, at the E=1024 trunk's
+   their own, not summed, each stage against its plain stage, faster than
+   plain; every tiled line and stage line with the core's plan (core_rows,
+   core_chunk, core_sweeps), the project and core stage lines with
+   library_ms, one PyTorch call the port never makes: torch.addmm over the
+   packed weights, F.scaled_dot_product_attention with the additive key
+   bias); the feed-forward block by its route (ffn_addln, the fused kernel,
+   to d=256, each line with kernel_ms, stock_ms and its plan (tile rows,
+   cluster, blocks), and the blocks of a batch-1 serve request as lines of
+   their own, not summed; ffn_addln_tiled, the tiled chain, at the E=1024 trunk's
    R=25,344 rows, D=1024, F=4096 in bf16 and f32, each stage against its
-   plain stage through the chain's own stage entries, the bf16 case faster
-   than plain and no slower than stock_ms, the port's fused_ffn="0" block,
-   on its line); both tiled chains over rows past one warp's LayerNorm
-   (the row routine's wide layout): D=2048 in f32 and 4096 in bf16, 16
-   heads, F = 4D, a few hundred rows, lines of their own, not summed, with
-   stock_ms, the feed-forward chain's stages too;
+   plain stage through the chain's own stage entries, faster than plain and
+   no slower than stock_ms, the port's fused_ffn="0" block, on its line);
+   both tiled chains over rows past one warp's LayerNorm (the row routine's
+   wide layout): D=2048 in f32 and 4096 in bf16, 16 heads, F = 4D, a few
+   hundred rows, lines of their own, not summed, with stock_ms, the f32
+   lines faster than plain, the feed-forward chain's stages too. The
+   chains' f32 products run as 3xTF32 on the tensor cores: their f32
+   lines' bound_ms counts the FLOPs at F32_TC_FLOPS; each f32 case first
+   puts the weights' TF32 split (tf32_split, csrc/tf32_split.cu) on a
+   kernel line of its own, bit-equal to its plain version, with kernel_ms,
+   the intra cases' lines summed; the stages run on that split; and a
+   control line per chain (kernel_control) holds the chain's products on
+   TF32 alone (the plain project / hidden stage with allow_tf32 on for that
+   line only) against the f32 limit, which they must miss;
    then the training SA level (sa_train_fwd, sa_train_bwd)
    against its plain forward and hand-derived plain backward at the coarse
    train step's three levels (896 clouds, K=32), f32 and bf16, each case
@@ -67,7 +75,8 @@ toolkit. Phases, each printing one JSON line:
 5b. layers: EncoderLayer and DecoderLayer at d_model 384 and 768 (f32,
    seeded weights), card against CPU within TOLERANCE, under
    fused_attn="all", fused_ffn="all" (mha_addln_tiled and ffn_addln_tiled
-   launch, add_ln and the fused blocks not) and under fused_attn="0",
+   launch, and tf32_split, the split of their f32 weights; add_ln and
+   the fused blocks not) and under fused_attn="0",
    fused_ffn="0", fused_ln="all" (add_ln launches, no block kernel);
 6. pipeline: run_pipeline (coarse retrieval, fine refinement, the two
    tables) at full Config() width (bf16) over the 64-cell map, once per
@@ -239,7 +248,8 @@ to 0 just before it;
 max_abs_err, ms, plain_ms, bound_ms and library_ms: over the inference
 kernels' bf16 cases of phase 3 (sa_gather's approximate ball query cases),
 FPS's f32 case, the training kernels' f32 cases, the "e" kernels' bf16
-cases and the scatter's f32 cases, the paths' dtypes), the card's
+cases, the scatter's f32 cases and tf32_split's two intra cases, the
+paths' dtypes; tf32_split launches in phase 5b's f32 layers), the card's
 nvidia-smi line and, last, the result line. Any failed check raises: the
 script exits non-zero and prints no result. It imports nothing of JAX and
 nothing of the JAX package.
@@ -346,15 +356,19 @@ def _rand(gen, shape, scale, dev, mean=0.0):
 
 
 # Published peaks of one H100 SXM (dense): f32 outside the tensor cores,
-# bf16 tensor cores, HBM bandwidth.
+# bf16 tensor cores, HBM bandwidth. F32_TC_FLOPS: f32 products as 3xTF32 on
+# the tensor cores (three TF32 products at 495 TFLOP/s each), the peak of
+# the tiled chains' f32 lines (their products and their attention core);
+# FPS and the other f32 lines keep the FP32 peak.
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+F32_TC_FLOPS = 495e12 / 3
 HBM_BYTES_PER_S = 3.35e12
 
 
-def bound(flops: float, nbytes: float, dtype):
+def bound(flops: float, nbytes: float, dtype, peak=None):
     """(op seconds, byte seconds): the least time of the work on the card
-    is the larger of the two."""
-    return flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
+    is the larger of the two; `peak` in place of PEAK_FLOPS[dtype]."""
+    return flops / (peak or PEAK_FLOPS[dtype]), nbytes / HBM_BYTES_PER_S
 
 
 class KernelRecord:
@@ -379,8 +393,9 @@ class KernelRecord:
             norm_floor=None, counts=None, limit_fn=None, library_fn=None, yardsticks=None,
             info=None):
         """pairs: [(kernel output, plain output)], each within TOLERANCE x
-        max|plain| (0 when exact); work: (FLOPs, bytes, dtype of the products)
-        of the case. With `norm_floor` the check is instead ||kernel - plain||
+        max|plain| (0 when exact); work: (FLOPs, bytes, dtype of the products
+        [, peak FLOP/s in place of the dtype's]) of the case. With
+        `norm_floor` the check is instead ||kernel - plain||
         <= REL_L2[dtype] x max(||plain||, norm_floor) per pair; with
         `limit_fn(got, want)` -> (max abs error, limit, ok, ulps) the check
         is the case's own (ulps: the error in bf16 spacings, or None).
@@ -679,22 +694,75 @@ def _library_core_fn(q, k, v, mask):
         qh, kh, vh, attn_mask=bias, scale=1.0)
 
 
-def _mha_tiled_stages(name, args, dt) -> None:
-    """The attention chain's stages: (a) the projection product(s), (b) the
-    attention core, (c)+(d) the out-projection with the residual and the
-    LayerNorm; the core's plan on every line, library_ms on (a) and (b)."""
+def _split_case(record, kname, name, mats, counts):
+    """The weights' transposed TF32 split (cuda_split.split_t_cuda, its
+    kernel alone) of a tiled chain's f32 case: bit for bit its
+    plain version on the card, with its time and kernel_ms beside its bound
+    (bytes: each weight read once, hi and lo written once). Returns the
+    kernel's (hi, lo) for the chain's stages."""
+    from text2loc_tpu_torch.ops import cuda_split
+
+    def fn():
+        return cuda_split.split_t_cuda(mats)
+
+    got, want = fn(), cuda_split.split_t_plain(mats)
+    check(all(torch.equal(g.view(torch.int32), w.view(torch.int32)) for g, w in zip(got, want)),
+          f"tf32_split {kname} {name}: not bit-equal to its plain version")
+    shapes = " ".join(f"{k}x{n}" for k, n in (w.shape for w in mats))
+    record.add(f"tf32_split {kname} {name} {shapes}", torch.float32, list(zip(got, want)), fn,
+               lambda: cuda_split.split_t_plain(mats),
+               (0.0, 12.0 * sum(w.numel() for w in mats), torch.float32), exact=True,
+               counts=counts, info={"kernel_ms": kernel_ms(fn)})
+    return got
+
+
+def _tf32_control(kname, name, plain_fn) -> None:
+    """The control of the f32 limit: the chain's products on TF32 alone (the
+    plain stage with torch.backends.cuda.matmul.allow_tf32 on for this line
+    only, then off again) against the same stage in full f32 must miss
+    TOLERANCE[torch.float32], so that the limit tells 3xTF32 from TF32
+    alone."""
+    want = plain_fn()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = plain_fn()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    ratio, err, limit = 0.0, 0.0, 0.0
+    for g, w in zip(got, want):
+        e = (g.float() - w.float()).abs().max().item()
+        lim = TOLERANCE[torch.float32] * w.float().abs().max().item()
+        if e / lim >= ratio:
+            ratio, err, limit = e / lim, e, lim
+    emit({"phase": "kernel_control", "case": f"{kname} {name}: products on TF32 alone",
+          "dtype": "float32", "max_abs_err": err, "bound": limit, "misses": ratio > 1.0})
+    check(ratio > 1.0, f"{kname} {name}: the products on TF32 alone ({err}) within the f32 "
+          f"limit ({limit}): the limit cannot tell them from 3xTF32")
+
+
+def _mha_tiled_stages(name, args, dt, split_record, counts=False) -> None:
+    """The attention chain's stages: in f32 first the split of the four
+    weights (_split_case, a kernel line of tf32_split, summed where
+    `counts`), then on it (a) the projection product(s), (b) the attention
+    core, (c)+(d) the out-projection with the residual and the LayerNorm;
+    the core's plan on every line, library_ms on (a) and (b)."""
     from text2loc_tpu_torch.ops import cuda_mha, mha
 
     x, kv, wq, bq, wk, bk, wv, bv, wo, bo, g, be, mask = args
+    proj = out = None
+    if dt == torch.float32:
+        hi, lo = _split_case(split_record, "mha_addln_tiled", name, [wq, wk, wv, wo], counts)
+        n3 = 3 * wq.numel()
+        proj, out = (hi[:n3], lo[:n3]), (hi[n3:], lo[n3:])
     q, k, v = mha.mha_project_plain(x, kv, wq, bq, wk, bk, wv, bv, num_heads=4)
     o = mha.mha_core_plain(q, k, v, mask, num_heads=4)
     _stage_checks("mha_addln_tiled", name, dt, [
         ("project", lambda: cuda_mha.tiled_project_cuda(x, kv, wq, bq, wk, bk, wv, bv,
-                                                        num_heads=4), (q, k, v),
+                                                        num_heads=4, split=proj), (q, k, v),
          _library_project_fn(args)),
         ("core", lambda: (cuda_mha.tiled_core_cuda(q, k, v, mask, num_heads=4),), (o,),
          _library_core_fn(q, k, v, mask)),
-        ("out_addln", lambda: (cuda_mha.tiled_out_addln_cuda(x, o, wo, bo, g, be),),
+        ("out_addln", lambda: (cuda_mha.tiled_out_addln_cuda(x, o, wo, bo, g, be, split=out),),
          (mha.mha_out_addln_plain(x, o, wo, bo, g, be),)),
     ], info=_core_plan_info(x.shape[1], kv.shape[1], x.shape[2], dt))
 
@@ -740,17 +808,24 @@ def _fused_ffn_fn(args):
     return lambda: cuda_ffn.fused_block_cuda(*args, out=out, count=False)
 
 
-def _ffn_tiled_stages(name, args, dt) -> None:
+def _ffn_tiled_stages(name, args, dt, split_record, counts=False) -> None:
     """The feed-forward chain's stages, through its own stage entries (the
-    functions the block runs): (a) the hidden product with the relu
-    epilogue, (b)+(c) the residual product (K = F) and the LayerNorm."""
+    functions the block runs): in f32 first the split of W1 and W2
+    (_split_case, a kernel line of tf32_split, summed where `counts`), then
+    on it (a) the hidden product with the relu epilogue, (b)+(c) the
+    residual product (K = F) and the LayerNorm."""
     from text2loc_tpu_torch.ops import cuda_ffn, ffn
 
     x, w1, b1, w2, b2, g, be = args
+    s1 = s2 = None
+    if dt == torch.float32:
+        hi, lo = _split_case(split_record, "ffn_addln_tiled", name, [w1, w2], counts)
+        n1 = w1.numel()
+        s1, s2 = (hi[:n1], lo[:n1]), (hi[n1:], lo[n1:])
     h = ffn.ffn_hidden_plain(x, w1, b1)
     _stage_checks("ffn_addln_tiled", name, dt, [
-        ("hidden", lambda: (cuda_ffn.tiled_hidden_cuda(x, w1, b1),), (h,)),
-        ("out_addln", lambda: (cuda_ffn.tiled_out_addln_cuda(x, h, w2, b2, g, be),),
+        ("hidden", lambda: (cuda_ffn.tiled_hidden_cuda(x, w1, b1, split=s1),), (h,)),
+        ("out_addln", lambda: (cuda_ffn.tiled_out_addln_cuda(x, h, w2, b2, g, be, split=s2),),
          (ffn.ffn_out_addln_plain(h, x, w2, b2, g, be),)),
     ])
 
@@ -762,7 +837,7 @@ def phase_kernels(dev) -> dict:
 
     gen = torch.Generator().manual_seed(SEED)
     records = {k: KernelRecord() for k in ("fps", *SA_KERNELS, "mha_addln", "mha_addln_tiled",
-                                          "ffn_addln", "ffn_addln_tiled")}
+                                          "ffn_addln", "ffn_addln_tiled", "tf32_split")}
 
     n, p = 64 * 28, 256
     pts = _clouds(gen, n, p, dev)
@@ -811,16 +886,17 @@ def phase_kernels(dev) -> dict:
                 + [(c, gen_long) for c in long_cases]):
             args = _attention_args(g, dev, dt, b, lq, lk, d, self_attn, empty)
             es = args[0].element_size()
-            work = (2.0 * (2 * b * lq * d * d + 2 * b * lk * d * d + 2 * b * lq * lk * d),
-                    2 * b * lq * d * es + (0 if self_attn else b * lk * d * es)
-                    + 4 * d * d * 4 + 6 * d * 4 + b * lk, dt)
             kname = ("mha_addln" if cuda_mha.route(lq, lk, d, 4, dt, self_attn=self_attn)
                      == "fused" else "mha_addln_tiled")
             fused = kname == "mha_addln"
+            tiled = not fused
             long = name.startswith("long")
-            tiled_bf16 = kname == "mha_addln_tiled" and dt == torch.bfloat16 and not long
+            f32_tc = tiled and dt == torch.float32
+            work = (2.0 * (2 * b * lq * d * d + 2 * b * lk * d * d + 2 * b * lq * lk * d),
+                    2 * b * lq * d * es + (0 if self_attn else b * lk * d * es)
+                    + 4 * d * d * 4 + 6 * d * 4 + b * lk, dt, F32_TC_FLOPS if f32_tc else None)
             # The fused lines: kernel_ms (the kernel alone, no host dispatch)
-            # and stock_ms; the tiled chain's bf16 line: stock_ms.
+            # and stock_ms; the tiled chain's lines: stock_ms.
             ms, plain_ms = records[kname].add(
                 f"{kname} {name} B={b} Lq={lq} Lk={lk} D={d}", dt,
                 [(cuda_mha.mha_addln_cuda(*args, num_heads=4),
@@ -828,23 +904,24 @@ def phase_kernels(dev) -> dict:
                 lambda a=args: cuda_mha.mha_addln_cuda(*a, num_heads=4),
                 lambda a=args: mha.mha_addln_plain(*a, num_heads=4), work,
                 counts=False if name.startswith(("request", "long")) else None,
-                yardsticks=({"stock_ms": _stock_attention_fn(args, dt)}
-                            if fused or tiled_bf16 else None),
+                yardsticks={"stock_ms": _stock_attention_fn(args, dt)},
                 info=({"kernel_ms": kernel_ms(_fused_attention_fn(args))} if fused
                       else _core_plan_info(lq, lk, d, dt)))
-            if tiled_bf16:
+            if tiled and not long:
                 stock_ms = records[kname].last_line["stock_ms"]
-                check(ms < plain_ms and ms <= 3.0 and ms <= stock_ms,
+                check(ms < plain_ms and ms <= stock_ms and (f32_tc or ms <= 3.0),
                       f"{kname} {name}: {ms} ms, plain {plain_ms} ms, stock {stock_ms} ms "
-                      "(limit: faster than plain, at most 3 ms, no slower than stock)")
-                _mha_tiled_stages(name, args, dt)
+                      "(limit: faster than plain, no slower than stock, in bf16 at most 3 ms)")
+                _mha_tiled_stages(name, args, dt, records["tf32_split"], counts=True)
+                if f32_tc:
+                    _tf32_control(kname, name, lambda a=args: mha.mha_project_plain(
+                        *a[:8], num_heads=4))
             if long:
                 check(cuda_mha.core_layout(lq, lk, d, 4, dt).sweeps == 2,
                       f"{name}: the core's two sweeps")
-                if dt == torch.bfloat16:
-                    check(ms < plain_ms, f"{kname} {name}: {ms} ms, plain {plain_ms} ms "
-                          "(limit: faster than plain)")
-                _mha_tiled_stages(name, args, dt)
+                check(ms < plain_ms, f"{kname} {name}: {ms} ms, plain {plain_ms} ms "
+                      "(limit: faster than plain)")
+                _mha_tiled_stages(name, args, dt, records["tf32_split"])
 
     ffn_cases = [("cct", 640 * 16, 128, 512), ("obj_inter", 64 * 28, 256, 512),
                  ("inter head", 64 * 6, 256, 1024), ("intra E=1024", 1584 * 16, 1024, 4096)]
@@ -861,14 +938,14 @@ def phase_kernels(dev) -> dict:
                                       + [(c, gen_ffn_request) for c in ffn_request_cases]):
             args = _ffn_args(g, dev, dt, rows, d, f)
             es = args[0].element_size()
-            work = (4.0 * rows * d * f, 2 * rows * d * es + 2 * d * f * 4 + (f + 3 * d) * 4,
-                    dt)
             kname = "ffn_addln" if cuda_ffn.route(d, f, dt) == "fused" else "ffn_addln_tiled"
             fused = kname == "ffn_addln"
-            tiled_bf16 = kname == "ffn_addln_tiled" and dt == torch.bfloat16
-            # The fused lines: kernel_ms (the kernel alone, no host dispatch)
-            # and the plan; the bf16 chain's line: stock_ms, the port's stock
-            # block.
+            tiled = not fused
+            f32_tc = tiled and dt == torch.float32
+            work = (4.0 * rows * d * f, 2 * rows * d * es + 2 * d * f * 4 + (f + 3 * d) * 4,
+                    dt, F32_TC_FLOPS if f32_tc else None)
+            # Every line: stock_ms, the port's stock block; the fused lines:
+            # kernel_ms (the kernel alone, no host dispatch) and the plan.
             info = None
             if fused:
                 plan = cuda_ffn.fused_plan(rows, d, f, dt, sms=sms)
@@ -880,15 +957,15 @@ def phase_kernels(dev) -> dict:
                 lambda a=args: cuda_ffn.ffn_addln_cuda(*a),
                 lambda a=args: ffn.ffn_addln_plain(*a), work,
                 counts=False if name.startswith("request") else None,
-                yardsticks={"stock_ms": _stock_ffn_fn(args, dt)} if tiled_bf16 else None,
-                info=info)
-            if tiled_bf16:
+                yardsticks={"stock_ms": _stock_ffn_fn(args, dt)}, info=info)
+            if tiled:
                 stock_ms = records[kname].last_line["stock_ms"]
                 check(ms < plain_ms and ms <= stock_ms,
                       f"{kname} {name}: {ms} ms, plain {plain_ms} ms, stock {stock_ms} ms "
                       "(limit: faster than plain, no slower than stock)")
-            if kname == "ffn_addln_tiled":
-                _ffn_tiled_stages(name, args, dt)
+                _ffn_tiled_stages(name, args, dt, records["tf32_split"], counts=True)
+                if f32_tc:
+                    _tf32_control(kname, name, lambda a=args: (ffn.ffn_hidden_plain(*a[:3]),))
     _wide_chains(dev, records)
     torch.cuda.synchronize()
     return records
@@ -896,8 +973,10 @@ def phase_kernels(dev) -> dict:
 
 # Both tiled chains at rows wider than one warp's LayerNorm (the row
 # routine's wide layout, two warps a row): D=2048 in f32 and 4096 in bf16,
-# 16 heads, F = 4D, a few hundred rows (the f32 products are FMAs). No
-# Config() shape reaches them: lines of their own, not summed, with stock_ms.
+# 16 heads, F = 4D, a few hundred rows (at R=384 the f32 residual product
+# has 48 output tiles for 132 SMs). No Config() shape reaches them: lines
+# of their own, not summed, with stock_ms; the f32 lines faster than plain,
+# with the weights' split alone on a line of its own.
 WIDE_ATTN = [("wide self", 24, 16, 16, 2048, True, torch.float32),
              ("wide self", 24, 16, 16, 4096, True, torch.bfloat16)]
 WIDE_FFN = [("wide", 384, 2048, 8192, torch.float32),
@@ -912,31 +991,45 @@ def _wide_chains(dev, records) -> None:
     for name, b, lq, lk, d, self_attn, dt in WIDE_ATTN:
         args = _attention_args(gen, dev, dt, b, lq, lk, d, self_attn, True)
         es = args[0].element_size()
+        f32 = dt == torch.float32
         work = (2.0 * (2 * b * lq * d * d + 2 * b * lk * d * d + 2 * b * lq * lk * d),
-                2 * b * lq * d * es + 4 * d * d * 4 + 6 * d * 4 + b * lk, dt)
+                2 * b * lq * d * es + 4 * d * d * 4 + 6 * d * 4 + b * lk, dt,
+                F32_TC_FLOPS if f32 else None)
         check(cuda_mha.route(lq, lk, d, WIDE_HEADS, dt, self_attn=self_attn) == "tiled"
               and cuda_ln.row_plan(b * lq, d, dt, sms=1).warps == 2,
               f"mha_addln_tiled {name} D={d}: not the tiled chain over the wide rows")
-        records["mha_addln_tiled"].add(
-            f"mha_addln_tiled {name} B={b} Lq={lq} Lk={lk} D={d} H={WIDE_HEADS}", dt,
+        case = f"mha_addln_tiled {name} B={b} Lq={lq} Lk={lk} D={d} H={WIDE_HEADS}"
+        ms, plain_ms = records["mha_addln_tiled"].add(
+            case, dt,
             [(cuda_mha.mha_addln_cuda(*args, num_heads=WIDE_HEADS),
               mha.mha_addln_plain(*args, num_heads=WIDE_HEADS))],
             lambda a=args: cuda_mha.mha_addln_cuda(*a, num_heads=WIDE_HEADS),
             lambda a=args: mha.mha_addln_plain(*a, num_heads=WIDE_HEADS), work, counts=False,
             yardsticks={"stock_ms": _stock_attention_fn(args, dt, WIDE_HEADS)},
             info=_core_plan_info(lq, lk, d, dt, WIDE_HEADS))
+        if f32:
+            check(ms < plain_ms, f"{case}: {ms} ms, plain {plain_ms} ms (limit: faster than "
+                  "plain)")
+            _split_case(records["tf32_split"], "mha_addln_tiled", name,
+                        [args[2], args[4], args[6], args[8]], False)
     for name, rows, d, f, dt in WIDE_FFN:
         args = _ffn_args(gen, dev, dt, rows, d, f)
         es = args[0].element_size()
+        f32 = dt == torch.float32
         check(cuda_ffn.route(d, f, dt) == "tiled", f"ffn_addln_tiled {name} D={d}: not tiled")
-        records["ffn_addln_tiled"].add(
-            f"ffn_addln_tiled {name} R={rows} D={d} F={f}", dt,
+        case = f"ffn_addln_tiled {name} R={rows} D={d} F={f}"
+        ms, plain_ms = records["ffn_addln_tiled"].add(
+            case, dt,
             [(cuda_ffn.ffn_addln_cuda(*args), ffn.ffn_addln_plain(*args))],
             lambda a=args: cuda_ffn.ffn_addln_cuda(*a),
             lambda a=args: ffn.ffn_addln_plain(*a),
-            (4.0 * rows * d * f, 2 * rows * d * es + 2 * d * f * 4 + (f + 3 * d) * 4, dt),
+            (4.0 * rows * d * f, 2 * rows * d * es + 2 * d * f * 4 + (f + 3 * d) * 4, dt,
+             F32_TC_FLOPS if f32 else None),
             counts=False, yardsticks={"stock_ms": _stock_ffn_fn(args, dt)})
-        _ffn_tiled_stages(name, args, dt)
+        if f32:
+            check(ms < plain_ms, f"{case}: {ms} ms, plain {plain_ms} ms (limit: faster than "
+                  "plain)")
+        _ffn_tiled_stages(name, args, dt, records["tf32_split"])
 
 
 # The training SA level's gradients are checked by relative L2 error, not
@@ -1274,14 +1367,15 @@ def phase_optin_kernels(dev) -> dict:
 # The transformer layers at widths between the serve's: d_model 384 and 768
 # (heads of 64, F = 4D), 64 samples of 16 tokens over 6 memory tokens, one
 # sample's memory fully masked; f32. Each gate set's kernels must launch and
-# the other's not: the tiled chains under "all", add_ln after stock blocks.
+# the other's not: the tiled chains (and, in f32, the split of their
+# weights) under "all", add_ln after stock blocks.
 LAYER_WIDTHS = (384, 768)
 LAYER_GATES = {"attn_ffn_all": (dict(attn="all", ffn="all"),
-                                ("mha_addln_tiled", "ffn_addln_tiled"),
+                                ("mha_addln_tiled", "ffn_addln_tiled", "tf32_split"),
                                 ("add_ln", "mha_addln", "ffn_addln")),
                "stock_ln_all": (dict(attn="0", ffn="0", ln="all"), ("add_ln",),
                                 ("mha_addln_tiled", "ffn_addln_tiled", "mha_addln",
-                                 "ffn_addln"))}
+                                 "ffn_addln", "tf32_split"))}
 
 
 def phase_layers(dev, kernels) -> dict:
@@ -3712,7 +3806,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from text2loc_tpu_torch.ops import (cuda_ffn, cuda_fps, cuda_gather, cuda_ln, cuda_mha,
-                                        cuda_pointconv, cuda_sa_train)
+                                        cuda_pointconv, cuda_sa_train, cuda_split)
 
     optin = [cuda_ln.KERNEL, cuda_gather.KERNEL, cuda_ffn.KERNEL_TILED]
     serve_kernels = [cuda_fps.KERNEL, cuda_pointconv.KERNEL_FIRST, cuda_mha.KERNEL,
@@ -3733,7 +3827,8 @@ def main() -> int:
     counts = [phase_serve(dev, serve_kernels, absent=optin)]
     phase_serve_vs_cpu(dev)
     counts.append(phase_layers(dev, [cuda_ln.KERNEL, cuda_mha.KERNEL_TILED,
-                                     cuda_ffn.KERNEL_TILED, cuda_mha.KERNEL, cuda_ffn.KERNEL]))
+                                     cuda_ffn.KERNEL_TILED, cuda_mha.KERNEL, cuda_ffn.KERNEL,
+                                     cuda_split.KERNEL]))
     counts.append(phase_pipeline(dev, pipeline_kernels, absent=optin))
     phase_pipeline_vs_cpu(dev)
     train_counts, f32_default = phase_train(
@@ -3757,7 +3852,7 @@ def main() -> int:
     counts.append(phase_prep_serve(dev, serve_kernels, smi, absent=optin))
     kernels = (serve_kernels + train_kernels[1:3] + list(cuda_pointconv.KERNELS[1:])
                + optin + [cuda_gather.KERNEL_SCATTER, cuda_sa_train.KERNEL_E_FWD,
-                          cuda_sa_train.KERNEL_E_BWD])
+                          cuda_sa_train.KERNEL_E_BWD, cuda_split.KERNEL])
     launches = {k.name: sum(c.get(k.name, 0) for c in counts) for k in kernels}
     emit({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,

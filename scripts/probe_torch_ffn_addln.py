@@ -17,7 +17,9 @@ D=256, F=1024), a batch-1 serve request's three (the inter head over 6
 rows, the CCT's hint and object layers over the top-10 cells, 60 and 160
 rows) and the batch-64 request's CCT hint layer (3840 rows).
 `--cases tiled`: the E=1024 trunk's block (D=1024, F=4096) at the intra
-stack's 25,344 rows (chip_smoke.py's case) and at 39 and 592 rows.
+stack's 25,344 rows (chip_smoke.py's case) and at 39 and 592 rows, and
+chip_smoke.py's wide f32 shape (384 rows, D=2048, F=8192: 48 output tiles
+of the residual product for 132 SMs).
 `--cases ln`: chip_smoke.py's six add_ln cases (the E=1024 trunk's 25,344
 rows at D=1024, the CCT's 10,240 at D=128, obj_inter's 1792 at D=256).
 Inputs as the smoke makes them: bf16 or f32 activations, f32 weights and
@@ -36,9 +38,12 @@ prints one JSON line:
 - tiled lines: `hidden_ms` and `out_addln_ms`, each stage's C entry timed
   as `kernel_ms` on the plain stages' inputs (t2l_ffn_tiled_gemm_relu;
   t2l_ffn_tiled_out_addln, or, in a checkout without that entry,
-  `kernel_ms` less `hidden_ms`, marked by `"out_addln_by": "difference"`),
-  and `stock_ms`: the port's fused_ffn="0" block (chip_smoke.py's
-  _stock_ffn_fn), timed as `ms`;
+  `kernel_ms` less `hidden_ms`, marked by `"out_addln_by": "difference"`);
+  in f32, where the products read the weights' TF32 split, `split_ms`, the
+  split of W1 and W2 alone (ops/cuda_split.split_t_cuda), which the
+  block's `kernel_ms` includes and the stages' exclude; and `stock_ms`: the
+  port's fused_ffn="0" block (chip_smoke.py's _stock_ffn_fn), timed as
+  `ms`;
 - ln lines: `library_ms`, F.layer_norm(x + res), timed as `ms`;
 - `device_ops`: device ops (kernels and copies) per wrapper call, from
   torch.profiler over `--reps` calls (a window with none taken again);
@@ -75,7 +80,7 @@ SMOKE = [("cct", 640 * 16, 128, 512), ("obj_inter", 64 * 28, 256, 512),
 REQUEST = [("req inter head", 6, 256, 1024), ("req cct hint", 60, 128, 512),
            ("req cct obj", 160, 128, 512), ("req64 cct hint", 3840, 128, 512)]
 TILED = [("intra E=1024", 1584 * 16, 1024, 4096), ("ragged 39", 39, 1024, 4096),
-         ("ragged 592", 592, 1024, 4096)]
+         ("ragged 592", 592, 1024, 4096), ("wide", 384, 2048, 8192)]
 # (name, rows, D): chip_smoke.py's add_ln cases.
 LN = [("intra E=1024", 1584 * 16, 1024), ("cct", 640 * 16, 128), ("obj_inter", 64 * 28, 256)]
 
@@ -125,7 +130,10 @@ def bare_kernel(smoke, cuda_ffn, args):
 def tiled_stages(args, reps: int, kernel_ms) -> dict:
     """kernel_ms of the chain's C entry and of each stage's, on weights cast
     and scratch allocated beforehand; the stages on the plain stages'
-    inputs."""
+    inputs. In f32, in a checkout whose products read the weights' TF32
+    split (t2l_tf32_split_t): the split alone as `split_ms`, the block's
+    `kernel_ms` with its split launched first, the stages on a split made
+    beforehand."""
     from text2loc_tpu_torch.ops import _cuda
     from text2loc_tpu_torch.ops.ffn import ffn_hidden_plain
 
@@ -141,6 +149,7 @@ def tiled_stages(args, reps: int, kernel_ms) -> dict:
     hp = ffn_hidden_plain(x, w1, b1)
     eps = ctypes.c_float(1e-5)
     p = _cuda.ptr
+    found = {}
 
     def stream():
         return torch.cuda.current_stream().cuda_stream
@@ -148,6 +157,38 @@ def tiled_stages(args, reps: int, kernel_ms) -> dict:
     def ok(err):
         if err:
             raise RuntimeError(lib.t2l_error_string(err).decode())
+
+    if hasattr(lib, "t2l_tf32_split_t"):
+        from text2loc_tpu_torch.ops import cuda_split
+
+        f32 = dt == torch.float32
+        null = (None, None)
+        split = cuda_split.split_t_cuda([w1c, w2c]) if f32 else None
+        wt1 = (p(split[0]), p(split[1])) if f32 else null
+        wt2 = (p(split[0][f * d:]), p(split[1][f * d:])) if f32 else null
+        scratch = torch.empty((2, 2 * d * f), dtype=dt, device=dev) if f32 else None
+
+        def block():
+            # In f32 the entry writes the split into the scratch first.
+            ok(lib.t2l_ffn_addln_tiled(
+                *(p(t) for t in (x, w1c, b1, w2c, b2)),
+                *(cuda_split.halves(scratch) if f32 else null),
+                *(p(t) for t in (g, be, out, h, s2)), rows, d, f, eps, code, stream()))
+
+        def hidden():
+            ok(lib.t2l_ffn_tiled_gemm_relu(p(x), p(w1c), *wt1, p(b1), p(h), rows, d, f, code,
+                                           stream()))
+
+        def out_addln():
+            ok(lib.t2l_ffn_tiled_out_addln(p(x), p(hp), p(w2c), *wt2,
+                                           *(p(t) for t in (b2, g, be, out, s2)), rows, d, f,
+                                           eps, code, stream()))
+
+        if f32:
+            found["split_ms"] = kernel_ms(lambda: cuda_split.split_t_cuda([w1c, w2c]), reps)
+        found.update(kernel_ms=kernel_ms(block, reps), hidden_ms=kernel_ms(hidden, reps),
+                     out_addln_ms=kernel_ms(out_addln, reps))
+        return found
 
     def block():
         ok(lib.t2l_ffn_addln_tiled(*(p(t) for t in (x, w1c, b1, w2c, b2, g, be, out, h, s2)),

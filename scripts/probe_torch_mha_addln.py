@@ -18,7 +18,10 @@ chip_smoke.py's three tiled cases at E=1024 (the intra stack, 1584
 sentences of 16 tokens; self 128x128 and cross 16x600 at B=16, which take
 the attention core's two sweeps), each line also with its stages'
 `kernel_ms` (`project_ms`, `core_ms`, `out_addln_ms`: the stage wrappers of
-ops/cuda_mha.py on the plain stages' inputs, as the smoke checks them).
+ops/cuda_mha.py on the plain stages' inputs, as the smoke checks them; in
+f32, where the products read the weights' TF32 split, `split_ms`, the
+split of the four weights alone (ops/cuda_split.split_t_cuda), which the
+whole call's `kernel_ms` includes and the stages' exclude).
 Inputs as the smoke makes them:
 bf16 or f32 activations, f32 weights (as the model passes its
 parameters), a bool key mask with a quarter of the keys padded. For each
@@ -139,6 +142,10 @@ def main() -> int:
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     from text2loc_tpu_torch.ops import _cuda, cuda_mha, mha
+    try:
+        from text2loc_tpu_torch.ops.cuda_split import split_t_cuda as split_t
+    except ImportError:   # a checkout whose f32 products read the weights as given
+        split_t = None
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
@@ -164,13 +171,22 @@ def main() -> int:
                 x, kv, wq, bq, wk, bk, wv, bv, wo, bo, g, be, mask = a
                 q, k, v = mha.mha_project_plain(x, kv, wq, bq, wk, bk, wv, bv, num_heads=HEADS)
                 o = mha.mha_core_plain(q, k, v, mask, num_heads=HEADS)
-                stages = {key: smoke.kernel_ms(fn, args.reps) for key, fn in (
+                # In f32, where the products read the weights' TF32 split:
+                # the split alone, and the stages on a split made beforehand.
+                proj, out, timed = {}, {}, []
+                if split_t is not None and dt == torch.float32:
+                    hi, lo = split_t([wq, wk, wv, wo])
+                    n3 = 3 * d * d
+                    proj, out = {"split": (hi[:n3], lo[:n3])}, {"split": (hi[n3:], lo[n3:])}
+                    timed.append(("split_ms", lambda: split_t([wq, wk, wv, wo])))
+                timed += [
                     ("project_ms", lambda: cuda_mha.tiled_project_cuda(
-                        x, kv, wq, bq, wk, bk, wv, bv, num_heads=HEADS)),
+                        x, kv, wq, bq, wk, bk, wv, bv, num_heads=HEADS, **proj)),
                     ("core_ms", lambda: cuda_mha.tiled_core_cuda(q, k, v, mask,
                                                                  num_heads=HEADS)),
                     ("out_addln_ms", lambda: cuda_mha.tiled_out_addln_cuda(x, o, wo, bo, g,
-                                                                           be)))}
+                                                                           be, **out))]
+                stages = {key: smoke.kernel_ms(fn, args.reps) for key, fn in timed}
             print(json.dumps({
                 "root": root, "case": f"{name} B={b} Lq={lq} Lk={lk} D={d}",
                 "dtype": str(dt).split(".")[-1], "route": route,

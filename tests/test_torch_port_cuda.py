@@ -35,7 +35,7 @@ import pytest
 import torch
 
 from text2loc_tpu_torch.ops import (_cuda, cuda_ffn, cuda_fps, cuda_gather, cuda_ln, cuda_mha,
-                                    cuda_pointconv, cuda_sa_train)
+                                    cuda_pointconv, cuda_sa_train, cuda_split)
 from text2loc_tpu_torch.ops.ffn import (ffn_addln, ffn_addln_plain, ffn_hidden_plain,
                                         ffn_out_addln_plain)
 from text2loc_tpu_torch.ops.gather import (gather_rows, gather_rows_grad, gather_rows_plain,
@@ -698,9 +698,11 @@ def test_mha_tiled_gemm_rows(dev, dtype, m, residual):
 def test_mha_tiled_call_device_ops(dev, dtype, self_attn):
     """A tiled call on the model's operands (f32 weights, a bool mask) at
     E=1024 launches the weight casts its products need (bf16: four; f32:
-    none), the key bias and the chain's kernels (the projection products,
-    the core, the out-projection, the LayerNorm), and no concatenation of
-    the weights; one counted launch."""
+    none, and the four weights' split, one launch the chain's entry makes
+    and the wrapper counts as the split's), the key bias and the chain's
+    kernels (the projection products, the core, the out-projection, the
+    LayerNorm), and no concatenation of the weights; one counted launch of
+    the chain."""
     from text2loc_tpu_torch.ops.mha import key_bias
 
     args = _mha_args(dev, dtype, 37, 16, 16 if self_attn else 6, 1024, self_attn)
@@ -711,9 +713,13 @@ def test_mha_tiled_call_device_ops(dev, dtype, self_attn):
     _, bias_ops, _ = _profiled_device_ops(
         lambda: key_bias(args[-1], 37, args[1].shape[1], dev), cuda_mha.KERNEL_TILED)
     casts = 4 if dtype == torch.bfloat16 else 0
-    products = (1 if self_attn else 2) if dtype == torch.bfloat16 else 3
+    split = 1 if dtype == torch.float32 else 0
+    products = 1 if self_attn else 2
     assert launched == 1
-    assert len(calls) == casts + len(bias_ops) + products + 3, (calls, ops)
+    assert len(calls) == casts + split + len(bias_ops) + products + 3, (calls, ops)
+    before = cuda_split.KERNEL.launches
+    mha_addln(*args, num_heads=4)
+    assert cuda_split.KERNEL.launches == before + split
     assert not any("CatArray" in op for op in ops), ops   # torch.cat's kernel
 
 
@@ -913,7 +919,7 @@ def test_ffn_kernel(dev, dtype, rows, d, f):
 def test_ffn_tiled_stages(dev, dtype, rows, d, f):
     """Each stage of the tiled chain alone against its plain stage, on the
     plain stage's inputs, through the chain's own stage entries (the
-    functions the block runs: wgmma in bf16, FP32 FMAs in f32): the hidden
+    functions the block runs: wgmma in bf16, 3xTF32 wgmma in f32): the hidden
     product with the relu epilogue, then the residual product (K = F) and
     the row LayerNorm. The stage entry points launch no counted block."""
     x, w1, b1, w2, b2, g, be = _ffn_args(dev, dtype, rows, d, f, seed=4)
@@ -991,24 +997,51 @@ def test_tiled_chains_refuse_rows_past_the_limit(dev, dtype):
 def test_ffn_tiled_call_device_ops(dev, dtype):
     """A tiled call at the intra stack's shape (25,344 rows, D=1024,
     F=4096) whose weights are already in the dtype and contiguous issues no
-    copy: three runtime calls issue device work, and every device op the
-    profiler records is one of the chain's three kernels (the two products
-    and the row LayerNorm); one counted launch. With f32 weights under bf16
-    activations each weight takes its one cast: two runtime calls more."""
+    copy: three runtime calls issue device work (four in f32: the weights'
+    split first), and every device op the profiler records is one of the
+    chain's kernels (the two products and the row LayerNorm, after the
+    split in f32); one counted launch of the chain. With f32 weights under
+    bf16 activations each weight takes its one cast: two runtime calls
+    more."""
     args = list(_ffn_args(dev, dtype, 1584 * 16, 1024, 4096))
     cast = list(args)
     cast[1], cast[3] = args[1].to(dtype), args[3].to(dtype)
-    product = "gemm_wgmma_kernel" if dtype == torch.bfloat16 else "gemm_f32_kernel"
+    product = "gemm_wgmma_kernel" if dtype == torch.bfloat16 else "gemm_tf32x3_kernel"
+    split = 1 if dtype == torch.float32 else 0
     for a, extra in ((cast, 0), (args, 2 if dtype == torch.bfloat16 else 0)):
         ffn_addln(*a)
         torch.cuda.synchronize()
         ops, issued, launched = _profiled_device_ops(lambda: ffn_addln(*a),
                                                      cuda_ffn.KERNEL_TILED)
-        assert launched == 1 and len(issued) == 3 + extra, (issued, ops)
-        kernels = [op for op in ops if product in op or "layernorm_rows_kernel" in op]
-        assert len(kernels) <= 3 and len(ops) <= 3 + extra, ops
+        assert launched == 1 and len(issued) == 3 + split + extra, (issued, ops)
+        kernels = [op for op in ops if product in op or "layernorm_rows_kernel" in op
+                   or "split_t_kernel" in op]
+        assert len(kernels) <= 3 + split and len(ops) <= 3 + split + extra, ops
         if not extra:
             assert len(kernels) == len(ops), ops
+
+
+@pytest.mark.parametrize("shapes", [[(1024, 4096), (4096, 1024)],
+                                    [(1024, 1024)] * 4,
+                                    [(37, 100), (1, 33), (64, 5)],
+                                    [(2048, 8192)]])
+def test_tf32_split_is_bit_equal_to_plain(dev, shapes):
+    """The weights' transposed TF32 split (csrc/tf32_split.cu) equals
+    split_t_plain bit for bit: the feed-forward chain's pair, the attention
+    chain's four weights, ragged shapes off the 64 x 64 tile and off 16-byte
+    vectors (the element-wise path), the wide chain's W1; the weights are
+    read as given and left unchanged; the kernel alone counts no launch."""
+    g = torch.Generator().manual_seed(len(shapes))
+    mats = [(torch.randn(k, n, generator=g) * 10.0 ** (i - 1)).to(dev)
+            for i, (k, n) in enumerate(shapes)]
+    before = [m.clone() for m in mats]
+    launches = cuda_split.KERNEL.launches
+    hi, lo = cuda_split.split_t_cuda(mats)
+    assert cuda_split.KERNEL.launches == launches
+    want_hi, want_lo = cuda_split.split_t_plain([m.cpu() for m in mats])
+    assert torch.equal(hi.cpu().view(torch.int32), want_hi.view(torch.int32))
+    assert torch.equal(lo.cpu().view(torch.int32), want_lo.view(torch.int32))
+    assert all(torch.equal(m, b) for m, b in zip(mats, before))
 
 
 def test_ffn_route_layout_is_the_kernels(dev):

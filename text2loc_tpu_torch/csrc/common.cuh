@@ -1,7 +1,8 @@
 // Shared helpers of the port's Hopper kernels: dtype conversion between the
-// compute dtype (float or bfloat16) and f32, the warp sum, and the one-warp
-// LayerNorm of a row already in shared memory (the fused feed-forward block,
-// ffn_addln.cu; rows in device memory take layernorm_rows.cuh).
+// compute dtype (float or bfloat16) and f32, rounding to TF32, the warp
+// sum, and the one-warp LayerNorm of a row already in shared memory (the
+// fused feed-forward block, ffn_addln.cu; rows in device memory take
+// layernorm_rows.cuh).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -35,6 +36,15 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
 template <typename T>
 __device__ __forceinline__ float round_to(float v) {
   return to_f<T>(from_f<T>(v));
+}
+
+// x rounded to TF32 (10 mantissa bits, ties away from zero), as
+// cvt.rna.tf32.f32 rounds a finite value, in two integer operations (the
+// conversion instruction issues at a fraction of their rate). The f32
+// products on TF32 tensor cores split each operand into hi = tf32_rna(x)
+// and lo = tf32_rna(x - hi) and sum lo.hi + hi.lo + hi.hi (3xTF32).
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

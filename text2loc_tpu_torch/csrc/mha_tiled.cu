@@ -21,16 +21,20 @@
 // the output once. It is bound by operations.
 // What the design does about it: the products run over all rows at once,
 // so each weight tile is reused by every row tile instead of being streamed
-// through L2 once per sample; in bf16 on wgmma (gemm_wgmma.cuh: TMA-fed
-// rings, persistent 128 x 128 tiles), in f32 on register-tiled FP32 FMAs
-// (gemm_tc.cuh, no TF32). The price is HBM traffic for q/k/v, the attention
-// output and the pre-norm sum s2 between the kernels, about 0.1 ms at
-// E=1024 in bf16. The chain, all on the caller's stream:
+// through L2 once per sample, on wgmma (gemm_wgmma.cuh: TMA-fed rings,
+// persistent 128 x 128 tiles): in bf16 on the weights as the caller holds
+// them; in f32 as 3xTF32, on the transposed split of the four weights that
+// the block's entry writes first, per call, by tf32_split.cu's kernel
+// ([Wq; Wk; Wv; Wo]^T, hi and lo, [4D, D] each: the wrapper's scratch), A
+// split in registers, never TF32 alone.
+// The price is HBM traffic for q/k/v, the attention output and the
+// pre-norm sum s2 between the kernels, about 0.1 ms at E=1024 in bf16, and
+// in f32 the split (48 MB written at D = 1024). The chain, all on the
+// caller's stream:
 //   (a) q, k, v = round_T((x W + b) * colscale), the q columns scaled by
 //       1/sqrt(dh): for self-attention one product over [Wq|Wk|Wv] (three
-//       TMA descriptors in bf16, three f32 products in f32, the weights as
-//       the caller holds them, unpacked); for cross-attention x Wq and
-//       kv [Wk|Wv];
+//       TMA descriptors in bf16, the packed split's first 3D rows in f32);
+//       for cross-attention x Wq and kv [Wk|Wv];
 //   (b) the attention core (below), on tensor cores;
 //   (c) s2 = (f32(x) + o Wo) + bo, f32, the product with a residual
 //       epilogue;
@@ -518,91 +522,77 @@ cudaError_t attention_core(const void* q, int ldq, const void* k, const void* v,
 
 // (a): q, k, v into the scratch qkv: [m, 3d] for self-attention (q, k, v
 // side by side), else q [m, d] then k|v [mk, 2d]. w / bias: Wq, Wk, Wv
-// [d, d] in T and bq, bk, bv [d] f32, as the caller holds them.
+// [d, d] in T and bq, bk, bv [d] f32, as the caller holds them; in f32 the
+// products read wt_hi / wt_lo instead, the split of [Wq; Wk; Wv]^T (rows
+// 0 .. 3d of tf32_split.cu's output, [3d, d]).
 template <typename T>
 cudaError_t project(const void* x, const void* kv, const void* const* w,
-                    const void* const* bias, void* qkv, int b, int lq, int lk, int d,
-                    float scale, int self_attn, cudaStream_t st) {
+                    const void* const* bias, const void* wt_hi, const void* wt_lo, void* qkv,
+                    int b, int lq, int lk, int d, float scale, int self_attn, cudaStream_t st) {
   const int m = b * lq, mk = b * lk;
   const T* X = static_cast<const T*>(x);
   const T* KV = static_cast<const T*>(kv);
-  const T* W[3] = {static_cast<const T*>(w[0]), static_cast<const T*>(w[1]),
-                   static_cast<const T*>(w[2])};
   const float* B[3] = {static_cast<const float*>(bias[0]), static_cast<const float*>(bias[1]),
                        static_cast<const float*>(bias[2])};
   T* buf = static_cast<T*>(qkv);
   T* kvp = buf + (size_t)m * d;
+  using Epi = t2l::wg::EpiBiasScaleBlocks<T>;
+  const Epi eq{buf, self_attn ? 3 * d : d, B[0], B[1], B[2], d, d, scale};
+  const Epi ekv{kvp, 2 * d, B[1], B[2], B[2], d, 0, 1.f};
   if constexpr (std::is_same<T, bf16>::value) {
-    using Epi = t2l::wg::EpiBiasScaleBlocks<T>;
-    if (self_attn)
-      return t2l::wg::run(X, d, m, d, W, d, 3, d, Epi{buf, 3 * d, B[0], B[1], B[2], d, d, scale},
-                          st);
-    cudaError_t e = t2l::wg::run(X, d, m, d, W, d, 1, d,
-                                 Epi{buf, d, B[0], B[0], B[0], d, d, scale}, st);
-    if (e == cudaSuccess)
-      e = t2l::wg::run(KV, d, mk, d, W + 1, d, 2, d, Epi{kvp, 2 * d, B[1], B[2], B[2], d, 0, 1.f},
-                       st);
+    const T* W[3] = {static_cast<const T*>(w[0]), static_cast<const T*>(w[1]),
+                     static_cast<const T*>(w[2])};
+    if (self_attn) return t2l::wg::run(X, d, m, d, W, d, 3, d, eq, st);
+    cudaError_t e = t2l::wg::run(X, d, m, d, W, d, 1, d, eq, st);
+    if (e == cudaSuccess) e = t2l::wg::run(KV, d, mk, d, W + 1, d, 2, d, ekv, st);
     return e;
   } else {
-    // f32: one FMA product per weight into its column slice.
-    using Epi = t2l::gemm::EpiBiasScale<T>;
-    if (self_attn) {
-      cudaError_t e = cudaSuccess;
-      for (int j = 0; j < 3 && e == cudaSuccess; ++j)
-        e = t2l::gemm::run(X, d, W[j], d, m, d, d, Epi{buf + j * d, 3 * d, B[j], j ? 0 : d, scale},
-                           st);
-      return e;
-    }
-    cudaError_t e = t2l::gemm::run(X, d, W[0], d, m, d, d, Epi{buf, d, B[0], d, scale}, st);
-    for (int j = 1; j < 3 && e == cudaSuccess; ++j)
-      e = t2l::gemm::run(KV, d, W[j], d, mk, d, d, Epi{kvp + (j - 1) * d, 2 * d, B[j], 0, 1.f},
-                         st);
+    const float* hi = static_cast<const float*>(wt_hi);
+    const float* lo = static_cast<const float*>(wt_lo);
+    if (self_attn) return t2l::wg::run_f32(X, d, m, d, hi, lo, d, 3 * d, eq, st);
+    cudaError_t e = t2l::wg::run_f32(X, d, m, d, hi, lo, d, d, eq, st);
+    const size_t dd = (size_t)d * d;
+    if (e == cudaSuccess) e = t2l::wg::run_f32(KV, d, mk, d, hi + dd, lo + dd, d, 2 * d, ekv, st);
     return e;
   }
 }
 
 // c = round_T((a b + bias) * colscale) (the first nscale columns scaled), or
 // with res: c (f32) = (f32(res) + a b) + bias. a [m, k], b [k, n] (row
-// strides lda, ldb), c row stride ldc, res row stride ldr.
+// strides lda, ldb), c row stride ldc, res row stride ldr; in f32 the
+// product reads bt_hi / bt_lo, b's transposed split [n, k] (row stride k).
 template <typename T>
-cudaError_t gemm(const void* a, int lda, const void* b, int ldb, const void* bias, void* c,
-                 int ldc, const void* res, int ldr, int m, int n, int k, int nscale,
-                 float scale, cudaStream_t st) {
+cudaError_t gemm(const void* a, int lda, const void* b, int ldb, const void* bt_hi,
+                 const void* bt_lo, const void* bias, void* c, int ldc, const void* res,
+                 int ldr, int m, int n, int k, int nscale, float scale, cudaStream_t st) {
   const T* A = static_cast<const T*>(a);
-  const T* B = static_cast<const T*>(b);
   const float* bs = static_cast<const float*>(bias);
+  const t2l::wg::EpiBiasScaleBlocks<T> ep{static_cast<T*>(c), ldc, bs, bs, bs, n, nscale, scale};
+  const t2l::wg::EpiResidual<T> er{static_cast<float*>(c), ldc, bs, static_cast<const T*>(res),
+                                   ldr};
   if constexpr (std::is_same<T, bf16>::value) {
-    if (res == nullptr)
-      return t2l::wg::run(A, lda, m, k, &B, ldb, 1, n,
-                          t2l::wg::EpiBiasScaleBlocks<T>{static_cast<T*>(c), ldc, bs, bs, bs, n,
-                                                         nscale, scale},
-                          st);
-    return t2l::wg::run(A, lda, m, k, &B, ldb, 1, n,
-                        t2l::wg::EpiResidual<T>{static_cast<float*>(c), ldc, bs,
-                                                static_cast<const T*>(res), ldr},
-                        st);
+    const T* B = static_cast<const T*>(b);
+    if (res == nullptr) return t2l::wg::run(A, lda, m, k, &B, ldb, 1, n, ep, st);
+    return t2l::wg::run(A, lda, m, k, &B, ldb, 1, n, er, st);
   } else {
-    if (res == nullptr)
-      return t2l::gemm::run(A, lda, B, ldb, m, n, k,
-                            t2l::gemm::EpiBiasScale<T>{static_cast<T*>(c), ldc, bs, nscale,
-                                                       scale},
-                            st);
-    return t2l::gemm::run(A, lda, B, ldb, m, n, k,
-                          t2l::gemm::EpiResidual<T>{static_cast<float*>(c), ldc, bs,
-                                                    static_cast<const T*>(res), ldr},
-                          st);
+    const float* hi = static_cast<const float*>(bt_hi);
+    const float* lo = static_cast<const float*>(bt_lo);
+    if (res == nullptr) return t2l::wg::run_f32(A, lda, m, k, hi, lo, k, n, ep, st);
+    return t2l::wg::run_f32(A, lda, m, k, hi, lo, k, n, er, st);
   }
 }
 
 template <typename T>
 cudaError_t block(const void* x, const void* kv, const void* kbias, const void* const* w,
-                  const void* const* bias, const void* wo, const void* bo, const void* gamma,
-                  const void* beta, void* out, void* qkv, void* o, void* s2, int b, int lq,
-                  int lk, int d, int heads, int rows, int chunk, int sweeps, float scale,
-                  float eps, int self_attn, cudaStream_t st) {
+                  const void* const* bias, const void* wo, const void* bo, const void* wt_hi,
+                  const void* wt_lo, const void* gamma, const void* beta, void* out, void* qkv,
+                  void* o, void* s2, int b, int lq, int lk, int d, int heads, int rows,
+                  int chunk, int sweeps, float scale, float eps, int self_attn,
+                  cudaStream_t st) {
   const int m = b * lq;
   T* buf = static_cast<T*>(qkv);
-  cudaError_t e = project<T>(x, kv, w, bias, qkv, b, lq, lk, d, scale, self_attn, st);
+  cudaError_t e =
+      project<T>(x, kv, w, bias, wt_hi, wt_lo, qkv, b, lq, lk, d, scale, self_attn, st);
   const T *qp = buf, *kp, *vp;
   int ldq, ldkv;
   if (self_attn) {
@@ -613,7 +603,13 @@ cudaError_t block(const void* x, const void* kv, const void* kbias, const void* 
   if (e == cudaSuccess)
     e = attention_core<T>(qp, ldq, kp, vp, ldkv, kbias, o, b, lq, lk, d, heads, rows, chunk,
                           sweeps, st);
-  if (e == cudaSuccess) e = gemm<T>(o, d, wo, d, bo, s2, d, x, d, m, d, d, 0, 1.f, st);
+  // Wo's split: rows 3d .. 4d of the split buffers.
+  const size_t wo_at = (size_t)3 * d * d;
+  const float* hi = static_cast<const float*>(wt_hi);
+  const float* lo = static_cast<const float*>(wt_lo);
+  if (e == cudaSuccess)
+    e = gemm<T>(o, d, wo, d, hi ? hi + wo_at : nullptr, lo ? lo + wo_at : nullptr, bo, s2, d,
+                x, d, m, d, d, 0, 1.f, st);
   if (e == cudaSuccess) e = t2l::rows::layernorm<T>(s2, gamma, beta, out, m, d, eps, st);
   return e;
 }
@@ -635,48 +631,66 @@ size_t t2l_mha_tiled_core_smem(int lq, int lk, int d, int heads, int rows, int c
 // The whole block. x [b,lq,d] T, kv [b,lk,d] T (ignored when self_attn),
 // kbias [b,lk] f32, wq/wk/wv/wo [d,d] T ([in, out]), bq/bk/bv/bo/gamma/beta
 // [d] f32 -> out [b,lq,d] T. Scratch: qkv (b*lq*3d T when self_attn, else
-// b*lq*d + b*lk*2d), o [b*lq, d] T, s2 [b*lq, d] f32. (rows, chunk,
-// sweeps): the attention core's plan, as t2l_mha_tiled_core_smem takes it.
+// b*lq*d + b*lk*2d), o [b*lq, d] T, s2 [b*lq, d] f32; in f32 wt_hi and
+// wt_lo [4d, d] f32 each (NULL in bf16), into which the block first writes
+// the split of (wq, wk, wv, wo) (t2l_tf32_split_t, its one launch of that
+// kernel) for its products to read. (rows, chunk, sweeps): the attention
+// core's plan, as t2l_mha_tiled_core_smem takes it.
 int t2l_mha_addln_tiled(const void* x, const void* kv, const void* kbias, const void* wq,
                         const void* wk, const void* wv, const void* bq, const void* bk,
-                        const void* bv, const void* wo, const void* bo, const void* gamma,
-                        const void* beta, void* out, void* qkv, void* o, void* s2, int b,
-                        int lq, int lk, int d, int heads, int rows, int chunk, int sweeps,
-                        float scale, float eps, int self_attn, int dtype, void* stream) {
+                        const void* bv, const void* wo, const void* bo, void* wt_hi,
+                        void* wt_lo, const void* gamma, const void* beta, void* out, void* qkv,
+                        void* o, void* s2, int b, int lq, int lk, int d, int heads,
+                        int rows, int chunk, int sweeps, float scale, float eps, int self_attn,
+                        int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const void* w[3] = {wq, wk, wv};
   const void* bias[3] = {bq, bk, bv};
   if (dtype == t2l::kBF16)
-    return (int)block<bf16>(x, kv, kbias, w, bias, wo, bo, gamma, beta, out, qkv, o, s2, b, lq,
-                            lk, d, heads, rows, chunk, sweeps, scale, eps, self_attn, st);
-  return (int)block<float>(x, kv, kbias, w, bias, wo, bo, gamma, beta, out, qkv, o, s2, b, lq,
-                           lk, d, heads, rows, chunk, sweeps, scale, eps, self_attn, st);
+    return (int)block<bf16>(x, kv, kbias, w, bias, wo, bo, nullptr, nullptr, gamma, beta, out,
+                            qkv, o, s2, b, lq, lk, d, heads, rows, chunk, sweeps, scale, eps,
+                            self_attn, st);
+  if (wt_hi == nullptr || wt_lo == nullptr) return (int)cudaErrorInvalidValue;
+  const int e = t2l_tf32_split_t(wq, d, d, wk, d, d, wv, d, d, wo, d, d, 4, wt_hi, wt_lo, stream);
+  if (e != 0) return e;
+  return (int)block<float>(x, kv, kbias, w, bias, wo, bo, wt_hi, wt_lo, gamma, beta, out, qkv,
+                           o, s2, b, lq, lk, d, heads, rows, chunk, sweeps, scale, eps,
+                           self_attn, st);
 }
 
 // The stages one at a time, for the tests that hold each against its plain
-// version. (a): the block's projection into qkv (its layout above).
+// version. (a): the block's projection into qkv (its layout above); in f32
+// wt_hi / wt_lo as the block takes them (their first 3d rows are read).
 int t2l_mha_tiled_project(const void* x, const void* kv, const void* wq, const void* wk,
                           const void* wv, const void* bq, const void* bk, const void* bv,
-                          void* qkv, int b, int lq, int lk, int d, float scale, int self_attn,
-                          int dtype, void* stream) {
+                          const void* wt_hi, const void* wt_lo, void* qkv, int b, int lq,
+                          int lk, int d, float scale, int self_attn, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const void* w[3] = {wq, wk, wv};
   const void* bias[3] = {bq, bk, bv};
   if (dtype == t2l::kBF16)
-    return (int)project<bf16>(x, kv, w, bias, qkv, b, lq, lk, d, scale, self_attn, st);
-  return (int)project<float>(x, kv, w, bias, qkv, b, lq, lk, d, scale, self_attn, st);
+    return (int)project<bf16>(x, kv, w, bias, nullptr, nullptr, qkv, b, lq, lk, d, scale,
+                              self_attn, st);
+  if (wt_hi == nullptr || wt_lo == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)project<float>(x, kv, w, bias, wt_hi, wt_lo, qkv, b, lq, lk, d, scale, self_attn,
+                             st);
 }
 
 // One product of the chain's: res NULL gives c = round_T((a b + bias) *
 // colscale), else c (f32) = (f32(res) + a b) + bias ((c) with K = D; the
-// feed-forward chain's residual product has the same form with K = F).
-int t2l_mha_tiled_gemm(const void* a, int lda, const void* b, int ldb, const void* bias,
-                       void* c, int ldc, const void* res, int ldr, int m, int n, int k,
-                       int nscale, float scale, int dtype, void* stream) {
+// feed-forward chain's residual product has the same form with K = F). In
+// f32 the product reads bt_hi / bt_lo, b's split [n, k], instead of b.
+int t2l_mha_tiled_gemm(const void* a, int lda, const void* b, int ldb, const void* bt_hi,
+                       const void* bt_lo, const void* bias, void* c, int ldc, const void* res,
+                       int ldr, int m, int n, int k, int nscale, float scale, int dtype,
+                       void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == t2l::kBF16)
-    return (int)gemm<bf16>(a, lda, b, ldb, bias, c, ldc, res, ldr, m, n, k, nscale, scale, st);
-  return (int)gemm<float>(a, lda, b, ldb, bias, c, ldc, res, ldr, m, n, k, nscale, scale, st);
+    return (int)gemm<bf16>(a, lda, b, ldb, nullptr, nullptr, bias, c, ldc, res, ldr, m, n, k,
+                           nscale, scale, st);
+  if (bt_hi == nullptr || bt_lo == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)gemm<float>(a, lda, b, ldb, bt_hi, bt_lo, bias, c, ldc, res, ldr, m, n, k, nscale,
+                          scale, st);
 }
 
 // (b): q rows of stride ldq, k and v rows of stride ldkv -> o [b*lq, d],

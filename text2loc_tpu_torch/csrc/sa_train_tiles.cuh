@@ -86,13 +86,6 @@ __device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], const void* 
                : "r"(gemm::smem_u32(p)));
 }
 
-// x rounded to TF32 (10 mantissa bits, ties away from zero), as
-// cvt.rna.tf32.f32 rounds a finite value, in two integer operations (the
-// conversion instruction issues at a fraction of their rate).
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
 // d += a (16x8, row) . b (8x8, col), TF32 operands, f32 sums. Not volatile:
 // the compiler may interleave the products of independent accumulators.
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t* a, uint32_t b0,

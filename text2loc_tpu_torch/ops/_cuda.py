@@ -30,7 +30,7 @@ BUILD_ROOT = PACKAGE_DIR.parent / "build" / "text2loc_tpu_torch"
 SOURCES = ("fps.cu", "sa_select.cu", "sa_select_bisect.cu", "sa_gather.cu",
            "sa_exact.cu", "sa_all.cu", "mha_addln.cu", "mha_tiled.cu", "ffn_addln.cu",
            "ffn_tiled.cu", "sa_train_fwd.cu", "sa_train_bwd.cu", "sa_train_e_fwd.cu",
-           "sa_train_e_bwd.cu", "add_ln.cu", "gather_rows.cu")
+           "sa_train_e_bwd.cu", "add_ln.cu", "gather_rows.cu", "tf32_split.cu")
 HEADERS = ("common.cuh", "fused_block.cuh", "gemm_tc.cuh", "gemm_wgmma.cuh",
            "layernorm_rows.cuh", "sa_select_tc.cuh", "sa_train_tiles.cuh", "sa_train_fwd.cuh",
            "sa_train_bwd.cuh")
@@ -135,16 +135,18 @@ _SIGNATURES = {
     "t2l_mha_addln_layout": ([_I] * 8, ctypes.c_size_t),
     "t2l_mha_addln": ([_P] * 14 + [_I] * 5 + [_F, _F] + [_I] * 5 + [_P], _I),
     "t2l_mha_tiled_core_smem": ([_I] * 8, ctypes.c_size_t),
-    "t2l_mha_addln_tiled": ([_P] * 17 + [_I] * 8 + [_F, _F, _I, _I, _P], _I),
-    "t2l_mha_tiled_project": ([_P] * 9 + [_I] * 4 + [_F, _I, _I, _P], _I),
-    "t2l_mha_tiled_gemm": ([_P, _I, _P, _I, _P, _P, _I, _P] + [_I] * 5 + [_F, _I, _P], _I),
+    "t2l_mha_addln_tiled": ([_P] * 19 + [_I] * 8 + [_F, _F, _I, _I, _P], _I),
+    "t2l_mha_tiled_project": ([_P] * 11 + [_I] * 4 + [_F, _I, _I, _P], _I),
+    "t2l_mha_tiled_gemm": ([_P, _I, _P, _I, _P, _P, _P, _P, _I, _P] + [_I] * 5 + [_F, _I, _P],
+                           _I),
     "t2l_mha_tiled_core": ([_P, _I, _P, _P, _I, _P, _P] + [_I] * 9 + [_P], _I),
     "t2l_mha_tiled_ln": ([_P] * 4 + [_I, _I, _F, _I, _P], _I),
     "t2l_ffn_addln_layout": ([_I] * 5, ctypes.c_size_t),
     "t2l_ffn_addln": ([_P] * 8 + [_I] * 3 + [_F] + [_I] * 4 + [_P], _I),
-    "t2l_ffn_addln_tiled": ([_P] * 10 + [_I] * 3 + [_F, _I, _P], _I),
-    "t2l_ffn_tiled_gemm_relu": ([_P] * 4 + [_I] * 4 + [_P], _I),
-    "t2l_ffn_tiled_out_addln": ([_P] * 8 + [_I] * 3 + [_F, _I, _P], _I),
+    "t2l_ffn_addln_tiled": ([_P] * 12 + [_I] * 3 + [_F, _I, _P], _I),
+    "t2l_ffn_tiled_gemm_relu": ([_P] * 6 + [_I] * 4 + [_P], _I),
+    "t2l_ffn_tiled_out_addln": ([_P] * 10 + [_I] * 3 + [_F, _I, _P], _I),
+    "t2l_tf32_split_t": ([_P, _I, _I] * 4 + [_I, _P, _P, _P], _I),
     **{f"t2l_sa_train_{d}_smem": ([_I] * 7, ctypes.c_size_t) for d in ("fwd", "bwd")},
     **{f"t2l_sa_train{e}_fwd": ([_I] + [_P] * 9 + [_I] * 10 + [_P], _I) for e in ("", "_e")},
     **{f"t2l_sa_train{e}_bwd": ([_I] + [_P] * 13 + [_I] * 10 + [_P], _I) for e in ("", "_e")},

@@ -1,11 +1,12 @@
 """Wrappers of the feed-forward block's two CUDA kernels: the fused block to
 d=256 (csrc/ffn_addln.cu: tiles of rows, each on one CUDA block or with the
 hidden split over a cluster of blocks, as fused_plan says); the tiled chain
-over all rows (csrc/ffn_tiled.cu: two products, on wgmma fed by TMA in bf16
-(csrc/gemm_wgmma.cuh) and on FP32 FMAs in f32, then the row LayerNorm of
-csrc/layernorm_rows.cuh) above it and wherever the fused block's one-block
-layout does not fit in shared memory. `route` picks one; there is no
-fallback."""
+over all rows (csrc/ffn_tiled.cu: two products on wgmma fed by TMA
+(csrc/gemm_wgmma.cuh), in bf16 on the weights as given, in f32 as 3xTF32
+on their transposed split (csrc/tf32_split.cu, which the chain's entry
+launches first), then the row LayerNorm of csrc/layernorm_rows.cuh) above it
+and wherever the fused block's one-block layout does not fit in shared
+memory. `route` picks one; there is no fallback."""
 
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from text2loc_tpu_torch.ops import _cuda, cuda_ln
+from text2loc_tpu_torch.ops import _cuda, cuda_ln, cuda_split
 
 KERNEL = _cuda.Kernel(
     name="ffn_addln",
@@ -152,23 +153,31 @@ def _operands(x, w1, b1, w2, b2, scale, bias):
 
 def ffn_addln_cuda(x, w1, b1, w2, b2, scale, bias, eps: float = 1e-5):
     """[..., D] in x.dtype; the arguments as ffn_addln_plain's. The fused
-    kernel or the tiled chain, by `route`."""
+    kernel or the tiled chain, by `route`; in f32 the chain's entry first
+    writes the split of W1 and W2 (a launch of cuda_split.KERNEL, counted
+    here) into scratch."""
     d, f = x.shape[-1], w1.shape[1]
     if route(d, f, x.dtype) == "fused":
         return fused_block_cuda(x, w1, b1, w2, b2, scale, bias, eps)
     check_tiled(d, f, x.dtype)
-    ops = _operands(x, w1, b1, w2, b2, scale, bias)
+    w1_, b1_, w2_, b2_, g_, be_ = _operands(x, w1, b1, w2, b2, scale, bias)
     rows = x.numel() // d
     # Scratch: the hidden [rows, F] in the dtype (208 MB in bf16 at the
     # intra stack's 25,344 rows), the pre-norm rows [rows, D] in f32.
     h = torch.empty((rows, f), dtype=x.dtype, device=x.device)
     s2 = torch.empty((rows, d), dtype=torch.float32, device=x.device)
     out = torch.empty_like(x)
+    f32 = x.dtype == torch.float32
+    # f32: the split of W1 and W2 (W1^T [F, D], then W2^T [D, F]), hi and lo.
+    wt = torch.empty((2, 2 * d * f), dtype=x.dtype, device=x.device) if f32 else None
     if rows:
-        _cuda.launch(KERNEL_TILED, "t2l_ffn_addln_tiled", _cuda.ptr(x),
-                     *(_cuda.ptr(t) for t in ops), _cuda.ptr(out), _cuda.ptr(h),
-                     _cuda.ptr(s2), rows, d, f, ctypes.c_float(eps),
-                     _cuda.DTYPE_CODE[x.dtype])
+        _cuda.launch(KERNEL_TILED, "t2l_ffn_addln_tiled",
+                     *(_cuda.ptr(t) for t in (x, w1_, b1_, w2_, b2_)),
+                     *(cuda_split.halves(wt) if f32 else (None, None)),
+                     *(_cuda.ptr(t) for t in (g_, be_, out, h, s2)), rows, d, f,
+                     ctypes.c_float(eps), _cuda.DTYPE_CODE[x.dtype])
+        if f32:
+            cuda_split.KERNEL.launches += 1
     return out
 
 
@@ -226,9 +235,10 @@ def fused_block_cuda(x, w1, b1, w2, b2, scale, bias, eps: float = 1e-5, *, out=N
 # launches of the block.
 
 
-def tiled_hidden_cuda(x, w1, b1):
+def tiled_hidden_cuda(x, w1, b1, *, split=None):
     """Stage (a): round(relu(x W1 + b1)) [..., F] in x.dtype, as
-    ffn_hidden_plain."""
+    ffn_hidden_plain; in f32 on W1's split, `split` (cuda_split's (hi, lo)
+    of W1) or made here, launched uncounted."""
     dt = x.dtype
     _cuda.check(x, "x", dtype=dt)
     d, f = x.shape[-1], w1.shape[1]
@@ -237,15 +247,17 @@ def tiled_hidden_cuda(x, w1, b1):
     _cuda.check(w1_, "w1", shape=(d, f))
     _cuda.check(b1_, "b1", shape=(f,))
     h = torch.empty((*x.shape[:-1], f), dtype=dt, device=x.device)
-    _cuda.launch(KERNEL_TILED, "t2l_ffn_tiled_gemm_relu", _cuda.ptr(x), _cuda.ptr(w1_),
+    wt, _keep = cuda_split.stage_args((w1_,), dt, split=split)
+    _cuda.launch(KERNEL_TILED, "t2l_ffn_tiled_gemm_relu", _cuda.ptr(x), _cuda.ptr(w1_), *wt,
                  _cuda.ptr(b1_), _cuda.ptr(h), x.numel() // d, d, f, _cuda.DTYPE_CODE[dt],
                  count=False)
     return h
 
 
-def tiled_out_addln_cuda(x, h, w2, b2, scale, bias, eps: float = 1e-5):
+def tiled_out_addln_cuda(x, h, w2, b2, scale, bias, eps: float = 1e-5, *, split=None):
     """Stages (b) and (c): LayerNorm((f32(x) + h W2) + b2) [..., D] in
-    x.dtype, as ffn_out_addln_plain; x [..., D], h [..., F], w2 [F, D]."""
+    x.dtype, as ffn_out_addln_plain; x [..., D], h [..., F], w2 [F, D]; in
+    f32 on W2's split, `split` or made here, launched uncounted."""
     dt = x.dtype
     _cuda.check(x, "x", dtype=dt)
     d, f = x.shape[-1], h.shape[-1]
@@ -260,7 +272,8 @@ def tiled_out_addln_cuda(x, h, w2, b2, scale, bias, eps: float = 1e-5):
     s2 = torch.empty((rows, d), dtype=torch.float32, device=x.device)
     out = torch.empty_like(x)
     if rows:
-        _cuda.launch(KERNEL_TILED, "t2l_ffn_tiled_out_addln",
-                     *(_cuda.ptr(t) for t in (x, h, w2_, b2_, g_, be_, out, s2)),
+        wt, _keep = cuda_split.stage_args((w2_,), dt, split=split)
+        _cuda.launch(KERNEL_TILED, "t2l_ffn_tiled_out_addln", _cuda.ptr(x), _cuda.ptr(h),
+                     _cuda.ptr(w2_), *wt, *(_cuda.ptr(t) for t in (b2_, g_, be_, out, s2)),
                      rows, d, f, ctypes.c_float(eps), _cuda.DTYPE_CODE[dt], count=False)
     return out

@@ -1,11 +1,12 @@
 """Wrappers of the attention block's two CUDA kernels: the fused block to
 d=256 (csrc/mha_addln.cu: groups of samples, each on one CUDA block or on a
 cluster of one block per head, as fused_plan says); the tiled chain over
-all rows (csrc/mha_tiled.cu: wgmma products fed by TMA in bf16
-(csrc/gemm_wgmma.cuh), FP32 FMA products in f32, a tensor-core attention
-core planned by core_layout, a row LayerNorm) above it and wherever the
-fused block does not take the shape. `route` picks one; there is no
-fallback."""
+all rows (csrc/mha_tiled.cu: wgmma products fed by TMA (csrc/gemm_wgmma.cuh),
+in bf16 on the weights as given, in f32 as 3xTF32 on their transposed
+split (csrc/tf32_split.cu, which the chain's entry launches first), a tensor-core
+attention core planned by core_layout, a row LayerNorm) above it and
+wherever the fused block does not take the shape. `route` picks one; there
+is no fallback."""
 
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from text2loc_tpu_torch.ops import _cuda, cuda_ln
+from text2loc_tpu_torch.ops import _cuda, cuda_ln, cuda_split
 
 KERNEL = _cuda.Kernel(
     name="mha_addln",
@@ -206,10 +207,16 @@ def _check_block(x, kv, mats, vecs, num_heads):
     _cuda.check(x, "x", dtype=dt)
     if kv is not x:
         _cuda.check(kv, "kv", dtype=dt)
-    for name, t in zip(("wq", "wk", "wv", "wo"), mats):
-        _cuda.check(t, name, shape=(d, d))
-    for name, t in zip(("bq", "bk", "bv", "bo", "scale", "bias"), vecs):
-        _cuda.check(t, name, shape=(d,))
+    # x passed the full check; the others need only x's device, their shapes
+    # and contiguity (one device query a call: the check is on the host's
+    # path before every launch).
+    index = x.get_device()
+    for names, ts, shape in ((("wq", "wk", "wv", "wo"), mats, (d, d)),
+                             (("bq", "bk", "bv", "bo", "scale", "bias"), vecs, (d,))):
+        for name, t in zip(names, ts):
+            if t.get_device() != index or t.shape != shape or not t.is_contiguous():
+                raise ValueError(f"{name}: {tuple(t.shape)} on {t.device}, expected a "
+                                 f"contiguous {shape} on {x.device}")
     return b, lq, lk, d
 
 
@@ -228,8 +235,8 @@ def mha_addln_cuda(x, kv, wq, bq, wk, bk, wv, bv, wo, bo, scale, bias,
         launch_fused(x, kv, (wq, wk, wv, wo), (bq, bk, bv, bo, scale, bias), key_mask, out,
                      num_heads=num_heads, eps=eps)
         return out
-    # The products read bf16 weights by TMA (f32 ones as they are): the
-    # model's f32 weights are cast in bf16, nothing is packed.
+    # The products read bf16 weights by TMA (the model's f32 weights cast,
+    # nothing packed), f32 weights through their split.
     mats = [_cuda.as_given(t, dt) for t in (wq, wk, wv, wo)]
     vecs = [_cuda.as_given(t, torch.float32) for t in (bq, bk, bv, bo, scale, bias)]
     b, lq, lk, d = _check_block(x, kv, mats, vecs, num_heads)
@@ -284,10 +291,12 @@ def launch_fused(x, kv, mats, vecs, key_mask, out, *, num_heads: int, eps: float
 
 
 def _tiled_block(x, kv, kb, mats, vecs, num_heads, eps, self_attn, layout):
-    """One call of t2l_mha_addln_tiled: the projection product(s), the core
-    (of `layout`), the out-projection with the residual, the LayerNorm; the
-    weights and biases passed as they are, one pointer each. Scratch from
-    torch.empty: q/k/v and o in the dtype, the pre-norm rows in f32."""
+    """One call of t2l_mha_addln_tiled: in f32 the split of the four
+    weights (a launch of cuda_split.KERNEL, counted here), then the
+    projection product(s), the core (of `layout`), the out-projection with
+    the residual, the LayerNorm; the weights and biases passed as they are,
+    one pointer each. Scratch from torch.empty: q/k/v and o in the dtype,
+    the pre-norm rows in f32, in f32 the split [2, 4D, D]."""
     dt = x.dtype
     b, lq, d = x.shape
     lk = kv.shape[1]
@@ -299,15 +308,20 @@ def _tiled_block(x, kv, kb, mats, vecs, num_heads, eps, self_attn, layout):
     o = torch.empty((m, d), dtype=dt, device=x.device)
     s2 = torch.empty((m, d), dtype=torch.float32, device=x.device)
     out = torch.empty_like(x)
+    f32 = dt == torch.float32
+    wt = torch.empty((2, 4 * d * d), dtype=dt, device=x.device) if f32 else None
     if b:
         _cuda.launch(
             KERNEL_TILED, "t2l_mha_addln_tiled",
-            *(_cuda.ptr(t) for t in (x, kv, kb, wq, wk, wv, bq, bk, bv, wo, bo, g, be, out,
-                                     qkv, o, s2)),
+            *(_cuda.ptr(t) for t in (x, kv, kb, wq, wk, wv, bq, bk, bv, wo, bo)),
+            *(cuda_split.halves(wt) if f32 else (None, None)),
+            *(_cuda.ptr(t) for t in (g, be, out, qkv, o, s2)),
             b, lq, lk, d, num_heads, layout.rows, layout.chunk, layout.sweeps,
             ctypes.c_float(1.0 / math.sqrt(d // num_heads)), ctypes.c_float(eps),
             int(self_attn), _cuda.DTYPE_CODE[dt],
         )
+        if f32:
+            cuda_split.KERNEL.launches += 1
     return out
 
 
@@ -316,22 +330,26 @@ def _tiled_block(x, kv, kb, mats, vecs, num_heads, eps, self_attn, layout):
 # do not count as launches of the block.
 
 
-def _gemm(a, w, bias, c, *, res=None, nscale=0, scale=1.0):
+def _gemm(a, w, bias, c, *, res=None, nscale=0, scale=1.0, split=None):
     """c = round((a w + bias) * colscale) (the first nscale columns scaled),
     or with `res` c (f32) = (f32(res) + a w) + bias. a [M, K], w [K, N], c
-    [M, N] and res [M, N] contiguous."""
+    [M, N] and res [M, N] contiguous; in f32 on w's split, `split` or made
+    here, launched uncounted."""
     m, k = a.shape
     n = c.shape[1]
+    wt, _keep = cuda_split.stage_args((w,), a.dtype, split=split)
     _cuda.launch(KERNEL_TILED, "t2l_mha_tiled_gemm", _cuda.ptr(a), k, _cuda.ptr(w),
-                 w.stride(0), _cuda.ptr(bias), _cuda.ptr(c), c.stride(0),
+                 w.stride(0), *wt, _cuda.ptr(bias), _cuda.ptr(c), c.stride(0),
                  None if res is None else _cuda.ptr(res), n, m, n, k, nscale,
                  ctypes.c_float(scale), _cuda.DTYPE_CODE[a.dtype], count=False)
 
 
-def tiled_project_cuda(x, kv, wq, bq, wk, bk, wv, bv, *, num_heads: int):
+def tiled_project_cuda(x, kv, wq, bq, wk, bk, wv, bv, *, num_heads: int, split=None):
     """Stage (a): (q, k, v) as mha_project_plain returns them, by the
     projection product(s) of the main path (one over Wq, Wk, Wv side by side
-    when `kv is x`, else x Wq and kv [Wk|Wv])."""
+    when `kv is x`, else x Wq and kv [Wk|Wv]); in f32 on the three weights'
+    split, `split` (cuda_split's (hi, lo) of Wq, Wk, Wv) or made here,
+    launched uncounted."""
     dt = x.dtype
     b, lq, d = x.shape
     lk = kv.shape[1]
@@ -348,8 +366,9 @@ def tiled_project_cuda(x, kv, wq, bq, wk, bk, wv, bv, *, num_heads: int):
     qkv = torch.empty(m * 3 * d if self_attn else m * d + mk * 2 * d, dtype=dt,
                       device=x.device)
     if b:
+        wt, _keep = cuda_split.stage_args(mats, dt, split=split)
         _cuda.launch(KERNEL_TILED, "t2l_mha_tiled_project", _cuda.ptr(x), _cuda.ptr(kv),
-                     *(_cuda.ptr(t) for t in (*mats, *vecs, qkv)), b, lq, lk, d,
+                     *(_cuda.ptr(t) for t in (*mats, *vecs)), *wt, _cuda.ptr(qkv), b, lq, lk, d,
                      ctypes.c_float(1.0 / math.sqrt(d // num_heads)), int(self_attn),
                      _cuda.DTYPE_CODE[dt], count=False)
     if self_attn:
@@ -380,10 +399,11 @@ def tiled_core_cuda(q, k, v, key_mask=None, *, num_heads: int):
     return o
 
 
-def tiled_out_addln_cuda(x, o, wo, bo, scale, bias, *, eps: float = 1e-5):
+def tiled_out_addln_cuda(x, o, wo, bo, scale, bias, *, eps: float = 1e-5, split=None):
     """Stages (c) and (d): LayerNorm((f32(x) + o Wo) + bo) in x.dtype, as
     mha_out_addln_plain; x [..., D], o [..., K] and wo [K, D] (K = D in the
-    block). The feed-forward chain's stages (b) and (c) have their own entry,
+    block); in f32 on Wo's split, `split` or made here. The feed-forward
+    chain's stages (b) and (c) have their own entry,
     cuda_ffn.tiled_out_addln_cuda."""
     dt = x.dtype
     d, k = x.shape[-1], o.shape[-1]
@@ -395,7 +415,7 @@ def tiled_out_addln_cuda(x, o, wo, bo, scale, bias, *, eps: float = 1e-5):
                                                  for t in (bo, scale, bias)))
     _cuda.check(wo_, "wo", shape=(k, d))
     s2 = torch.empty((m, d), dtype=torch.float32, device=x.device)
-    _gemm(o.reshape(m, k), wo_, bo_, s2, res=x.reshape(m, d))
+    _gemm(o.reshape(m, k), wo_, bo_, s2, res=x.reshape(m, d), split=split)
     out = torch.empty_like(x)
     _cuda.launch(KERNEL_TILED, "t2l_mha_tiled_ln", _cuda.ptr(s2), _cuda.ptr(g),
                  _cuda.ptr(be), _cuda.ptr(out), m, d, ctypes.c_float(eps),
