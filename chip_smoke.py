@@ -45,8 +45,9 @@ toolkit. Phases, each printing one JSON line:
    wide layout): D=2048 in f32 and 4096 in bf16, 16 heads, F = 4D, a few
    hundred rows, lines of their own, not summed, with stock_ms, the f32
    lines faster than plain, the feed-forward chain's stages too. The
-   chains' f32 products run as 3xTF32 on the tensor cores: their f32
-   lines' bound_ms counts the FLOPs at F32_TC_FLOPS; each f32 case first
+   chains' f32 products run as 3xTF32 on the tensor cores, as the fused
+   blocks' do: their f32 lines' bound_ms counts the FLOPs at F32_TC_FLOPS;
+   each tiled f32 case first
    puts the weights' TF32 split (tf32_split, csrc/tf32_split.cu) on a
    kernel line of its own, bit-equal to its plain version, with kernel_ms,
    the intra cases' lines summed; the stages run on that split; and a
@@ -55,7 +56,9 @@ toolkit. Phases, each printing one JSON line:
    line only) against the f32 limit, which they must miss;
    then the training SA level (sa_train_fwd, sa_train_bwd)
    against its plain forward and hand-derived plain backward at the coarse
-   train step's three levels (896 clouds, K=32), f32 and bf16, each case
+   train step's three levels (896 clouds, K=32), f32 and bf16 (the f32
+   lines' bound_ms at F32_TC_FLOPS, as the inference SA lines' in f32:
+   their products run 3xTF32 too), each case
    line with its passes alone (stages: ms of stats1 / stats2 / out for the
    forward, of stats / mid / in for the backward, reduces included) and per
    pass its tiles (count, mean filled rows), blocks_per_sm, tile rows and
@@ -68,6 +71,13 @@ toolkit. Phases, each printing one JSON line:
    weights; batches of 1, 8 and 64 queries; every serve kernel's launch
    count during the build and the queries must be > 0 (mha_addln and
    mha_addln_tiled among them; ffn_addln_tiled launches 0 times);
+4b. trace: one batch-8 localize of phase 4's serve under
+   utils/profiling.profile_trace on the card: the *.pt.trace.json it
+   writes holds as many kernel events of mha_addln and ffn_addln as their
+   launch counters count (a window that lost device events taken again,
+   up to TRACE_WINDOWS), and no other kernel launched; the event counts,
+   the trace's size and its kernel time on a line with the card's name
+   and power limit;
 5. serve_vs_cpu: the same weights in f32 on the card and on the CPU (plain
    versions) over an 8-cell map, by path (the cached serve, the stepwise
    path precompute_fine=False, localize_embedded): equal top-1 cells where
@@ -179,9 +189,11 @@ toolkit. Phases, each printing one JSON line:
    and loaded by T5OnlineEncoder.from_snapshot on the card (write and load
    seconds); the same weights cut to 2 layers, card against CPU in f32
    over 48 styled sentences (TF32 off; largest absolute difference at most
-   1e-3) and, as the online encoder of f32 Localizers over the scene,
-   localize_text of 8 styled descriptions card against CPU (phase 5's
-   criteria); the median ms of encode at 48 and 8 sentences, token
+   1e-3) and in bf16 (the snapshot loaded again with dtype "bfloat16"; at
+   most T5_BF16_SPACINGS bf16 spacings at the largest |CPU output|) and, as
+   the online encoder of f32 Localizers over the scene, localize_text of 8
+   styled descriptions card against CPU (phase 5's criteria); the median ms
+   of encode at 48 and 8 sentences, f32 and bf16 (24 layers), token
    positions a second and peak memory; localize_text of the 8 styled
    descriptions at Config() width (bf16) through the full encoder (median
    ms, top-1, launches a call; one T5 call a batch), and of 8 canonical
@@ -242,7 +254,7 @@ and the training level of the token "e" (sa_train_e_fwd / _bwd) at the coarse
 step's three levels (f32, bf16), with the time of one PyTorch call that
 computes the same function where there is one (library_ms).
 
-Then the kernels line (launches: the counts during phases 4, 5b, 6, 8, 9b
+Then the kernels line (launches: the counts during phases 4, 4b, 5b, 6, 8, 9b
 (every rank), 10 (serve_optin too), 12, 14, 15, 16 and 17, each path's counts set
 to 0 just before it;
 max_abs_err, ms, plain_ms, bound_ms and library_ms: over the inference
@@ -358,11 +370,20 @@ def _rand(gen, shape, scale, dev, mean=0.0):
 # Published peaks of one H100 SXM (dense): f32 outside the tensor cores,
 # bf16 tensor cores, HBM bandwidth. F32_TC_FLOPS: f32 products as 3xTF32 on
 # the tensor cores (three TF32 products at 495 TFLOP/s each), the peak of
-# the tiled chains' f32 lines (their products and their attention core);
-# FPS and the other f32 lines keep the FP32 peak.
+# every f32 line whose products run so: the tiled chains' (their products
+# and their attention core), the fused attention and feed-forward blocks'
+# and the SA tile kernel's in every selection, and the training SA
+# level's, forward and backward, recompute and "e" (Mma<float>,
+# csrc/sa_train_tiles.cuh). FPS, which has no product, keeps the FP32 peak.
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 F32_TC_FLOPS = 495e12 / 3
 HBM_BYTES_PER_S = 3.35e12
+
+
+def _sa_peak(dt):
+    """The SA kernels' peak (inference tiles and the training level): their
+    f32 products run 3xTF32."""
+    return F32_TC_FLOPS if dt == torch.float32 else None
 
 
 def bound(flops: float, nbytes: float, dtype, peak=None):
@@ -494,7 +515,8 @@ def phase_sa_kernels(dev, gen, pts, xyz, records) -> None:
             fixed = n * s * (12 + h2 * es) + (cin * h1 + h1 * h2) * es + 8 * (h1 + h2)
 
             def work(e, nbytes, h1=h1, h2=h2, lp=lp, cin=cin, s=s):
-                return (2.0 * (n * lp * cin * h1 + n * s * 3 * h1 + e * h1 * h2), nbytes, dt)
+                return (2.0 * (n * lp * cin * h1 + n * s * 3 * h1 + e * h1 * h2), nbytes, dt,
+                        _sa_peak(dt))
 
             tag = f"P={lp} S={s} {cin}->{h1}->{h2}"
             args = (feat, pos, ctr, w1, wp, ab1, w2, ab2, radius, k)
@@ -891,7 +913,7 @@ def phase_kernels(dev) -> dict:
             fused = kname == "mha_addln"
             tiled = not fused
             long = name.startswith("long")
-            f32_tc = tiled and dt == torch.float32
+            f32_tc = dt == torch.float32     # 3xTF32 products on either route
             work = (2.0 * (2 * b * lq * d * d + 2 * b * lk * d * d + 2 * b * lq * lk * d),
                     2 * b * lq * d * es + (0 if self_attn else b * lk * d * es)
                     + 4 * d * d * 4 + 6 * d * 4 + b * lk, dt, F32_TC_FLOPS if f32_tc else None)
@@ -941,7 +963,7 @@ def phase_kernels(dev) -> dict:
             kname = "ffn_addln" if cuda_ffn.route(d, f, dt) == "fused" else "ffn_addln_tiled"
             fused = kname == "ffn_addln"
             tiled = not fused
-            f32_tc = tiled and dt == torch.float32
+            f32_tc = dt == torch.float32     # 3xTF32 products on either route
             work = (4.0 * rows * d * f, 2 * rows * d * es + 2 * d * f * 4 + (f + 3 * d) * 4,
                     dt, F32_TC_FLOPS if f32_tc else None)
             # Every line: stock_ms, the port's stock block; the fused lines:
@@ -1174,7 +1196,7 @@ def phase_sa_train_kernels(dev) -> dict:
                 [(out, want_out)] + list(zip(stats, want_stats)), fwd,
                 lambda dt=dt: sa_train.sa_train_plain(
                     u, sv, w2, b2, g1, be1, g2, be2, idx, maskm, maskf, compute_dtype=dt),
-                (2.0 * edges * h1 * h2, io_bytes + n * s * h2 * 4, dt),
+                (2.0 * edges * h1 * h2, io_bytes + n * s * h2 * 4, dt, _sa_peak(dt)),
                 counts=dt == torch.float32, info=_fwd_info(level, aux1, aux2))
             n1 = stats[4]
             _sa_train_bwd_case(
@@ -1185,7 +1207,7 @@ def phase_sa_train_kernels(dev) -> dict:
                 None, (u, sv, w2, idx, maskm),
                 (4.0 * edges * h1 * h2,
                  io_bytes + n * s * h2 * 4
-                 + (n * p * h1 + n * s * h1 + h1 * h2 + 2 * h1 + 3 * h2) * 4, dt),
+                 + (n * p * h1 + n * s * h1 + h1 * h2 + 2 * h1 + 3 * h2) * 4, dt, _sa_peak(dt)),
                 dt == torch.float32)
             _sa_train_e_cases(records, tag, dt, edges, io_bytes,
                               (u, sv, w2, b2, g1, be1, g2, be2, idx, maskm, maskf), dout)
@@ -1218,7 +1240,7 @@ def _sa_train_e_cases(records, tag, dt, edges, io_bytes, args, dout):
     want_out, want_stats = plain()
     records["sa_train_e_fwd"].add(
         f"sa_train_e_fwd {tag}", dt, [(out, want_out)] + list(zip(stats, want_stats)), fwd,
-        plain, (2.0 * edges * h1 * h2, io_bytes + n * s * h2 * 4, dt),
+        plain, (2.0 * edges * h1 * h2, io_bytes + n * s * h2 * 4, dt, _sa_peak(dt)),
         counts=dt == bf16, info=_fwd_info(level, aux1, aux2))
     n1 = stats[4]
     _sa_train_bwd_case(
@@ -1228,7 +1250,8 @@ def _sa_train_e_cases(records, tag, dt, edges, io_bytes, args, dout):
         bf16, (u, sv, w2, idx, maskm),
         (4.0 * edges * h1 * h2,
          io_bytes + n * s * h2 * 4
-         + (n * u.shape[1] * h1 + n * s * h1 + h1 * h2 + 2 * h1 + 3 * h2) * 4, dt),
+         + (n * u.shape[1] * h1 + n * s * h1 + h1 * h2 + 2 * h1 + 3 * h2) * 4, dt,
+         _sa_peak(dt)),
         dt == bf16)
 
 
@@ -1513,6 +1536,79 @@ def phase_serve(dev, kernels, absent=(), options=None, phase="serve") -> dict:
           "launches": counts})
     check(all(counts[k.name] > 0 for k in kernels), f"a kernel never launched: {counts}")
     _check_absent(counts, absent, phase)
+    return counts
+
+
+# The serve kernels a traced batch-8 localize launches, by the name of
+# their CUDA function in the trace's kernel events. The profiler at times
+# drops device events from a window (tests/test_torch_port_cuda.py
+# PROFILER_WINDOWS): such a window is taken again, up to TRACE_WINDOWS.
+TRACE_EVENTS = {"mha_addln": "mha_addln_kernel", "ffn_addln": "ffn_addln_kernel"}
+TRACE_WINDOWS = 5
+
+
+def phase_trace(dev, kernels, smi: str) -> dict:
+    """utils/profiling.profile_trace around one batch-8 Localizer.localize
+    of phase 4's serve on the card: the written *.pt.trace.json holds as
+    many kernel events of mha_addln and ffn_addln as their launch counters
+    count in that window (and no other kernel of `kernels` launched).
+    Returns the launches of the window taken."""
+    import glob
+    import tempfile
+
+    from text2loc_tpu_torch.config import Config
+    from text2loc_tpu_torch.models.text_embedding import HintTextEmbedder
+    from text2loc_tpu_torch.serving import Localizer
+    from text2loc_tpu_torch.utils.profiling import profile_trace
+
+    cfg = Config()
+    data = _map(2, 32, cfg)
+    coarse, fine = _models(cfg, torch.Generator().manual_seed(SEED))
+    emb = HintTextEmbedder.compositional(cfg.model.text_embed_dim, cfg.model.max_hint_tokens)
+    loc = Localizer(data, coarse, fine, emb, cfg, top_k=10, device=dev)
+    q = np.arange(8) % data.num_poses
+    args = (data.hint_dir[q], data.hint_color[q], data.hint_label[q], data.hint_mask[q])
+    loc.localize(*args)
+    torch.cuda.synchronize()
+    report = {"phase": "trace", "card": smi, "batch": 8}
+    with tempfile.TemporaryDirectory() as tmp:
+        for window in range(1, TRACE_WINDOWS + 1):
+            log_dir = os.path.join(tmp, f"window{window}")
+            for k in kernels:
+                k.launches = 0
+            t = time.perf_counter()
+            with profile_trace(log_dir):
+                res = loc.localize(*args)
+                torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+            counts = {k.name: k.launches for k in kernels}
+            files = glob.glob(os.path.join(log_dir, "*.pt.trace.json"))
+            check(len(files) == 1, f"trace window {window}: trace files {files}")
+            with open(files[0]) as f:
+                trace = json.load(f)
+            kernel_events = [e for e in trace.get("traceEvents", [])
+                             if isinstance(e, dict) and e.get("cat") == "kernel"]
+            events = {k: sum(fn in e.get("name", "") for e in kernel_events)
+                      for k, fn in TRACE_EVENTS.items()}
+            if all(events[k] == counts[k] for k in TRACE_EVENTS):
+                break
+            check(all(events[k] <= counts[k] for k in TRACE_EVENTS),
+                  f"trace window {window}: more kernel events than launches: {events} "
+                  f"against {counts}")
+        report.update({
+            "windows": window, "trace_file": os.path.basename(files[0]),
+            "trace_bytes": os.path.getsize(files[0]), "kernel_events": len(kernel_events),
+            "kernel_ms": sum(e.get("dur", 0) for e in kernel_events) / 1e3,
+            "events": events, "launches": counts, "traced_wall_ms": wall_ms})
+    emit(report)
+    _check_result(res, data, 8, loc.top_k)
+    check(all(counts[k] > 0 for k in TRACE_EVENTS), f"the traced batch launched {counts}")
+    check(events == {k: counts[k] for k in TRACE_EVENTS},
+          f"no trace window of {TRACE_WINDOWS} held every launch: events {events}, "
+          f"launches {counts}")
+    others = {k: v for k, v in counts.items() if k not in TRACE_EVENTS and v}
+    check(not others, f"the traced batch launched kernels the trace check does not read: "
+                      f"{others}")
     return counts
 
 
@@ -3084,6 +3180,10 @@ T5_LARGE = dict(vocab_size=32128, d_model=1024, d_kv=64, num_heads=16, d_ff=4096
                 relative_attention_num_buckets=32, relative_attention_max_distance=128)
 T5_CPU_LAYERS = 2      # the card-vs-CPU encoder: the same weights cut to two layers
 T5_CPU_LIMIT = 1e-3    # its largest absolute embedding difference, f32
+# The cut in bf16: its largest absolute difference from the CPU's bf16
+# forward within this many bf16 spacings at the largest |CPU output|, the
+# bound tests/test_torch_port_t5.py holds the CPU forward to against JAX.
+T5_BF16_SPACINGS = 2
 
 
 def t5_state_dict(widths: dict, seed: int) -> dict:
@@ -3195,7 +3295,14 @@ def phase_t5_text(dev, kernels, smi: str, data, absent=()) -> dict:
         full = T5.T5OnlineEncoder.from_snapshot(tmp, max_tokens=tokens, device=dev)
         torch.cuda.synchronize()
         report["load_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        full_bf16 = T5.T5OnlineEncoder.from_snapshot(tmp, max_tokens=tokens,
+                                                     dtype="bfloat16", device=dev)
+        torch.cuda.synchronize()
+        report["load_bf16_s"] = time.perf_counter() - t
     check(full.cfg == T5.T5Config(**widths), f"the snapshot loaded as {full.cfg}")
+    check(full_bf16.cfg == T5.T5Config(**widths, dtype="bfloat16"),
+          f"the bf16 snapshot loaded as {full_bf16.cfg}")
     check(full.model.token_embed.device.type == torch.device(dev).type,
           "the encoder's weights are not on the card")
 
@@ -3208,6 +3315,9 @@ def phase_t5_text(dev, kernels, smi: str, data, absent=()) -> dict:
     params, cut_cfg = T5.convert_t5_encoder(cut, widths["relative_attention_max_distance"])
     small = {"cuda": T5.T5OnlineEncoder(params, cut_cfg, full.tokenizer, tokens, device=dev),
              "cpu": T5.T5OnlineEncoder(params, cut_cfg, full.tokenizer, tokens, device="cpu")}
+    cut_bf16 = dataclasses.replace(cut_cfg, dtype="bfloat16")
+    small_bf16 = {w: T5.T5OnlineEncoder(params, cut_bf16, full.tokenizer, tokens, device=d)
+                  for w, d in (("cuda", dev), ("cpu", "cpu"))}
     del cut, params
     rng = np.random.default_rng(SEED + 15)
     poses = np.arange(8)
@@ -3222,6 +3332,21 @@ def phase_t5_text(dev, kernels, smi: str, data, absent=()) -> dict:
                              "real_tokens": int(m_cpu.sum())}
     check(np.array_equal(m_card, m_cpu), "the card's token mask differs from the CPU's")
     check(err <= T5_CPU_LIMIT, f"T5 card vs CPU: {err} > {T5_CPU_LIMIT}")
+
+    # The same cut in bf16, card against CPU.
+    (b_card, bm_card), (b_cpu, bm_cpu) = (small_bf16[w].encode(sentences)
+                                          for w in ("cuda", "cpu"))
+    peak = float(np.abs(b_cpu).max())
+    limit = T5_BF16_SPACINGS * 2.0 ** (np.floor(np.log2(peak)) - 7)
+    diff = np.abs(b_card - b_cpu)
+    report["card_vs_cpu_bf16"] = {"layers": T5_CPU_LAYERS, "sentences": len(sentences),
+                                  "max_abs_err": float(diff.max()), "limit": float(limit),
+                                  "spacings": T5_BF16_SPACINGS, "max_abs_cpu": peak,
+                                  "mean_abs_err": float(diff.mean())}
+    check(np.array_equal(bm_card, bm_cpu), "bf16: the card's token mask differs from the CPU's")
+    check(bool(np.isfinite(b_card).all()) and float(diff.max()) <= limit,
+          f"T5 bf16 card vs CPU: {report['card_vs_cpu_bf16']}")
+    del small_bf16
 
     # The f32 localize_text through the two-layer cut, card against CPU.
     emb = HintTextEmbedder.compositional(cfg.model.text_embed_dim, tokens)
@@ -3250,6 +3375,13 @@ def phase_t5_text(dev, kernels, smi: str, data, absent=()) -> dict:
     report["encode_ms"] = encode_ms
     report["tokens_per_s"] = {n: int(n) * tokens / (ms / 1e3) for n, ms in encode_ms.items()}
     report["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    # The full encoder in bf16 (24 layers), beside the f32 figures.
+    e_bf16, _ = full_bf16.encode(sentences)
+    check(e_bf16.shape == (48, tokens, widths["d_model"]) and bool(np.isfinite(e_bf16).all()),
+          f"the bf16 encoder: shape {e_bf16.shape} or non-finite values")
+    report["encode_ms_bf16"] = {str(n): _median_ms(lambda n=n: full_bf16.encode(sentences[:n]))
+                                for n in (48, 8)}
+    del full_bf16
 
     # 4. localize_text at Config() width with the full encoder.
     coarse, fine = _models(cfg, torch.Generator().manual_seed(SEED + 14))
@@ -3825,6 +3957,7 @@ def main() -> int:
     records.update(phase_sa_train_kernels(dev))
     records.update(phase_optin_kernels(dev))
     counts = [phase_serve(dev, serve_kernels, absent=optin)]
+    counts.append(phase_trace(dev, serve_kernels + optin, smi))
     phase_serve_vs_cpu(dev)
     counts.append(phase_layers(dev, [cuda_ln.KERNEL, cuda_mha.KERNEL_TILED,
                                      cuda_ffn.KERNEL_TILED, cuda_mha.KERNEL, cuda_ffn.KERNEL,

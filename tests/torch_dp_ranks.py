@@ -207,3 +207,20 @@ def localizer_rank(mesh, cache_path=None) -> dict:
     if cache_path is not None:
         out["from_cache"] = make(cache_path=cache_path).localize(*args)
     return out
+
+
+def nt_xent_rank(mesh, z_i, z_j, temperature) -> dict:
+    """training/losses.nt_xent on this rank's rows of both views [B, D]
+    (numpy, every rank alike), or on all of them without a mesh: the loss
+    and the gradients of the rows taken."""
+    from text2loc_tpu_torch.training.losses import nt_xent
+
+    rows = slice(None)
+    if mesh is not None:
+        b = len(z_i) // mesh.size
+        rows = slice(mesh.rank * b, (mesh.rank + 1) * b)
+    zi = torch.tensor(z_i[rows], requires_grad=True)
+    zj = torch.tensor(z_j[rows], requires_grad=True)
+    loss = nt_xent(zi, zj, temperature, mesh=mesh)
+    loss.backward()
+    return {"loss": loss.detach(), "grad_i": zi.grad, "grad_j": zj.grad}

@@ -175,6 +175,10 @@ class MultiSceneArrays:
     def object_slots(self) -> int:
         return self.obj_xyz.shape[1]
 
+    @property
+    def stored_points(self) -> int:
+        return self.obj_xyz.shape[2]
+
     def gather_cell_objects(self, cell_indices, o_cap: int) -> Dict[str, np.ndarray]:
         """Object arrays of the given cells, truncated to `o_cap` slots (slots
         are stored real objects first, so a slice is the truncation)."""
@@ -261,6 +265,27 @@ class MultiSceneArrays:
             full += [o - 1] * (pad_size - len(full))
             order[i] = full
         return order
+
+    def fine_offset_targets(self, pose_indices, regressor_cell: str = "pose",
+                            regressor_learn: str = "center") -> np.ndarray:
+        """Legacy per-hint offset targets [B, S, 2]: the offsets within the
+        pose's cell ("pose"), or within the best cell with the pose cell's
+        for unmatched hints ("best"), to the object's center or closest
+        point (`regressor_learn`). The published config trains on the
+        absolute pose instead (gather_fine's `target`)."""
+        if regressor_learn not in ("center", "closest"):
+            raise ValueError(f"regressor_learn {regressor_learn!r}")
+        if regressor_cell not in ("pose", "best"):
+            raise ValueError(f"regressor_cell {regressor_cell!r}")
+        pi = np.asarray(pose_indices)
+        pose_arr = (self.offset_center if regressor_learn == "center"
+                    else self.offset_closest)[pi]
+        if regressor_cell == "pose":
+            return pose_arr.astype(np.float32)
+        best_arr = (self.best_offset_center if regressor_learn == "center"
+                    else self.best_offset_closest)[pi]
+        return np.where(self.hint_matched[pi][..., None], best_arr,
+                        pose_arr).astype(np.float32)
 
     def gather_fine(self, pose_indices, pad_size: int, cell_indices=None,
                     hint_obj_idx: Optional[np.ndarray] = None,

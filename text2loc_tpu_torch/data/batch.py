@@ -21,6 +21,10 @@ class ObjectSet(NamedTuple):
     color_idx: torch.Tensor    # [B, O] int  nearest colour-centroid index
     mask: torch.Tensor         # [B, O] bool True = real object
 
+    @property
+    def batch_shape(self):
+        return self.xyz.shape[:2]
+
 
 class TextSet(NamedTuple):
     """A batch of hint sets embedded by the frozen text table."""
@@ -28,6 +32,14 @@ class TextSet(NamedTuple):
     token_embeds: torch.Tensor   # [B, S, T, E]
     token_mask: torch.Tensor     # [B, S, T] bool
     sentence_mask: torch.Tensor  # [B, S] bool (True = hint present)
+
+
+class CoarseBatch(NamedTuple):
+    """One training batch of the coarse retrieval model (O = object_size)."""
+
+    objects: ObjectSet
+    text: TextSet
+    cell_index: torch.Tensor    # [B] int gallery index of the positive cell
 
 
 class FineBatch(NamedTuple):

@@ -7,10 +7,15 @@ cct(obj, hints) == cct_tail(cct_obj_pre(obj), ..., hints, cct_hints_pre(hints))
 exactly: the cascade's first self-attention blocks read one side only, so
 the serve caches cct_obj_pre per gallery cell and runs cct_hints_pre once
 per query; only cct_tail runs per (query, candidate) pair.
+
+get_pos_in_cell and get_pos_in_cell_intersect are the JAX module's legacy
+geometric position estimators, host-side numpy there and here: the port's
+own copies.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -89,11 +94,15 @@ class CrossMatch(nn.Module):
             hints = self.cross_hints[0](hints, obj, tgt_mask=hm, memory_mask=om)
         return self._offsets(hints, sentence_mask)
 
+    def refine(self, obj, obj_mask, text: TextSet) -> torch.Tensor:
+        """The query-dependent half: the hints encoded, then the cascade and
+        offsets over encoded objects -> [B, 2]."""
+        return self.cct(obj, obj_mask, self.encode_hints(text), text.sentence_mask)
+
     def forward(self, objects: ObjectSet, text: TextSet) -> torch.Tensor:
         """[B, 2] predicted normalized positions: the objects and hints
         through the full cascade (the training forward)."""
-        obj = self.encode_objects(objects)
-        return self.cct(obj, objects.mask, self.encode_hints(text), text.sentence_mask)
+        return self.refine(self.encode_objects(objects), objects.mask, text)
 
     def cct_obj_pre(self, obj, obj_mask) -> torch.Tensor:
         """Per cell: the layer-0 object self-attention block."""
@@ -121,3 +130,37 @@ class CrossMatch(nn.Module):
         else:
             cur = self.cross_hints[0](hints1, obj1, memory_mask=om, stage="rest")
         return self._offsets(cur, sentence_mask)
+
+
+def get_pos_in_cell(centers: np.ndarray, matches0: np.ndarray, offsets: np.ndarray):
+    """The mean of the matched objects' centers plus their hints' offsets.
+
+    centers: [O, 2] object centers in normalized cell coordinates;
+    matches0: [O] each object's matched hint, -1 unmatched; offsets: [S, 2]
+    each hint's predicted offset. Returns [2]; (0.5, 0.5) when nothing is
+    matched."""
+    matches0 = np.asarray(matches0)
+    valid = matches0 >= 0
+    if not np.any(valid):
+        return np.array((0.5, 0.5))
+    preds = centers[valid, :2] + offsets[matches0[valid]]
+    return preds.mean(axis=0)
+
+
+def get_pos_in_cell_intersect(centers: np.ndarray, matches0: np.ndarray,
+                              directions: np.ndarray):
+    """The least-squares intersection of the rays from the matched objects'
+    centers along their hints' directions [S, 2]; (0.5, 0.5) with fewer
+    than two matched objects."""
+    directions = directions / np.linalg.norm(directions, axis=1, keepdims=True)
+    matches0 = np.asarray(matches0)
+    valid = matches0 >= 0
+    p0 = centers[valid, :2]
+    if len(p0) < 2:
+        return np.array((0.5, 0.5))
+    p1 = p0 + directions[matches0[valid]]
+    n = (p1 - p0) / np.linalg.norm(p1 - p0, axis=1)[:, None]
+    projs = np.eye(n.shape[1]) - n[:, :, None] * n[:, None]
+    r = projs.sum(axis=0)
+    q = (projs @ p0[:, :, None]).sum(axis=0)
+    return np.linalg.lstsq(r, q, rcond=None)[0].ravel()

@@ -1,5 +1,5 @@
 """Voxel-grid downsampling on the device (the port of
-text2loc_tpu/prep/voxel.py: voxel_downsample_indices;
+text2loc_tpu/prep/voxel.py: voxel_downsample_indices, voxel_downsample;
 it replaces both the numpy path there and the C++ one of
 text2loc_tpu/native).
 
@@ -52,3 +52,10 @@ def voxel_downsample_indices(points, voxel_size: float, device="cuda") -> np.nda
                       torch.tensor([float(voxel_size)], dtype=torch.float64, device=dev))
     return to_numpy(torch.nonzero(keep)[:, 0])
 
+
+
+def voxel_downsample(points, voxel_size: float, device="cuda"):
+    """(points[idx], idx): the representatives of voxel_downsample_indices,
+    computed on `device` (the card unless "cpu" is asked for)."""
+    idx = voxel_downsample_indices(points, voxel_size, device=device)
+    return points[idx], idx
